@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of jamie_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Device: the card's name and power limit (nvidia-smi) and the versions.
+2. Build: every kernel from the sources in this checkout (nvcc for
+   csrc/*.cu, Triton's compiler for ops/pd_update.py).
+3. Kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and larger ones, with the stated tolerance, its
+   median time (CUDA events), the plain version's time, the least time the
+   card could take (bound) and, for K3, one PyTorch call computing the same
+   function (torch.cdist, which the port never calls).
+4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
+   to 20) on SNARE-seq-shaped synthetic data (1047 cells x 3000 RNA / 5000
+   ATAC, seed 0), with every launch count set to 0 just before it; then
+   FOSCTTM and label transfer, with the counts set to 0 again.
+5. Serve: transform, modal_predict, save_model -> JAMIE().load_model ->
+   identical modal_predict, with the counts set to 0 again; then a small
+   prime-dual solve on the card held against the same solve on the CPU,
+   for each precision and state dtype.
+6. A `kernels` JSON line, the nvidia-smi line, and as the last line
+   {"ok": true, "device": {...}}.
+
+Any failure ends the run with a non-zero exit code before the last line.
+It exits non-zero without a result when no CUDA device is visible or when
+the jamie_tpu_torch package is not next to it.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# Published dense peaks (NVIDIA data sheet) of each card this script has run
+# on, by torch.cuda.get_device_name: bytes/s of device memory and float32
+# FLOP/s outside the tensor cores.
+PEAKS = {
+    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12),     # H100 SXM
+}
+
+
+def fail(msg):
+    print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def make_snare_like(n=1047, d_rna=3000, d_atac=5000, seed=0):
+    """Synthetic SNARE-seq-shaped paired data (cell lines, ~1k cells): the
+    generator of bench.py."""
+    rng = np.random.RandomState(seed)
+    k = 16
+    z = rng.randn(n, k).astype(np.float32)
+    # 4 "cell line" clusters
+    centers = rng.randn(4, k).astype(np.float32) * 2
+    assign = rng.randint(0, 4, n)
+    z += centers[assign]
+    x_rna = np.maximum(z @ rng.randn(k, d_rna).astype(np.float32)
+                       + 0.5 * rng.randn(n, d_rna).astype(np.float32), 0)
+    x_atac = (z @ rng.randn(k, d_atac).astype(np.float32)
+              + 0.5 * rng.randn(n, d_atac).astype(np.float32) > 0.5
+              ).astype(np.float32)
+    return [x_rna, x_atac], assign
+
+
+def peaks_for(name):
+    if name not in PEAKS:
+        fail(f'no published peaks for {name!r}; add them to PEAKS')
+    return PEAKS[name]
+
+
+def time_ms(torch, fn):
+    """(device_ms, call_ms): median ms per call from CUDA events.
+
+    call_ms times the calls as the host issues them, so a short call
+    measures the host's launch overhead. device_ms queues the same calls
+    behind a GPU sleep long enough for the host to enqueue all of them, so
+    the card runs them back to back: the card's own time per call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t
+    inner = max(1, min(50, int(5e-3 / max(one, 1e-6))))
+    reps = 5 if one > 0.05 else 11
+    dev, call = [], []
+    for _ in range(reps):
+        for out, sleep in ((call, 0), (dev, one < 5e-3)):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            if sleep:   # ~2e9 cycles/s, twice the host's enqueue time
+                torch.cuda._sleep(int(2 * inner * one * 2e9))
+            start.record()
+            for _ in range(inner):
+                fn()
+            stop.record()
+            stop.synchronize()
+            out.append(start.elapsed_time(stop) / inner)
+    return statistics.median(dev), statistics.median(call)
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class KernelPhase:
+    """Hold each kernel against its plain version and time both."""
+
+    def __init__(self, torch, bw, fp32):
+        self.torch = torch
+        self.bw, self.fp32 = bw, fp32
+        self.dev = torch.device('cuda')
+        self.gen = torch.Generator(device=self.dev).manual_seed(0)
+        self.rows = []
+
+    def bound(self, bytes_, flops):
+        t_bytes, t_ops = bytes_ / self.bw * 1e3, flops / self.fp32 * 1e3
+        return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+    def record(self, kernel, case, err, check, tol, ms, plain_ms, bytes_,
+               flops, library_ms=None):
+        """err: max |kernel - plain|; check: the quantity held to tol; ms,
+        plain_ms, library_ms: (device_ms, call_ms) pairs from time_ms."""
+        bound_ms, bound_by = self.bound(bytes_, flops)
+        row = dict(kernel=kernel, case=case, max_abs_err=err, check=check,
+                   tol=tol, ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   library_ms=None if library_ms is None else library_ms[0],
+                   call_ms=ms[1], plain_call_ms=plain_ms[1],
+                   library_call_ms=None if library_ms is None else library_ms[1])
+        self.rows.append(row)
+        print('kernel ' + json.dumps(row), flush=True)
+        if not check <= tol:
+            fail(f'{kernel} {case}: {check} exceeds the tolerance {tol}')
+
+    def pd_update(self, m, n, m1_dtype, has_grad=True):
+        torch = self.torch
+        from jamie_tpu_torch.ops import pd_update as K
+        g, dev = self.gen, self.dev
+
+        def r(*shape, scale=1.0):
+            return torch.rand(*shape, device=dev, generator=g) * scale
+
+        F = r(m, n, scale=1e-3)
+        M1 = (r(m, n) - 0.5).to(m1_dtype)
+        M2 = r(m, n)
+        S, Mu, Lam = r(n, 1), r(m, 1) - 0.5, r(n, 1) - 0.5
+        rs, cs = F.sum(1, keepdim=True), F.sum(0, keepdim=True)
+        mm4, kx = r(m, n), r(m, n).to(m1_dtype)
+        a = torch.tensor(0.8, device=dev)
+        i, eps, rho = 7, 1e-3, 10.0
+        if has_grad:
+            name = 'pd_grad_update'
+            args = (F, M1, M2, mm4, kx, Mu, Lam, S, rs, cs, a, i, eps, rho)
+            kern, plain = K.fused_pd_grad_update, K.fused_pd_grad_update_plain
+            ins = (F, M1, M2, mm4, kx, rs, cs, a)
+            flops = 22 * m * n
+        else:
+            name = 'pd_update'
+            args = (F, M1, M2, mm4, i, eps)
+            kern, plain = K.fused_pd_update, K.fused_pd_update_plain
+            ins = (F, M1, M2, mm4)
+            flops = 17 * m * n
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        # Elementwise |kernel - plain| <= atol + rtol |plain|: rtol 1e-5 for
+        # f32 outputs (division/sqrt order, FMA contraction); a bf16 M1' may
+        # land one bf16 ulp (<= 2^-7 relative) away, so rtol 8e-3 there.
+        err, worst = 0.0, 0.0
+        for k_out, p_out in zip(got, want):
+            rtol = 8e-3 if p_out.dtype == torch.bfloat16 else 1e-5
+            k_out, p_out = k_out.float(), p_out.float()
+            diff = (k_out - p_out).abs()
+            atol = 1e-6 * float(p_out.abs().max()) + 1e-12
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / (atol + rtol * p_out.abs())).max()))
+        ms = time_ms(torch, lambda: kern(*args))
+        plain_ms = time_ms(torch, lambda: plain(*args))
+        case = f'{m}x{n} M1={str(m1_dtype).split(".")[-1]}'
+        self.record(name, case, err, worst, 1.0, ms, plain_ms,
+                    nbytes(*ins, *got), flops)
+
+    def pairwise(self, x, y, squared):
+        torch = self.torch
+        from jamie_tpu_torch.ops.pairwise import (pairwise_euclidean,
+                                                  pairwise_euclidean_plain)
+        got = pairwise_euclidean(x, y, squared=squared)
+        want = pairwise_euclidean_plain(x, y, squared=squared)
+        torch.cuda.synchronize()
+        xsq = (x * x).sum(1)
+        ysq = xsq if y is None else (y * y).sum(1)
+        # Gram cancellation: both compute |x|^2 + |y|^2 - 2 x.y in float32
+        # with different summation orders, so the squared distances agree to
+        # 1e-5 of the norm scale; sqrt outputs are held on their squares.
+        tol = 1e-5 * float(xsq.max() + ysq.max())
+        err = float((got - want).abs().max())
+        check = err if squared else float((got * got - want * want).abs().max())
+        ms = time_ms(torch, lambda: pairwise_euclidean(x, y, squared=squared))
+        plain_ms = time_ms(
+            torch, lambda: pairwise_euclidean_plain(x, y, squared=squared))
+        yy = x if y is None else y
+        library_ms = (None if squared else
+                      time_ms(torch, lambda: torch.cdist(x, yy)))
+        m, f = x.shape
+        n = yy.shape[0]
+        ins = (x, xsq) if y is None else (x, y, xsq, ysq)
+        case = (f'{m}x{n}x{f} {"self" if y is None else "cross"} '
+                f'{"squared" if squared else "sqrt"}')
+        self.record('pairwise_euclidean', case, err, check, tol, ms, plain_ms,
+                    nbytes(*ins, got), 2 * m * n * f + 5 * m * n, library_ms)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this run needs a CUDA card')
+    try:
+        from jamie_tpu_torch import JAMIE, ops
+        from jamie_tpu_torch.core.dtypes import MM_OUT_DTYPE_ON_CUDA
+        from jamie_tpu_torch.ops import _build
+        from jamie_tpu_torch.solvers.prime_dual import prime_dual
+    except ImportError as e:
+        fail(f'jamie_tpu_torch is not importable next to this script: {e}')
+    t_start = time.perf_counter()
+
+    # 1. Device
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    smi_line = smi[0]
+    kind = torch.cuda.get_device_name(0)
+    bw, fp32 = peaks_for(kind)
+    import triton
+    print(f'device: {smi_line} | torch {torch.__version__} cuda '
+          f'{torch.version.cuda} triton {triton.__version__} | bf16 matmul route: '
+          f'{"mm_out_dtype" if MM_OUT_DTYPE_ON_CUDA else "rounded_f32"}',
+          flush=True)
+
+    # 2. Build every kernel from this checkout's sources
+    t = time.perf_counter()
+    _build.load('pairwise_sq_euclidean')
+    usage = [ln.strip() for ln in
+             _build.build_log('pairwise_sq_euclidean').splitlines()
+             if 'Used' in ln]
+    print(f'build: nvcc csrc/pairwise_sq_euclidean.cu '
+          f'{time.perf_counter() - t:.2f} s; {usage}')
+    t = time.perf_counter()
+    dev = torch.device('cuda')
+    tiny = torch.zeros((8, 8), device=dev)
+    a0 = torch.zeros((), device=dev)
+    col, row = torch.zeros((8, 1), device=dev), torch.zeros((1, 8), device=dev)
+    for m1 in (tiny, tiny.bfloat16()):
+        ops.fused_pd_grad_update(tiny, m1, tiny, tiny, m1, col, col, col, col,
+                                 row, a0, 1, 1e-3, 10.0)
+        ops.fused_pd_update(tiny, m1, tiny, tiny, 1, 1e-3)
+    torch.cuda.synchronize()
+    print(f'build: triton ops/pd_update.py {time.perf_counter() - t:.2f} s',
+          flush=True)
+
+    # 3. Kernels against their plain versions
+    kp = KernelPhase(torch, bw, fp32)
+    data, labels = make_snare_like()
+    for (m, n, dt) in ((1047, 1047, torch.float32), (1047, 1047, torch.bfloat16),
+                       (1000, 1037, torch.float32), (9190, 9190, torch.float32),
+                       (9190, 9190, torch.bfloat16)):
+        kp.pd_update(m, n, dt)
+    kp.pd_update(1047, 1047, torch.float32, has_grad=False)
+    g = kp.gen
+    x_rna = torch.as_tensor(data[0], device=dev)
+    x_atac = torch.as_tensor(data[1], device=dev)
+    emb = [torch.randn(1047, 32, device=dev, generator=g) for _ in range(2)]
+    kp.pairwise(x_rna, None, squared=False)          # geodesic base, RNA
+    kp.pairwise(x_atac, None, squared=False)         # geodesic base, ATAC
+    kp.pairwise(emb[0], emb[1], squared=True)        # FOSCTTM / kNN
+    kp.pairwise(x_atac, None, squared=True)
+    kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=False)
+    kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=True)
+    xr = torch.randn(1000, 333, device=dev, generator=g)
+    yr = torch.randn(1037, 333, device=dev, generator=g)
+    kp.pairwise(xr, yr, squared=True)
+    kp.pairwise(xr, None, squared=False)
+    big = torch.randn(9190, 28930, device=dev, generator=g)
+    big2 = torch.randn(9190, 28930, device=dev, generator=g)
+    for y in (None, big2):
+        for sq in (True, False):
+            kp.pairwise(big, y, squared=sq)
+    del big, big2, xr, yr
+    torch.cuda.empty_cache()
+
+    # 4. Fit, with every launch count at 0 just before it
+    kw = dict(epoch_DNN=20, min_epochs=10, use_early_stop=False)
+    jm = JAMIE(**kw)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    integrated = jm.fit_transform(dataset=data)
+    fit_s = time.perf_counter() - t
+    fit_counts = ops.launch_counts()
+    print(f'fit: {fit_s:.3f} s; phases {jm.phase_timings}; mapping '
+          f'{ {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
+          f'launches {fit_counts}', flush=True)
+    if fit_counts['fused_pd_grad_update'] != jm.config.epoch_pd:
+        fail(f'K1 launched {fit_counts["fused_pd_grad_update"]} times in the '
+             f'fit, expected epoch_pd={jm.config.epoch_pd}')
+    if fit_counts['pairwise_euclidean'] < 2:
+        fail('K3 launched fewer than 2 times in the fit')
+    for i, e in enumerate(integrated):
+        if e.shape != (1047, 32) or not np.isfinite(e).all():
+            fail(f'embedding {i}: shape {e.shape}, finite {np.isfinite(e).all()}')
+    # Metrics, a path of their own: FOSCTTM's distances go through K3
+    ops.reset_launch_counts()
+    foscttm = jm.test_closer(integrated)
+    lta = jm.test_LabelTA(integrated, [labels, labels])
+    metric_counts = ops.launch_counts()
+    if not (np.isfinite(foscttm) and np.isfinite(lta)):
+        fail(f'non-finite metrics: FOSCTTM {foscttm}, LTA {lta}')
+    print(f'metrics: FOSCTTM {foscttm} LTA {lta} epochs {jm.epochs_run} '
+          f'train {jm.fit_seconds:.3f} s; launches {metric_counts}',
+          flush=True)
+    if metric_counts['pairwise_euclidean'] < 1:
+        fail('K3 was not launched by the metrics')
+
+    # 5. Serve: transform, imputation, checkpoint round trip
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    emb_t = jm.transform(data)
+    imputed = jm.modal_predict(data[0], 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'model.npz')
+        jm.save_model(path)
+        imputed2 = JAMIE().load_model(path).modal_predict(data[0], 0)
+    serve_s = time.perf_counter() - t
+    if not np.array_equal(imputed, imputed2):
+        fail(f'modal_predict differs after save/load: max '
+             f'{np.abs(imputed - imputed2).max()}')
+    if (imputed.shape != data[1].shape or not np.isfinite(imputed).all()
+            or not np.allclose(emb_t[0], integrated[0], rtol=1e-5, atol=1e-5)):
+        fail('serve outputs are off')
+    serve_counts = ops.launch_counts()
+    print(f'serve: {serve_s:.3f} s; transform == fit output; modal_predict '
+          f'identical after save/load; launches {serve_counts}', flush=True)
+
+    # Reference on a small input: the same solve on the card and on the CPU,
+    # for each precision arm. 'default' is the fit's arm: bf16 operands with
+    # an f32 result, through torch.mm(out_dtype=float32) on the card and
+    # rounded-f32 operands on the CPU. Tolerances (of max F, 50 iterations)
+    # are those of tests/test_torch_prime_dual.py: f32 summation order only
+    # for 'highest' and 'default'; one bf16 ulp in the stored state for
+    # state_dtype='bfloat16'.
+    rng = np.random.RandomState(3)
+    xs = rng.randn(64, 5).astype(np.float32)
+    Kx = ((xs[:, None] - xs[None]) ** 2).sum(-1)
+    Ky = Kx[::-1, ::-1].copy()
+    for precision, state_dtype, tol in (('highest', 'float32', 1e-4),
+                                        ('default', 'float32', 1e-4),
+                                        ('default', 'bfloat16', 1e-3)):
+        kw = dict(epoch_pd=50, verbose=False, precision=precision,
+                  state_dtype=state_dtype)
+        F_gpu = prime_dual(Kx, Ky, 5, 5, **kw).cpu().numpy()
+        F_cpu = prime_dual(Kx, Ky, 5, 5, device='cpu', **kw).numpy()
+        pd_err = float(np.abs(F_gpu - F_cpu).max())
+        limit = tol * float(np.abs(F_cpu).max())
+        print(f'reference: prime_dual 64x64x50 precision={precision} '
+              f'state_dtype={state_dtype} card vs CPU max |dF| {pd_err} '
+              f'(limit {limit})', flush=True)
+        if not pd_err <= limit:
+            fail(f'prime_dual ({precision}, {state_dtype}) on the card '
+                 f'disagrees with the CPU')
+
+    # 6. The kernels line, the device line, the result
+    main_case = {'pd_grad_update': '1047x1047 M1=float32',
+                 'pd_update': '1047x1047 M1=float32',
+                 'pairwise_euclidean': '1047x1047x5000 self sqrt'}
+    meta = {
+        'pd_grad_update': ('fused_pd_grad_update', 'triton',
+                           'jamie_tpu_torch/ops/pd_update.py',
+                           'jamie_tpu/ops/ab_archive.py:137'),
+        'pd_update': ('fused_pd_update', 'triton',
+                      'jamie_tpu_torch/ops/pd_update.py',
+                      'jamie_tpu/ops/ab_archive.py:180'),
+        'pairwise_euclidean': ('pairwise_euclidean', 'cuda',
+                               'jamie_tpu_torch/csrc/pairwise_sq_euclidean.cu',
+                               'jamie_tpu/ops/ab_archive.py:232'),
+    }
+    kernels = []
+    for key, case in main_case.items():
+        row = next(r for r in kp.rows if r['kernel'] == key and r['case'] == case)
+        fn, route, source, replaces = meta[key]
+        kernels.append(dict(
+            name=key, route=route, source=source, replaces=replaces,
+            launches=fit_counts[fn], max_abs_err=row['max_abs_err'],
+            ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
+            bound_by=row['bound_by'], library_ms=row['library_ms']))
+    print(f'total: {time.perf_counter() - t_start:.1f} s', flush=True)
+    print(json.dumps({'kernels': kernels}))
+    print(smi_line)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

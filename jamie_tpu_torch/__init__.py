@@ -1,0 +1,28 @@
+"""jamie_tpu_torch — JAMIE on PyTorch and CUDA, for one NVIDIA H100.
+
+The PyTorch port of `jamie_tpu`, module for module, with the TPU's Pallas
+kernels rewritten by hand for Hopper: the prime-dual iteration tail in
+Triton (`ops/pd_update.py`) and the pairwise euclidean distance in CUDA C++
+(`ops/pairwise.py`, `csrc/`). It imports nothing of jax or `jamie_tpu`.
+
+    from jamie_tpu_torch import JAMIE
+    jm = JAMIE()                        # the CUDA card; JAMIE(device='cpu')
+    integrated = jm.fit_transform(dataset=[rna, atac])
+    imputed_atac = jm.modal_predict(rna, 0)
+"""
+
+from .core.dtypes import pin_fp32_matmuls
+
+pin_fp32_matmuls()
+
+from ._meta import __version__, __reference_version__  # noqa: E402
+from .config import JamieConfig, config_from_kwargs  # noqa: E402
+from .estimator import JAMIE  # noqa: E402
+from .models import CoupledVAE  # noqa: E402
+from .preprocess import PCA, Preprocessor  # noqa: E402
+
+__all__ = [
+    '__version__', '__reference_version__',
+    'JAMIE', 'JamieConfig', 'config_from_kwargs',
+    'CoupledVAE', 'PCA', 'Preprocessor',
+]

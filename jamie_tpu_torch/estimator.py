@@ -1,0 +1,354 @@
+"""The JAMIE estimator — the public scikit-learn-style API, on PyTorch.
+
+Reference parity: `jamie_tpu/estimator.py` (class `JAMIE`, itself
+jamie/jamie.py:29-972). Same surface: `fit_transform(dataset, P)`,
+`compute_distances`, `match`, `Prime_Dual`, `project_jamie`,
+`modal_predict`, `transform`, `transform_one`, `test_closer`,
+`test_LabelTA`, `test_label_dist`, `save_model`, `load_model`.
+
+`JAMIE(device=...)` picks the device; with none given it runs on the CUDA
+card and raises when there is none (`device='cpu'` is the explicit CPU
+route). Everything outside the dense main path raises NotImplementedError
+naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+from itertools import product
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ._meta import __version__
+from .config import config_from_kwargs
+from .core.dtypes import resolve_device
+from .core.hostmat import is_scipy_sparse
+from .core.timing import TimeLogger
+from .models.convert import load_flax_variables, to_flax_variables
+from .models.coupled_vae import CoupledVAE
+from .ops.distances import dataset_distance_matrix
+from .persistence import load_checkpoint, save_checkpoint
+from .preprocess import Preprocessor
+from .solvers.prime_dual import prime_dual
+from .train.trainer import JamieTrainer
+
+# jamie_tpu passes string sentinels for P/F past this many N0*N1 entries
+# (estimator.py:41): ROADMAP.md item 9.
+SENTINEL_ENTRIES = 50_000_000
+# Dense prime-dual state: exact f32 up to this many (N0, N1) entries, bf16
+# M1 / carried products above ('auto', estimator.py:50).
+DENSE_F32_STATE_ENTRIES = 250_000_000
+# Past this many entries jamie_tpu switches to landmark F (estimator.py:59):
+# ROADMAP.md item 10.
+LANDMARK_AUTO_ENTRIES = 520_000_000
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is not ported to jamie_tpu_torch yet: ROADMAP.md item {item}')
+
+
+def _check_config(cfg) -> None:
+    """Refuse, up front, every config feature this port does not have."""
+    if cfg.project_mode == 'tsne':
+        raise _unported("project_mode='tsne'", 12)
+    if cfg.model_pca != 'pca':
+        raise _unported(f'model_pca={cfg.model_pca!r}', 12)
+    if cfg.corr_method != 'unioncom':
+        raise _unported(f'corr_method={cfg.corr_method!r}', 12)
+    if cfg.compute_dtype != 'float32':
+        raise _unported(f'compute_dtype={cfg.compute_dtype!r}', 13)
+    if cfg.corr_landmarks is not None:
+        raise _unported('landmark F (corr_landmarks)', 10)
+    if cfg.f_top_k is not None:
+        raise _unported('f_top_k (SparseRows F)', 9)
+    if cfg.checkpoint_dir is not None:
+        raise _unported('checkpoint_dir (mid-fit snapshots)', 13)
+    if cfg.metrics_path is not None:
+        raise _unported('metrics_path (per-chunk JSONL)', 13)
+
+
+def _unwrap_anndata(dataset):
+    """AnnData unwrap (jamie/jamie.py:147-149), duck-typed on `.X`+`.obs`."""
+    if dataset and all(hasattr(d, 'X') and hasattr(d, 'obs')
+                       for d in dataset):
+        return [d.X for d in dataset], dataset
+    return dataset, None
+
+
+class JAMIE:
+    """Joint variational autoencoders for multimodal imputation & embedding,
+    on PyTorch. Accepts the reference's kwargs; see `JamieConfig`."""
+
+    def __init__(self, match_result=None, mesh=None,
+                 use_mesh: Optional[bool] = None, device=None, **kwargs):
+        if mesh is not None:
+            raise _unported('a device mesh', 14)
+        del use_mesh   # one card: nothing to shard over
+        self.device = resolve_device(device)
+        self.P = kwargs.pop('P', None)
+        self.config = config_from_kwargs(**kwargs)
+        _check_config(self.config)
+        self.match_result = match_result
+        self.model: Optional[CoupledVAE] = None
+        self.preprocessors: Optional[Sequence[Preprocessor]] = None
+        self.dataset_num = 2
+        self.loss_history = {}
+        self.dist = None
+        self.trainer: Optional[JamieTrainer] = None
+
+    # ------------------------------------------------------------------ fit
+    def fit_transform(self, dataset=None, P=None):
+        """Full pipeline: distances -> correspondence F -> coupled-VAE
+        training -> integrated embeddings (jamie/jamie.py:113-222)."""
+        cfg = self.config
+        if P is not None:
+            self.P = P
+
+        time = TimeLogger(memory_usage=cfg.enable_memory_logging, block=True)
+        np.random.seed(cfg.manual_seed)
+
+        self.dataset, self.dataset_annotation = _unwrap_anndata(dataset)
+        if any(is_scipy_sparse(d) for d in self.dataset):
+            raise _unported('sparse input matrices', 11)
+        self.dataset = [d if isinstance(d, np.ndarray) else np.asarray(d)
+                        for d in self.dataset]
+        self.dataset_num = len(self.dataset)
+        assert self.dataset_num == 2, (
+            'Currently only compatible with 2 modalities.')
+        self.row = [int(np.shape(d)[0]) for d in self.dataset]
+        self.col = [int(np.shape(d)[1]) for d in self.dataset]
+        entries = self.row[0] * self.row[1]
+        if (cfg.use_f_tilde and self.match_result is None
+                and entries > LANDMARK_AUTO_ENTRIES):
+            raise _unported(f'landmark F at {entries:,} (N0, N1) entries', 10)
+        if entries > SENTINEL_ENTRIES:
+            raise _unported(f'sentinel P/F at {entries:,} (N0, N1) entries', 9)
+
+        self.compute_distances(save_dist=(
+            self.match_result is None and cfg.use_f_tilde))
+        time.log('Distance')
+
+        if not cfg.use_f_tilde:
+            self.match_result = [
+                np.zeros([d.shape[0] for d in self.dataset], np.float32)]
+        if self.match_result is None:
+            self.match_result = self.match()
+        time.log('Correspondence')
+
+        match_matrix = [[None for _ in range(self.dataset_num)]
+                        for _ in range(self.dataset_num)]
+        k = 0
+        for i, j in product(*(2 * [range(self.dataset_num)])):
+            if i < j:   # project_jamie reads only the upper slot W[0][1]
+                match_matrix[i][j] = self.match_result[k]
+                k += 1
+        integrated_data = self.project_jamie(match_matrix)
+        time.log('Mapping')
+
+        print('-' * 33)
+        print('JAMIE Done!')
+        time.aggregate()
+        self.phase_timings = {k: round(float(v), 3)
+                              for k, v in time.totals().items()}
+        time.stop()
+        print()
+        return integrated_data
+
+    # ------------------------------------------------------------ distances
+    def compute_distances(self, save_dist: bool = True):
+        """Per-dataset distance matrices (jamie/jamie.py:839-890)."""
+        cfg = self.config
+        if save_dist:
+            self.dist = []
+        print('Shape of Raw data')
+        for i in range(self.dataset_num):
+            print('Dataset {}:'.format(i), np.shape(self.dataset[i]))
+            if save_dist:
+                self.dist.append(dataset_distance_matrix(
+                    self.dataset[i], cfg.distance_mode, kmax=cfg.kmax,
+                    device=self.device))
+
+    # -------------------------------------------------------- correspondence
+    def match(self):
+        """Find correspondence between multi-omics datasets
+        (jamie/jamie.py:224-250)."""
+        print('Device:', self.device.type)
+        cor_pairs = []
+        for i in range(self.dataset_num):
+            for j in range(i + 1, self.dataset_num):
+                print('-' * 33)
+                print(f'Find correspondence between Dataset {i + 1} '
+                      f'and Dataset {j + 1}')
+                cor_pairs.append(self.Prime_Dual(
+                    [self.dist[i], self.dist[j]],
+                    dx=self.col[i], dy=self.col[j]))
+        print('Finished Matching!')
+        return cor_pairs
+
+    def _resolved_state_dtype(self, entries: int) -> str:
+        """'auto' -> exact f32 state up to DENSE_F32_STATE_ENTRIES, bf16
+        state above (jamie_tpu/estimator.py:315-326)."""
+        st = self.config.solver_state_dtype
+        if st != 'auto':
+            return st
+        return ('float32' if entries <= DENSE_F32_STATE_ENTRIES
+                else 'bfloat16')
+
+    def Prime_Dual(self, dist, dx=None, dy=None, verbose=True):
+        cfg = self.config
+        entries = int(np.shape(dist[0])[0]) * int(np.shape(dist[1])[0])
+        return prime_dual(
+            dist[0], dist[1], dx=dx, dy=dy,
+            epoch_pd=cfg.epoch_pd, rho=cfg.rho, epsilon=cfg.epsilon,
+            delay=cfg.delay, log_pd=cfg.log_pd, verbose=verbose,
+            precision=('highest' if cfg.solver_dtype == 'float32'
+                       else 'default'),
+            state_dtype=self._resolved_state_dtype(entries),
+            device=self.device)
+
+    # ------------------------------------------------------------- training
+    def project_jamie(self, W):
+        """Train the coupled VAE and return integrated embeddings
+        (jamie/jamie.py:416-804)."""
+        cfg = self.config
+        print('-' * 33)
+        print('Train coupled autoencoders')
+        assert len(W) == 2, 'Currently only compatible with 2 modalities.'
+        if self.P is None:
+            # P defaults (jamie_tpu/estimator.py:356-371, dense only)
+            self.P = (np.eye(self.row[0], dtype=np.float32)
+                      if self.row[0] == self.row[1]
+                      else np.zeros((self.row[0], self.row[1]), np.float32))
+        self.F = W[0][1]
+
+        pca_dims = cfg.pca_dim if cfg.pca_dim is not None else (None, None)
+        timer = TimeLogger(block=True)
+        self.preprocessors = tuple(
+            Preprocessor.fit(data, pca_dim=dim, method=cfg.model_pca,
+                             device=self.device)
+            for dim, data in zip(pca_dims, self.dataset))
+        transformed = [pre.transform_fit() for pre in self.preprocessors]
+        timer.log('Preprocessing')
+        self.col = [int(x.shape[1]) for x in transformed]
+
+        self.model = CoupledVAE(
+            input_dim=tuple(self.col), output_dim=cfg.output_dim,
+            dropout=cfg.dropout,
+            matmul_bf16=cfg.model_matmul_dtype == 'bfloat16',
+            seed=cfg.manual_seed)
+        self.trainer = JamieTrainer(cfg, self.model, transformed, self.P,
+                                    self.F, device=self.device)
+        timer.log('Trainer setup')
+        self.trainer.fit()
+        timer.log('Training')
+        self.loss_history = self.trainer.loss_history
+        self.epochs_run = self.trainer.epochs_run
+        self.fit_seconds = self.trainer.fit_seconds
+        self.sampling_method = self.trainer.sampling_method
+
+        integrated_data = self.trainer.final_embed()
+        timer.log('Output')
+        print('Finished Mapping!')
+        if cfg.debug:
+            timer.aggregate()
+        self._mapping_timings = timer.totals()
+        return integrated_data
+
+    # ------------------------------------------------------------ inference
+    def _require_model(self):
+        assert self.model is not None, (
+            'Model must be trained before modal prediction.')
+        self.model.eval()
+
+    def _to_device(self, data) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(data, np.float32),
+                               device=self.device)
+
+    @torch.no_grad()
+    def modal_predict(self, data, modality: int,
+                      pre_transformed: bool = False):
+        """Cross-modal imputation (jamie/jamie.py:806-815)."""
+        self._require_model()
+        to_modality = (modality + 1) % self.dataset_num
+        if not pre_transformed:
+            data = self.preprocessors[modality].transform(data)
+        decoded = self.model.impute(self._to_device(data), modality,
+                                    to_modality)
+        return np.asarray(self.preprocessors[to_modality].inverse_transform(
+            decoded.cpu().numpy()))
+
+    def transform(self, dataset, corr=None, pre_transformed: bool = False):
+        """Re-embed both modalities with a trained model
+        (jamie/jamie.py:817-829): the eval-mode mu heads, which is what the
+        reference's full forward returns as output[0]; `corr` is accepted
+        for signature parity and never influences the result."""
+        del corr
+        return [self.transform_one(dataset[i], i, pre_transformed)
+                for i in range(len(dataset))]
+
+    @torch.no_grad()
+    def transform_one(self, data, i: int, pre_transformed: bool = False):
+        """Single-modality embedding via the mu head (jamie/jamie.py:831-837)."""
+        self._require_model()
+        if not pre_transformed:
+            data = self.preprocessors[i].transform(data)
+        return self.model.embed_one(self._to_device(data), i).cpu().numpy()
+
+    # -------------------------------------------------------------- metrics
+    def test_closer(self, integrated_data, distance_metric=None):
+        """FOSCTTM, both directions (jamie/jamie.py:892-915)."""
+        from .evaluation import test_closer
+        return test_closer(integrated_data, distance_metric=distance_metric,
+                           device=self.device)
+
+    def test_label_dist(self, integrated_data, datatype,
+                        distance_metric=None, verbose=True):
+        """Inter-label centroid distances (jamie/jamie.py:917-941)."""
+        from .evaluation import test_label_dist
+        return test_label_dist(integrated_data, datatype,
+                               distance_metric=distance_metric,
+                               verbose=verbose, device=self.device)
+
+    def test_LabelTA(self, integrated_data, datatype, k=None,
+                     return_k: bool = False):
+        """Label-transfer accuracy via kNN (jamie/jamie.py:943-961)."""
+        from .evaluation import knn_label_transfer_accuracy
+        acc, k = knn_label_transfer_accuracy(integrated_data, datatype, k=k,
+                                             device=self.device)
+        if return_k:
+            return acc, k
+        return acc
+
+    # ---------------------------------------------------------- persistence
+    def save_model(self, f):
+        """Array-based checkpoint in jamie_tpu's npz layout."""
+        header = {
+            'version': __version__,
+            'input_dim': list(self.model.input_dim),
+            'output_dim': self.model.output_dim,
+            'dropout': self.model.dropout,
+            'num_modalities': self.dataset_num,
+            'matmul_bf16': bool(self.model.matmul_bf16),
+            'compute_bf16': False,
+        }
+        params, batch_stats = to_flax_variables(self.model)
+        save_checkpoint(f, params, batch_stats, self.preprocessors, header)
+
+    def load_model(self, f):
+        """Restore a checkpoint written by either package."""
+        params, batch_stats, pres, header = load_checkpoint(
+            f, device=self.device)
+        if header.get('compute_bf16'):
+            raise _unported('a checkpoint with bf16 model compute', 13)
+        self.preprocessors = pres
+        self.dataset_num = int(header['num_modalities'])
+        self.model = CoupledVAE(
+            input_dim=tuple(header['input_dim']),
+            output_dim=int(header['output_dim']),
+            dropout=header['dropout'],
+            matmul_bf16=bool(header.get('matmul_bf16', False)))
+        load_flax_variables(self.model, params, batch_stats)
+        self.model.to(self.device).eval()
+        return self

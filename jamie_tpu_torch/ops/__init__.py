@@ -1,0 +1,22 @@
+"""Kernels and the device ops built on them.
+
+- `pd_update`: K1/K2, the prime-dual iteration tail (Triton).
+- `pairwise`: K3, pairwise (squared) euclidean distances (CUDA C++).
+- `distances`: the distance-matrix dispatch on top of K3.
+- `_build`: nvcc + ctypes loader for `csrc/*.cu`.
+"""
+
+from .pairwise import pairwise_euclidean
+from .pd_update import fused_pd_grad_update, fused_pd_update
+
+KERNEL_WRAPPERS = (fused_pd_grad_update, fused_pd_update, pairwise_euclidean)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

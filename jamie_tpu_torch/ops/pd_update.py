@@ -1,0 +1,203 @@
+"""K1 + K2: the prime-dual iteration tail, one Triton kernel.
+
+Replaces `jamie_tpu/ops/ab_archive.py::fused_pd_grad_update` (K1, call
+:137, body `_pd_grad_update_kernel` :83-108) and `fused_pd_update` (K2,
+call :180, body `_pd_update_kernel` :64-80). K2 is K1 without the gradient
+assembly, so both are one `@triton.jit` kernel specialised by the
+`HAS_GRAD` constexpr. Per (m, n) entry:
+
+    grad = 4 mm4 - 4a KxFKy + rowvec + colvec          (K1 only)
+    M1'  = 0.9 M1 + 0.1 grad;   M2' = 0.999 M2 + 0.001 grad^2
+    step = (M1'/bias1) / (sqrt(M2'/bias2) + 1e-7)
+    F'   = (1 - eps) F + eps max(F - step, 0)
+
+What bounds it on an H100: memory. K1 moves 32 bytes per entry in float32
+(five loads, three stores) for about 20 FLOPs, far below the ~20 FLOP/byte
+where the card's float32 rate would matter. The design is one pass of
+masked, coalesced 2-D block loads over a 2-D grid with a ragged edge, the
+row and column vectors broadcast from registers, and every intermediate
+(grad, the bias-corrected moments) kept in registers. `a` is read from a
+1-element device tensor, so the solver never syncs the host to pass it.
+M1 and KxFKy load and store in their own dtype (f32, or bf16 for
+state_dtype='bfloat16'); the arithmetic is always f32.
+
+`fused_pd_grad_update` / `fused_pd_update` launch the kernel for CUDA
+tensors and run the plain PyTorch versions (`*_plain`) for CPU tensors; any
+other input raises. Each wrapper's `.launches` counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+PHO1, PHO2, DELTA = 0.9, 0.999, 1e-7
+BLOCK_M, BLOCK_N, NUM_WARPS = 8, 256, 4
+
+_kernel = None
+
+
+def _triton_kernel():
+    """Build the Triton kernel on first launch (triton is imported here, so
+    the module imports where triton is absent)."""
+    global _kernel
+    if _kernel is not None:
+        return _kernel
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def pd_update_kernel(f_ptr, m1_ptr, m2_ptr, g_ptr, kxfky_ptr, rowvec_ptr,
+                         colvec_ptr, a_ptr, f_out, m1_out, m2_out, m, n,
+                         bias1, bias2, eps, HAS_GRAD: tl.constexpr,
+                         BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
+        cols = tl.program_id(1) * BLOCK_N + tl.arange(0, BLOCK_N)
+        rmask = rows < m
+        cmask = cols < n
+        mask = rmask[:, None] & cmask[None, :]
+        offs = rows.to(tl.int64)[:, None] * n + cols[None, :]
+        if HAS_GRAD:
+            a = tl.load(a_ptr)
+            mm4 = tl.load(g_ptr + offs, mask=mask, other=0.0)
+            kx = tl.load(kxfky_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            rv = tl.load(rowvec_ptr + rows, mask=rmask, other=0.0)
+            cv = tl.load(colvec_ptr + cols, mask=cmask, other=0.0)
+            grad = 4.0 * mm4 - 4.0 * a * kx + rv[:, None] + cv[None, :]
+        else:
+            grad = tl.load(g_ptr + offs, mask=mask, other=0.0)
+        m1 = (0.9 * tl.load(m1_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+              + 0.1 * grad)
+        m2 = 0.999 * tl.load(m2_ptr + offs, mask=mask, other=0.0) \
+            + 0.001 * grad * grad
+        step = tl.div_rn(tl.div_rn(m1, bias1),
+                         tl.sqrt_rn(tl.div_rn(m2, bias2)) + 1e-7)
+        f = tl.load(f_ptr + offs, mask=mask, other=0.0)
+        f_new = (1.0 - eps) * f + eps * tl.maximum(f - step, 0.0)
+        tl.store(f_out + offs, f_new, mask=mask)
+        tl.store(m1_out + offs, m1.to(m1_out.dtype.element_ty), mask=mask)
+        tl.store(m2_out + offs, m2, mask=mask)
+
+    _kernel = (triton, pd_update_kernel)
+    return _kernel
+
+
+def bias_corrections(i: int) -> Tuple[float, float]:
+    """Adam's 1 - pho^i for the 1-based timestep i, in float32 as the Pallas
+    wrapper computes them."""
+    i_f = np.float32(i)
+    return (float(np.float32(1.0) - np.power(np.float32(PHO1), i_f)),
+            float(np.float32(1.0) - np.power(np.float32(PHO2), i_f)))
+
+
+def _grad_vectors(Mu, Lambda, S, rowsum, colsum, rho):
+    """The cheap O(m + n) terms the caller pre-folds (as the Pallas wrapper
+    does): rowvec (m, 1) and colvec (1, n)."""
+    rowvec = Mu + rho * rowsum
+    colvec = Lambda.T + rho * (colsum + (S - 2.0).T)
+    return rowvec, colvec
+
+
+def _adam_tail(F, M1, M2, grad, bias1, bias2, epsilon):
+    m1 = PHO1 * M1.float() + (1 - PHO1) * grad
+    m2 = PHO2 * M2 + (1 - PHO2) * grad * grad
+    step = (m1 / bias1) / (torch.sqrt(m2 / bias2) + DELTA)
+    f_new = (1 - epsilon) * F + epsilon * torch.clamp(F - step, min=0.0)
+    return f_new, m1.to(M1.dtype), m2
+
+
+def fused_pd_grad_update_plain(F, M1, M2, mm4, KxFKy, Mu, Lambda, S, rowsum,
+                               colsum, a, i: int, epsilon: float,
+                               rho: float):
+    """Plain PyTorch version of K1; returns (F', M1', M2')."""
+    bias1, bias2 = bias_corrections(i)
+    rowvec, colvec = _grad_vectors(Mu, Lambda, S, rowsum, colsum, rho)
+    grad = 4.0 * mm4 - 4.0 * a * KxFKy.float() + rowvec + colvec
+    return _adam_tail(F, M1, M2, grad, bias1, bias2, epsilon)
+
+
+def fused_pd_update_plain(F, M1, M2, grad, i: int, epsilon: float):
+    """Plain PyTorch version of K2; returns (F', M1', M2')."""
+    bias1, bias2 = bias_corrections(i)
+    return _adam_tail(F, M1, M2, grad, bias1, bias2, epsilon)
+
+
+def _check_state(F, M1, M2, others) -> None:
+    dev = F.device
+    for name, t, dtypes in (('F', F, (torch.float32,)),
+                            ('M1', M1, (torch.float32, torch.bfloat16)),
+                            ('M2', M2, (torch.float32,))) + others:
+        if t.device != dev:
+            raise ValueError(f'{name} is on {t.device}, expected {dev}')
+        if t.dtype not in dtypes:
+            raise TypeError(f'{name} has dtype {t.dtype}, expected one of '
+                            f'{dtypes}')
+        if t.shape != F.shape or not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous with shape '
+                             f'{tuple(F.shape)}, got {tuple(t.shape)}')
+
+
+def _launch(F, M1, M2, g, kxfky, rowvec, colvec, a, i, epsilon, has_grad):
+    triton, kernel = _triton_kernel()
+    m, n = F.shape
+    bias1, bias2 = bias_corrections(i)
+    F_out, M1_out, M2_out = (torch.empty_like(F), torch.empty_like(M1),
+                             torch.empty_like(M2))
+    grid = (triton.cdiv(m, BLOCK_M), triton.cdiv(n, BLOCK_N))
+    with torch.cuda.device(F.device):
+        kernel[grid](F, M1, M2, g, kxfky, rowvec, colvec, a, F_out, M1_out,
+                     M2_out, m, n, bias1, bias2, float(epsilon),
+                     HAS_GRAD=has_grad, BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N,
+                     num_warps=NUM_WARPS)
+    return F_out, M1_out, M2_out
+
+
+def _route(F) -> str:
+    if F.device.type in ('cpu', 'cuda'):
+        return F.device.type
+    raise ValueError(f'prime-dual tail runs on CUDA or CPU tensors, got '
+                     f'{F.device}')
+
+
+def fused_pd_grad_update(F, M1, M2, mm4, KxFKy, Mu, Lambda, S, rowsum,
+                         colsum, a, i: int, epsilon: float, rho: float):
+    """K1: gradient assembly + Adam + projection + damped F update.
+
+    F, M2, mm4: (m, n) f32; M1, KxFKy: (m, n) f32 or bf16; Mu, rowsum
+    (m, 1); Lambda, S (n, 1); colsum (1, n); a: 0-d or 1-element f32
+    tensor; i: the host-side 1-based Adam timestep. Returns (F', M1', M2')
+    in the dtypes of (F, M1, M2)."""
+    if _route(F) == 'cpu':
+        return fused_pd_grad_update_plain(F, M1, M2, mm4, KxFKy, Mu, Lambda,
+                                          S, rowsum, colsum, a, i, epsilon,
+                                          rho)
+    _check_state(F, M1, M2, (
+        ('mm4', mm4, (torch.float32,)),
+        ('KxFKy', KxFKy, (torch.float32, torch.bfloat16))))
+    if a.numel() != 1 or a.dtype != torch.float32 or a.device != F.device:
+        raise ValueError('a must be a 1-element float32 tensor on F.device')
+    rowvec, colvec = _grad_vectors(Mu, Lambda, S, rowsum, colsum, rho)
+    m, n = F.shape
+    if rowvec.shape != (m, 1) or colvec.shape != (1, n):
+        raise ValueError(f'row/column terms do not broadcast to {(m, n)}')
+    out = _launch(F, M1, M2, mm4, KxFKy, rowvec.contiguous(),
+                  colvec.contiguous(), a, i, epsilon, True)
+    fused_pd_grad_update.launches += 1
+    return out
+
+
+def fused_pd_update(F, M1, M2, grad, i: int, epsilon: float):
+    """K2: Adam + projection + damped F update from a precomputed grad."""
+    if _route(F) == 'cpu':
+        return fused_pd_update_plain(F, M1, M2, grad, i, epsilon)
+    _check_state(F, M1, M2, (('grad', grad, (torch.float32,)),))
+    # the unused K1 operands get grad as a placeholder pointer
+    out = _launch(F, M1, M2, grad, grad, grad, grad, grad, i, epsilon, False)
+    fused_pd_update.launches += 1
+    return out
+
+
+fused_pd_grad_update.launches = 0
+fused_pd_update.launches = 0

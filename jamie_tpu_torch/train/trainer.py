@@ -1,0 +1,261 @@
+"""Training loop for the coupled VAE.
+
+Reference parity: `jamie_tpu/train/trainer.py` (the body of the reference's
+`project_jamie`, jamie/jamie.py:546-804): per-epoch minibatch sampling in
+three regimes, per-batch row-normalization of the P/F subsets,
+`PF_Ratio`-weighted correspondence, the 4-term loss, global-norm-1 gradient
+clipping with optax's formula, Adam(model_lr, 0.9, 0.999, eps 1e-8),
+per-batch or per-epoch stepping (`batch_step`), early stopping after
+`min_epochs` on `max_steps_without_increment` non-improving epochs, the
+last batch's loss vector in `loss_history`, and the eval-mode mu-head
+embeddings in `final_embed`.
+
+The dataset, P and F live on the device. The host reads the epoch's batch
+losses once per epoch, which is where logging and the early-stop decision
+happen; an early stop therefore leaves the state exactly where jamie_tpu's
+`lax.cond`-skipped epochs leave it.
+
+Dense P/F only: sentinels, 1-D prior masks, sparse P/F (ROADMAP.md item
+9) and low-rank landmark F (item 10) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..config import JamieConfig
+from ..core.dtypes import resolve_device
+from ..core.hostmat import is_scipy_sparse
+from .losses import (
+    LOSS_NAMES, f_reconstruction_loss, kl_anneal, kl_divergence,
+    latent_consistency_loss, reconstruction_loss, row_normalize,
+)
+from .sampling import detect_sampling_method, make_epoch_sampler
+
+
+def _dense_matrix(M, name: str, item: str, device) -> torch.Tensor:
+    if (isinstance(M, str) or is_scipy_sparse(M)
+            or not (isinstance(M, torch.Tensor) or hasattr(M, '__array__'))
+            or np.ndim(M) != 2):
+        raise NotImplementedError(
+            f'{name} must be a dense 2-D matrix here; sentinels, masks, '
+            f'sparse and low-rank forms are ROADMAP.md item {item}')
+    if isinstance(M, torch.Tensor):
+        return M.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(M, np.float32), device=device)
+
+
+class FlatClipAdam:
+    """optax.flatten(optax.chain(clip_by_global_norm(1.0),
+    adam(lr, 0.9, 0.999, eps=1e-8))) with optax's formulas, over one flat
+    buffer: the chain of jamie_tpu/train/trainer.py:290-294.
+
+    The parameters become views into one contiguous vector, so the clip and
+    the Adam update are a few vector ops per step (jamie_tpu flattens its
+    chain for the same reason). The clip scales g -> g / ||g|| only when
+    ||g|| >= 1 (torch's clip_grad_norm_ adds 1e-6 to the norm and always
+    rescales); Adam's bias corrections 1 - b^t are float32, as optax
+    computes them. Build it after the model is on its device.
+    """
+
+    MAX_NORM, B1, B2, EPS = 1.0, 0.9, 0.999, 1e-8
+
+    def __init__(self, params, lr: float):
+        self.params = list(params)
+        self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        offset = 0
+        for p in self.params:
+            p.data = self.flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        self.mu = torch.zeros_like(self.flat)
+        self.nu = torch.zeros_like(self.flat)
+        self.count = 0
+        self.lr = lr
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Clip the accumulated gradients, take one Adam step, zero them."""
+        g = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
+                       else p.grad.reshape(-1) for p in self.params])
+        norm = torch.linalg.vector_norm(g)
+        g = torch.where(norm < self.MAX_NORM, g, g / norm * self.MAX_NORM)
+        self.count += 1
+        self.mu.mul_(self.B1).add_(g, alpha=1 - self.B1)
+        self.nu.mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
+        t = np.float32(self.count)
+        c1 = float(np.float32(1) - np.float32(self.B1) ** t)
+        c2 = float(np.float32(1) - np.float32(self.B2) ** t)
+        upd = (self.mu / c1) / (torch.sqrt(self.nu / c2) + self.EPS)
+        self.flat.sub_(self.lr * upd)
+        self.zero_grad()
+
+
+class JamieTrainer:
+    """Owns the model, data, optimizer and generator of one fit."""
+
+    def __init__(self, config: JamieConfig, model, dataset: Sequence,
+                 P, F, device=None):
+        if len(dataset) != 2:
+            raise ValueError('Currently only compatible with 2 modalities.')
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.rows = [int(d.shape[0]) for d in dataset]
+        self.cols = [int(d.shape[1]) for d in dataset]
+        self.data = [torch.as_tensor(np.asarray(d, np.float32),
+                                     device=self.device) for d in dataset]
+        self.P = _dense_matrix(P, 'P', '9', self.device)
+        self.F = _dense_matrix(F, 'F', '9 (sparse F) or 10 (landmark F)',
+                               self.device)
+        for name, M in (('P', self.P), ('F', self.F)):
+            if tuple(M.shape) != tuple(self.rows):
+                raise ValueError(f'{name} shape {tuple(M.shape)} != dataset '
+                                 f'rows {tuple(self.rows)}')
+
+        # Batch-size setup, from UnionCom via jamie.py:511-514
+        self.batch_size = int(config.batch_size)
+        self.len_dataloader = int(max(self.rows) / self.batch_size)
+        if self.len_dataloader == 0:
+            self.len_dataloader = 1
+            self.batch_size = int(max(self.rows))
+
+        # Sampling regime (jamie.py:517-534)
+        P_np = self.P.cpu().numpy()
+        self.sampling_method = detect_sampling_method(P_np)
+        corr_pairs = (np.argwhere(P_np > 0)
+                      if self.sampling_method == 'hybrid' else None)
+        self.epoch_sampler = make_epoch_sampler(
+            self.sampling_method, self.rows, self.batch_size,
+            self.len_dataloader, corr_pairs=corr_pairs,
+            true_ratio=config.true_ratio, device=self.device)
+
+        self.pf_ratio = 1.0 if config.PF_Ratio is None else float(config.PF_Ratio)
+        if config.loss_weights is not None:
+            if len(config.loss_weights) != len(LOSS_NAMES):
+                raise ValueError(f'There are {len(LOSS_NAMES)} losses and '
+                                 f'{len(config.loss_weights)} weights')
+            weights = config.loss_weights
+        else:
+            weights = (1.0,) * len(LOSS_NAMES)
+        self.loss_weights = torch.tensor(weights, dtype=torch.float32,
+                                         device=self.device)
+
+        # Grad-clip 1.0 then Adam, matching torch clip->step (jamie.py:736-742)
+        self.optimizer = FlatClipAdam(self.model.parameters(), config.model_lr)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.manual_seed)
+
+    # ----------------------------------------------------------- batch step
+    def batch_loss(self, idx0, idx1, epoch_idx: int, noise=None):
+        """Weighted loss sum and its 4-vector for one batch, in train mode.
+        noise: optional per-modality reparameterization noise."""
+        cfg = self.config
+        x0 = self.data[0][idx0]
+        x1 = self.data[1][idx1]
+        P_sub = self.P[idx0][:, idx1]
+        F_sub = self.F[idx0][:, idx1]
+        Fn = row_normalize(F_sub)
+        corr = self.pf_ratio * row_normalize(P_sub) + (1 - self.pf_ratio) * Fn
+        zs, combined, x_hat, mus, logvars = self.model(
+            [x0, x1], corr, generator=self.generator, noise=noise)
+        kl = (32e-3 * kl_anneal(epoch_idx, cfg.min_epochs, cfg.epoch_DNN)
+              * kl_divergence(mus, logvars))
+        rec = reconstruction_loss(x_hat, [x0, x1])
+        cos = latent_consistency_loss(zs, combined, cfg.dist_method)
+        fl = f_reconstruction_loss(combined[0], combined[1], Fn)
+        vec = torch.stack([kl, rec, cos, fl]) * self.loss_weights
+        return torch.sum(vec), vec
+
+    def train_step(self, idx0, idx1, epoch_idx: int, noise=None):
+        """One batch: loss, gradients, clip, Adam. Returns (loss, vec)."""
+        self.model.train()
+        loss, vec = self.batch_loss(idx0, idx1, epoch_idx, noise)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), vec.detach()
+
+    # ------------------------------------------------------------------ fit
+    def fit(self):
+        """Run the training loop; returns the trained model."""
+        cfg = self.config
+        L = self.len_dataloader
+        self.loss_history: Dict[str, List[float]] = {n: [] for n in LOSS_NAMES}
+        self.epoch_losses: List[float] = []
+        self.epochs_run = 0
+        best = np.float32(np.inf)
+        streak = 0
+        t0 = time.perf_counter()
+        self.model.train()
+        self.optimizer.zero_grad()
+        for epoch in range(cfg.epoch_DNN):
+            idx0_all, idx1_all = self.epoch_sampler(self.generator)
+            losses, vec = [], None
+            for b in range(L):
+                if cfg.batch_step:
+                    loss, vec = self.train_step(idx0_all[b], idx1_all[b],
+                                                epoch)
+                else:   # gradients accumulate; one step per epoch
+                    loss, vec = self.batch_loss(idx0_all[b], idx1_all[b],
+                                                epoch)
+                    loss.backward()
+                    loss, vec = loss.detach(), vec.detach()
+                losses.append(loss)
+            if not cfg.batch_step:
+                self.optimizer.step()
+            # the one host read of the epoch: L batch losses + the last vec
+            host = torch.cat([torch.stack(losses), vec]).cpu().numpy()
+            batch_losses, last_vec = host[:L], host[L:]
+            epoch_loss = np.float32(np.sum(batch_losses) / np.float32(L))
+            active = np.min(batch_losses) if cfg.batch_step else epoch_loss
+
+            # Early stopping bookkeeping (jamie.py:777-792), in float32
+            past_min = epoch > cfg.min_epochs
+            improved = (best - active) > np.float32(cfg.min_increment)
+            if past_min:
+                if improved:
+                    best, streak = active, 0
+                else:
+                    streak += 1
+            stop = (past_min and streak >= cfg.max_steps_without_increment
+                    and bool(cfg.use_early_stop))
+
+            if cfg.record_loss:
+                for j, name in enumerate(LOSS_NAMES):
+                    self.loss_history[name].append(float(last_vec[j]))
+            self.epoch_losses.append(float(epoch_loss))
+            self.epochs_run += 1
+            if not np.isfinite(epoch_loss):
+                warnings.warn(
+                    'Non-finite training loss encountered; if this persists '
+                    'your lr is likely too high (reference guidance, '
+                    'jamie/model.py:236-238).')
+            if (epoch + 1) % cfg.log_debug == 0 and cfg.debug:
+                print(f'Epoch: {epoch + 1:d} - ' + '  '.join(
+                    f'{LOSS_NAMES[j]}: {last_vec[j]:.4f}'
+                    for j in range(len(LOSS_NAMES))))
+            if (epoch + 1) % cfg.log_DNN == 0:
+                print(f'epoch:[{epoch + 1:d}/{cfg.epoch_DNN}]: '
+                      f'loss:{epoch_loss:4f}')
+            if stop:
+                break
+        self.fit_seconds = time.perf_counter() - t0
+        return self.model
+
+    # ----------------------------------------------------------- inference
+    @torch.no_grad()
+    def final_embed(self) -> List[np.ndarray]:
+        """Eval-mode full-dataset mu-head embeddings per modality
+        (jamie.py:794-799: the reference keeps the pre-combine latents,
+        which in eval mode are the mu heads and do not depend on corr)."""
+        self.model.eval()
+        return [self.model.embed_one(x, i).cpu().numpy().astype(np.float32)
+                for i, x in enumerate(self.data)]

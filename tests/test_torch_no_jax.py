@@ -1,0 +1,76 @@
+"""jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax or
+jamie_tpu, and the port runs on the CPU only when asked to."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'jamie_tpu')
+
+
+def _blocked(name: str) -> bool:
+    # the exact name or a submodule: `jamie_tpu_torch` is not `jamie_tpu`
+    return any(name == b or name.startswith(b + '.') for b in BLOCKED)
+
+
+def test_blocker_rule():
+    assert _blocked('jamie_tpu') and _blocked('jamie_tpu.ops')
+    assert _blocked('jax.numpy') and not _blocked('jaxtyping')
+    assert not _blocked('jamie_tpu_torch')
+
+
+def test_import_with_jax_blocked():
+    code = f'''
+import sys
+BLOCKED = {BLOCKED!r}
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ImportError('blocked ' + name)
+sys.meta_path.insert(0, Block())
+import jamie_tpu_torch
+from jamie_tpu_torch import JAMIE, ops, evaluation, persistence
+from jamie_tpu_torch.models import convert
+from jamie_tpu_torch.solvers import prime_dual
+import numpy as np
+x = np.random.RandomState(0).randn(12, 5).astype('float32')
+F = prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
+                          device='cpu')
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED))
+print('leaked', leaked, tuple(F.shape))
+'''
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'leaked [] (12, 12)'
+
+
+def _imported_names(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*ROOT.glob('jamie_tpu_torch/**/*.py'), ROOT / 'chip_smoke.py']))
+def test_no_jax_imports_in_source(path):
+    names = [n for n in _imported_names(ROOT / path) if _blocked(n)]
+    assert not names, f'{path} imports {names}'
+
+
+def test_no_device_and_no_cuda_raises(monkeypatch):
+    from jamie_tpu_torch import JAMIE
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        JAMIE()
+    assert JAMIE(device='cpu').device == torch.device('cpu')

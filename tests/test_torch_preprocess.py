@@ -1,0 +1,109 @@
+"""jamie_tpu_torch.preprocess against jamie_tpu.preprocess on the CPU."""
+
+import numpy as np
+import pytest
+import scipy.sparse
+import torch
+
+from jamie_tpu import preprocess as jp
+from jamie_tpu_torch import preprocess as tp
+
+
+def _data(n, f, seed=0, rank=8):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, rank) @ rng.randn(rank, f) + 0.1 * rng.randn(n, f)
+    return x.astype(np.float32) + 3.0
+
+
+@pytest.mark.parametrize('nf', [(60, 90), (90, 40)])   # Gram / covariance
+def test_direct_pca_matches_after_sign_fix(nf):
+    # k below the data's rank 8, so every component has a clear eigengap
+    # (components inside the noise floor rotate freely between libraries)
+    x = _data(*nf)
+    k = 6
+    jmean, jcomps, _ = jp._pca_fit(x, k)
+    tmean, tcomps = tp._pca_fit(torch.as_tensor(x), k)
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), atol=1e-5)
+    # f32 eigh in two libraries; components are unit vectors
+    np.testing.assert_allclose(tcomps.numpy(), np.asarray(jcomps), atol=2e-4)
+
+
+def _subspace_cosines(a, b):
+    qa, _ = np.linalg.qr(a.T)
+    qb, _ = np.linalg.qr(b.T)
+    return np.linalg.svd(qa.T @ qb, compute_uv=False)
+
+
+def test_randomized_pca_spans_the_same_subspace():
+    """Omega comes from different generators, so compare what does not
+    depend on it: the principal angles between the two component spans
+    and the projection error of the data."""
+    x = _data(300, 200, seed=1, rank=6)
+    k = 6
+    jmean, jcomps = jp._pca_fit_randomized(x, k)
+    tmean, tcomps = tp._pca_fit_randomized(torch.as_tensor(x), k)
+    jcomps, tcomps = np.asarray(jcomps), tcomps.numpy()
+    assert _subspace_cosines(jcomps, tcomps).min() > 0.999
+    xc = x - np.asarray(jmean)
+    err = [np.linalg.norm(xc - xc @ c.T @ c) for c in (jcomps, tcomps)]
+    assert abs(err[0] - err[1]) <= 1e-3 * err[0]
+
+
+def test_pca_routing_threshold(monkeypatch):
+    called = []
+    monkeypatch.setattr(tp, '_RANDOMIZED_THRESHOLD', 50)
+    orig = tp._pca_fit_randomized
+    monkeypatch.setattr(tp, '_pca_fit_randomized',
+                        lambda *a, **k: called.append(1) or orig(*a, **k))
+    tp._pca_fit(torch.as_tensor(_data(80, 70)), 5)
+    assert called
+
+
+@pytest.mark.parametrize('pca_dim', [6, None])
+def test_preprocessor_matches_and_round_trips(pca_dim):
+    x = _data(70, 30, seed=2)
+    jpre = jp.Preprocessor.fit(x, pca_dim=pca_dim)
+    tpre = tp.Preprocessor.fit(x, pca_dim=pca_dim, device='cpu')
+    jt, tt = np.asarray(jpre.transform_fit()), tpre.transform_fit()
+    np.testing.assert_allclose(tt, jt, atol=1e-4)
+    np.testing.assert_allclose(tpre.transform(x), np.asarray(jpre.transform(x)),
+                               atol=1e-4)
+    back = tpre.inverse_transform(tt)
+    np.testing.assert_allclose(back, np.asarray(jpre.inverse_transform(jt)),
+                               atol=1e-3)
+    if pca_dim is None:
+        np.testing.assert_allclose(back, x, atol=1e-4)
+    assert sorted(tpre.to_dict()) == sorted(jpre.to_dict())
+
+
+def test_nan_maps_to_zero_as_reference():
+    x = _data(40, 12, seed=4)
+    x[3, 4] = np.nan
+    jt = np.asarray(jp.Preprocessor.fit(x).transform(x))
+    tt = tp.Preprocessor.fit(x, device='cpu').transform(x)
+    assert not np.isnan(tt).any()
+    np.testing.assert_allclose(tt, jt, atol=1e-5)
+
+
+def test_preprocessor_from_dict_of_reference():
+    x = _data(50, 30, seed=3)
+    jpre = jp.Preprocessor.fit(x, pca_dim=8)
+    d = {k: np.asarray(v) for k, v in jpre.to_dict().items()}
+    tpre = tp.Preprocessor.from_dict(d, device='cpu')
+    np.testing.assert_allclose(tpre.transform(x), np.asarray(jpre.transform(x)),
+                               atol=1e-4)
+
+
+def test_pca_dim_clamped_with_warning():
+    with pytest.warns(UserWarning, match='PCA dim'):
+        pre = tp.Preprocessor.fit(_data(20, 10), pca_dim=50, device='cpu')
+    assert pre.transform_fit().shape == (20, 10)
+
+
+def test_unported_preprocessing_raises():
+    with pytest.raises(NotImplementedError, match='item 12'):
+        tp.Preprocessor.fit(_data(20, 10), pca_dim=5, method='umap',
+                            device='cpu')
+    with pytest.raises(NotImplementedError, match='item 11'):
+        tp.Preprocessor.fit(scipy.sparse.csr_matrix(_data(20, 10)),
+                            pca_dim=5, device='cpu')

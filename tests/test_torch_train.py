@@ -1,0 +1,205 @@
+"""jamie_tpu_torch.train against jamie_tpu.train on the CPU: the losses
+elementwise, the samplers by their properties, and one optimizer step from
+the same parameters, indices and noise."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from jamie_tpu.config import JamieConfig as JConfig
+from jamie_tpu.models.coupled_vae import CoupledVAE as FlaxVAE
+from jamie_tpu.train import losses as jl
+from jamie_tpu.train import sampling as js
+from jamie_tpu.train.trainer import JamieTrainer as JTrainer
+from jamie_tpu_torch.config import JamieConfig
+from jamie_tpu_torch.models.convert import (load_flax_variables,
+                                            to_flax_variables)
+from jamie_tpu_torch.models.coupled_vae import CoupledVAE
+from jamie_tpu_torch.train import losses as tl
+from jamie_tpu_torch.train import sampling as ts
+from jamie_tpu_torch.train.trainer import JamieTrainer
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.fixture(scope='module')
+def arrays():
+    rng = np.random.RandomState(0)
+    return {k: rng.randn(16, d).astype(np.float32)
+            for k, d in (('a0', 5), ('a1', 5), ('b0', 5), ('b1', 5),
+                         ('x0', 7), ('x1', 4), ('r0', 7), ('r1', 4))} | {
+        'F': rng.rand(16, 16).astype(np.float32)}
+
+
+def test_kl_anneal_matches():
+    for epoch in (0, 3, 50, 99, 400):
+        for min_epochs, epoch_dnn in ((100, 400), (0, 400)):
+            assert tl.kl_anneal(epoch, min_epochs, epoch_dnn) == pytest.approx(
+                float(jl.kl_anneal(epoch, min_epochs, epoch_dnn)), rel=1e-6)
+
+
+def test_losses_match(arrays):
+    a = arrays
+    pairs = [
+        (tl.kl_divergence(_t(a['a0'], a['a1']), _t(a['b0'], a['b1'])),
+         jl.kl_divergence(_j(a['a0'], a['a1']), _j(a['b0'], a['b1']))),
+        (tl.reconstruction_loss(_t(a['x0'], a['x1']), _t(a['r0'], a['r1'])),
+         jl.reconstruction_loss(_j(a['x0'], a['x1']), _j(a['r0'], a['r1']))),
+        (tl.f_reconstruction_loss(*_t(a['a0'], a['a1'], a['F'])),
+         jl.f_reconstruction_loss(*_j(a['a0'], a['a1'], a['F']))),
+    ]
+    for method in ('euclidean', 'cosine'):
+        pairs.append((
+            tl.latent_consistency_loss(_t(a['a0'], a['a1']),
+                                       _t(a['b0'], a['b1']), method),
+            jl.latent_consistency_loss(_j(a['a0'], a['a1']),
+                                       _j(a['b0'], a['b1']), method)))
+    for ours, ref in pairs:
+        np.testing.assert_allclose(float(ours), float(ref), rtol=1e-6)
+    F = a['F'].copy()
+    F[3] = 0
+    F[:, 5] = 0
+    np.testing.assert_allclose(tl.row_normalize(torch.as_tensor(F)).numpy(),
+                               np.asarray(jl.row_normalize(jnp.asarray(F))),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tl.col_normalize(torch.as_tensor(F)).numpy(),
+                               np.asarray(jl.col_normalize(jnp.asarray(F))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize('P', [np.eye(6), np.zeros((6, 6)),
+                               np.diag([1, 0, 1, 0, 0, 1.0]), np.eye(6, 7)])
+def test_detect_sampling_method_matches(P):
+    assert ts.detect_sampling_method(P) == js.detect_sampling_method(P)
+
+
+@pytest.mark.parametrize('method', ['diag', 'zeros'])
+def test_epoch_windows_have_no_repeats(method):
+    rows, B, L = (100, 100 if method == 'diag' else 90), 16, 5
+    sample = ts.make_epoch_sampler(method, rows, B, L)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        idx0, idx1 = sample(gen)
+        assert idx0.shape == idx1.shape == (L, B)
+        for idx, n in ((idx0, rows[0]), (idx1, rows[1])):
+            flat = idx.reshape(-1).numpy()
+            assert len(np.unique(flat)) == L * B      # L*B <= n: no wrap
+            assert flat.min() >= 0 and flat.max() < n
+        if method == 'diag':
+            assert torch.equal(idx0, idx1)
+
+
+def test_hybrid_fraction_matches_true_ratio():
+    n, B, L = 500, 64, 200
+    pairs = np.stack([np.arange(0, n, 2), (np.arange(0, n, 2) * 7 + 3) % n], 1)
+    sample = ts.make_epoch_sampler('hybrid', (n, n), B, L, corr_pairs=pairs,
+                                   true_ratio=0.8)
+    idx0, idx1 = sample(torch.Generator().manual_seed(1))
+    matched = set(map(tuple, pairs))
+    hits = np.mean([(i, j) in matched for i, j in
+                    zip(idx0.reshape(-1).tolist(), idx1.reshape(-1).tolist())])
+    # 12,800 slots: binomial sd 0.0035; chance matches add ~0.2 * 1/n
+    assert abs(hits - 0.8) < 0.015
+
+
+def _setup(batch_step=True, **kw):
+    rng = np.random.RandomState(1)
+    rows, dims = 40, (12, 9)
+    data = [rng.randn(rows, d).astype(np.float32) for d in dims]
+    P = np.eye(rows, dtype=np.float32)
+    F = rng.rand(rows, rows).astype(np.float32)
+    cfg_kw = dict(dropout=0.0, batch_size=16, output_dim=5, epoch_DNN=50,
+                  min_epochs=10, batch_step=batch_step, PF_Ratio=0.7, **kw)
+    return data, P, F, cfg_kw
+
+
+def test_one_step_matches_reference():
+    data, P, F, cfg_kw = _setup()
+    jtr = JTrainer(JConfig(**cfg_kw), FlaxVAE(input_dim=(12, 9), output_dim=5,
+                                               dropout=0.0), data, P, F)
+    state = jtr.init_state()
+    params = jax.tree.map(np.asarray, state.params)
+    bstats = jax.tree.map(np.asarray, state.batch_stats)
+    idx0 = np.array([3, 17, 8, 0, 25, 39, 11, 30, 5, 21, 14, 2, 33, 7, 19, 28])
+    idx1 = np.roll(idx0, 3)
+    epoch, key = 12, jax.random.PRNGKey(9)
+
+    # jamie_tpu: one batch's loss and grads, then clip + Adam
+    ops = jtr._operands()
+    _, vec, new_bs, grads = jtr._batch_loss_and_grads(
+        state.params, state.batch_stats, key, epoch, ops, jnp.asarray(idx0),
+        jnp.asarray(idx1))
+    updates, _ = jtr.tx.update(grads, state.opt_state, state.params)
+    ref_params = optax.apply_updates(state.params, updates)
+
+    # the reparameterization noise that step drew, recovered from the same
+    # forward (the key split of _batch_loss_and_grads)
+    k_d, k_r = jax.random.split(key)
+    (zs, _, _, mus, logvars), _ = jtr.model.apply(
+        {'params': state.params, 'batch_stats': state.batch_stats},
+        [jnp.asarray(data[0][idx0]), jnp.asarray(data[1][idx1])],
+        jnp.eye(16), train=True, rngs={'dropout': k_d, 'reparam': k_r},
+        mutable=['batch_stats'])
+    noise = [torch.as_tensor(np.asarray((z - mu) / (jnp.exp(lv / 2) + 1e-7)))
+             for z, mu, lv in zip(zs, mus, logvars)]
+
+    model = CoupledVAE((12, 9), 5, dropout=0.0)
+    load_flax_variables(model, params, bstats)
+    tr = JamieTrainer(JamieConfig(**cfg_kw), model, data, P, F, device='cpu')
+    _, ours_vec = tr.train_step(torch.as_tensor(idx0), torch.as_tensor(idx1),
+                                epoch, noise=noise)
+    np.testing.assert_allclose(ours_vec.numpy(), np.asarray(vec), rtol=1e-5)
+    ours_params, ours_stats = to_flax_variables(model)
+    flat = jax.tree_util.tree_flatten_with_path
+    ref_grads = dict(flat(jax.tree.map(np.asarray, grads))[0])
+    for (path, r), (_, o) in zip(flat(jax.tree.map(np.asarray, ref_params))[0],
+                                 flat(ours_params)[0]):
+        if [p.key for p in path[1:]] == ['TorchDense_0', 'bias']:
+            # A dense bias that feeds a BatchNorm has an exact gradient of 0
+            # (the batch mean is subtracted right after it), so both
+            # packages hold f32 rounding noise there, and Adam's first step
+            # g / (|g| + 1e-8) scales that noise to a fraction of lr.
+            # Check that it is noise in the reference and that the port's
+            # step stays below lr.
+            assert np.abs(ref_grads[path]).max() < 1e-6
+            np.testing.assert_array_less(np.abs(o - params[path[0].key][
+                'TorchDense_0']['bias']), cfg_kw.get('model_lr', 1e-3))
+            continue
+        np.testing.assert_allclose(o, r, rtol=0, atol=1e-5, err_msg=str(path))
+    for (path, r), (_, o) in zip(flat(jax.tree.map(np.asarray, new_bs))[0],
+                                 flat(ours_stats)[0]):
+        np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-6,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize('batch_step', [True, False])
+def test_fit_runs_and_early_stops(batch_step):
+    data, P, F, cfg_kw = _setup(batch_step, max_steps_without_increment=2,
+                                min_increment=1e9)
+    model = CoupledVAE((12, 9), 5, dropout=0.0)
+    tr = JamieTrainer(JamieConfig(**cfg_kw), model, data, P, F, device='cpu')
+    tr.fit()
+    # the first epoch past min_epochs improves on the initial inf; none after
+    # it can improve by 1e9, so the streak reaches 2 two epochs later and
+    # the fit stops at 0-based epoch min_epochs + 3
+    assert tr.epochs_run == cfg_kw['min_epochs'] + 4
+    assert all(len(v) == tr.epochs_run for v in tr.loss_history.values())
+    emb = tr.final_embed()
+    assert emb[0].shape == (40, 5) and np.isfinite(emb[0]).all()
+
+
+def test_unported_priors_raise():
+    data, P, F, cfg_kw = _setup()
+    for bad_P, bad_F in (('identity', F), (np.ones(40), F), (P, 'zeros')):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md item'):
+            JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE((12, 9), 5), data,
+                         bad_P, bad_F, device='cpu')
