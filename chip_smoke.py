@@ -10,7 +10,10 @@
    the main path's shapes and larger ones, with the stated tolerance, its
    median time (CUDA events), the plain version's time, the least time the
    card could take (bound) and, for K3, one PyTorch call computing the same
-   function (torch.cdist, which the port never calls).
+   function (torch.cdist, which the port never calls). K3's MMA route and
+   ptxas's report; a sweep of K1's block sizes; the device kernels that one
+   K1 call and one K3 call issue (torch.profiler), held to 1 for K1 and to
+   the wrapper's stated count for K3.
 4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
    to 20) on SNARE-seq-shaped synthetic data (1047 cells x 3000 RNA / 5000
    ATAC, seed 0), with every launch count set to 0 just before it; then
@@ -38,10 +41,10 @@ import time
 import numpy as np
 
 # Published dense peaks (NVIDIA data sheet) of each card this script has run
-# on, by torch.cuda.get_device_name: bytes/s of device memory and float32
-# FLOP/s outside the tensor cores.
+# on, by torch.cuda.get_device_name: bytes/s of device memory, float32
+# FLOP/s outside the tensor cores, and dense TF32 FLOP/s on the tensor cores.
 PEAKS = {
-    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12),     # H100 SXM
+    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12, 495e12),     # H100 SXM
 }
 
 
@@ -112,28 +115,30 @@ def nbytes(*ts):
 class KernelPhase:
     """Hold each kernel against its plain version and time both."""
 
-    def __init__(self, torch, bw, fp32):
+    def __init__(self, torch, bw, fp32, tf32):
         self.torch = torch
-        self.bw, self.fp32 = bw, fp32
+        self.bw, self.fp32, self.tf32 = bw, fp32, tf32
         self.dev = torch.device('cuda')
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
         self.rows = []
 
-    def bound(self, bytes_, flops):
-        t_bytes, t_ops = bytes_ / self.bw * 1e3, flops / self.fp32 * 1e3
+    def bound(self, bytes_, flops, rate):
+        t_bytes, t_ops = bytes_ / self.bw * 1e3, flops / rate * 1e3
         return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
     def record(self, kernel, case, err, check, tol, ms, plain_ms, bytes_,
-               flops, library_ms=None):
+               flops, library_ms=None, rate=None, **extra):
         """err: max |kernel - plain|; check: the quantity held to tol; ms,
-        plain_ms, library_ms: (device_ms, call_ms) pairs from time_ms."""
-        bound_ms, bound_by = self.bound(bytes_, flops)
+        plain_ms, library_ms: (device_ms, call_ms) pairs from time_ms;
+        flops at `rate` (default: float32 on the CUDA cores)."""
+        bound_ms, bound_by = self.bound(bytes_, flops, rate or self.fp32)
         row = dict(kernel=kernel, case=case, max_abs_err=err, check=check,
                    tol=tol, ms=ms[0], plain_ms=plain_ms[0], bound_ms=bound_ms,
                    bound_by=bound_by,
                    library_ms=None if library_ms is None else library_ms[0],
                    call_ms=ms[1], plain_call_ms=plain_ms[1],
-                   library_call_ms=None if library_ms is None else library_ms[1])
+                   library_call_ms=None if library_ms is None else library_ms[1],
+                   **extra)
         self.rows.append(row)
         print('kernel ' + json.dumps(row), flush=True)
         if not check <= tol:
@@ -185,6 +190,7 @@ class KernelPhase:
         case = f'{m}x{n} M1={str(m1_dtype).split(".")[-1]}'
         self.record(name, case, err, worst, 1.0, ms, plain_ms,
                     nbytes(*ins, *got), flops)
+        return kern, args
 
     def pairwise(self, x, y, squared):
         torch = self.torch
@@ -212,8 +218,52 @@ class KernelPhase:
         ins = (x, xsq) if y is None else (x, y, xsq, ysq)
         case = (f'{m}x{n}x{f} {"self" if y is None else "cross"} '
                 f'{"squared" if squared else "sqrt"}')
+        # 3xTF32: three TF32 tensor-core products per float32-accurate one;
+        # the CUDA cores' float32 bound is kept beside it
+        fp32_bound_ms = self.bound(nbytes(*ins, got), 2 * m * n * f,
+                                   self.fp32)[0]
+        sym = (None if y is not None else
+               float((got - got.T).abs().max()))
+        if sym is not None and not (sym <= tol
+                                    and bool((got.diagonal() == 0).all())):
+            fail(f'K3 {case}: asymmetry {sym} (tolerance {tol}) or a '
+                 f'non-zero diagonal')
         self.record('pairwise_euclidean', case, err, check, tol, ms, plain_ms,
-                    nbytes(*ins, got), 2 * m * n * f + 5 * m * n, library_ms)
+                    nbytes(*ins, got), 3 * 2 * m * n * f, library_ms,
+                    rate=self.tf32, fp32_bound_ms=fp32_bound_ms,
+                    max_asymmetry=sym)
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of fn issues (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(('Memcpy', 'Memset'))]
+
+
+def mma_route(lib_path):
+    """K3's tensor-core instruction, read from the built library's SASS
+    (cuobjdump): HGMMA is wgmma, HMMA is mma.sync."""
+    import shutil
+    import triton
+    cands = ('/usr/local/cuda/bin/cuobjdump', shutil.which('cuobjdump'),
+             os.path.join(os.path.dirname(triton.__file__), 'backends',
+                          'nvidia', 'bin', 'cuobjdump'))
+    for cand in cands:
+        if cand and os.path.isfile(cand):
+            sass = subprocess.run([cand, '-sass', str(lib_path)],
+                                  capture_output=True, text=True).stdout
+            n_wgmma, n_mma = sass.count('HGMMA'), sass.count('HMMA')
+            route = 'wgmma' if n_wgmma else ('mma.sync' if n_mma else 'none')
+            return route, f'{n_wgmma} HGMMA, {n_mma} HMMA in the SASS'
+    return 'unknown', 'cuobjdump not found'
 
 
 def main():
@@ -235,7 +285,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     smi_line = smi[0]
     kind = torch.cuda.get_device_name(0)
-    bw, fp32 = peaks_for(kind)
+    bw, fp32, tf32 = peaks_for(kind)
     import triton
     print(f'device: {smi_line} | torch {torch.__version__} cuda '
           f'{torch.version.cuda} triton {triton.__version__} | bf16 matmul route: '
@@ -244,12 +294,19 @@ def main():
 
     # 2. Build every kernel from this checkout's sources
     t = time.perf_counter()
-    _build.load('pairwise_sq_euclidean')
+    lib = _build.load('pairwise_sq_euclidean')
+    smem = lib.pairwise_sq_euclidean_smem_bytes()
     usage = [ln.strip() for ln in
              _build.build_log('pairwise_sq_euclidean').splitlines()
-             if 'Used' in ln]
+             if any(w in ln for w in ('Used', 'spill', 'warning',
+                                      'Compiling entry'))]
     print(f'build: nvcc csrc/pairwise_sq_euclidean.cu '
-          f'{time.perf_counter() - t:.2f} s; {usage}')
+          f'{time.perf_counter() - t:.2f} s; ptxas: {usage}; dynamic shared '
+          f'memory {smem} bytes per block')
+    route, evidence = mma_route(_build.library_path('pairwise_sq_euclidean'))
+    print(f'K3 MMA route: {route} ({evidence})', flush=True)
+    if route not in ('wgmma', 'mma.sync', 'unknown'):
+        fail(f'K3 was built without tensor-core instructions ({evidence})')
     t = time.perf_counter()
     dev = torch.device('cuda')
     tiny = torch.zeros((8, 8), device=dev)
@@ -264,19 +321,55 @@ def main():
           flush=True)
 
     # 3. Kernels against their plain versions
-    kp = KernelPhase(torch, bw, fp32)
+    kp = KernelPhase(torch, bw, fp32, tf32)
     data, labels = make_snare_like()
+    k1_calls = {}
     for (m, n, dt) in ((1047, 1047, torch.float32), (1047, 1047, torch.bfloat16),
                        (1000, 1037, torch.float32), (9190, 9190, torch.float32),
                        (9190, 9190, torch.bfloat16)):
-        kp.pd_update(m, n, dt)
+        k1_calls[(m, n, dt)] = kp.pd_update(m, n, dt)
     kp.pd_update(1047, 1047, torch.float32, has_grad=False)
+    # K1's block size and warps are constants of ops/pd_update.py, chosen
+    # from this sweep (device ms per call)
+    from jamie_tpu_torch.ops import pd_update as K
+    for (m, n) in ((1047, 1047), (9190, 9190)):
+        _, args = k1_calls[(m, n, torch.float32)]
+        F, M1, M2, mm4, kx, Mu, Lam, S, rs, cs, a_, i_, eps_, rho_ = args
+        vecs = [v.reshape(-1) for v in (Mu, Lam, S, rs, cs)]
+        sweep = {}
+        for block, warps in ((1024, 4), (2048, 4), (2048, 8), (4096, 4),
+                             (4096, 8)):
+            sweep[f'{block}/{warps}'] = round(time_ms(torch, lambda: K._launch(
+                F, M1, M2, mm4, kx, vecs, rho_, a_, i_, eps_, True,
+                block=block, num_warps=warps))[0], 5)
+        print(f'K1 sweep {m}x{n} M1=float32 (BLOCK/num_warps: device ms; '
+              f'chosen {K.BLOCK}/{K.NUM_WARPS}): {sweep}', flush=True)
+    # One launch per call: the device kernels of one K1 call
+    kern, args = k1_calls[(1047, 1047, torch.float32)]
+    names = device_kernels(torch, lambda: kern(*args))
+    print(f'device kernels per call: K1 1047x1047 {len(names)} {names}',
+          flush=True)
+    if len(names) != 1:
+        fail(f'one K1 call issued {len(names)} device kernels, expected 1')
     g = kp.gen
     x_rna = torch.as_tensor(data[0], device=dev)
     x_atac = torch.as_tensor(data[1], device=dev)
     emb = [torch.randn(1047, 32, device=dev, generator=g) for _ in range(2)]
     kp.pairwise(x_rna, None, squared=False)          # geodesic base, RNA
     kp.pairwise(x_atac, None, squared=False)         # geodesic base, ATAC
+    from jamie_tpu_torch.ops import pairwise as P
+    for xa, ya in ((x_atac, None), (x_rna, None)):
+        names = device_kernels(
+            torch, lambda: P.pairwise_euclidean(xa, ya, squared=False))
+        stated = P.device_kernels_per_call(xa, ya)
+        m_, f_ = xa.shape
+        splits = P.launch_plan(m_, m_, f_, P._num_sms(0))[1]
+        print(f'device kernels per call: K3 {m_}x{m_}x{f_} self sqrt '
+              f'{len(names)} (stated {stated}, split-K {splits}) {names}',
+              flush=True)
+        if not 1 <= len(names) <= stated:
+            fail(f'one K3 call issued {len(names)} device kernels, stated '
+                 f'{stated}')
     kp.pairwise(emb[0], emb[1], squared=True)        # FOSCTTM / kNN
     kp.pairwise(x_atac, None, squared=True)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=False)

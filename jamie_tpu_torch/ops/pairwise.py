@@ -1,18 +1,22 @@
-"""K3: pairwise (squared) euclidean distances, a CUDA C++ kernel.
+"""K3: pairwise (squared) euclidean distances, a CUDA C++ kernel on
+Hopper's tensor cores.
 
 Replaces `jamie_tpu/ops/ab_archive.py::pairwise_sq_euclidean_pallas`
 (call :232, body `_pairwise_kernel` :196-210), which is the same function
 as the production jnp Gram route `jamie_tpu/ops/distances.py:43-56`.
 
 The kernel is `csrc/pairwise_sq_euclidean.cu`, built with nvcc for sm_90a
-and bound with ctypes (`ops/_build.py`). What bounds it on an H100: 2*m*n*f
-float32 FMAs on the CUDA cores (67 TFLOP/s without tensor cores), against
-(m*f + n*f + m*n) * 4 bytes of traffic, so it is operation-bound at the
-main path's shapes. The design keeps the x.y^T sum in registers and fuses
-the norms, clamp, sqrt and zero diagonal into the store, so the (m, n)
-Gram matrix is written once, as the distances. It is a plain register-tiled
-SGEMM (64x64 tiles, 16-wide K-steps); TMA/wgmma and a TF32 or bf16 operand
-route are later work.
+and bound with ctypes (`ops/_build.py`): TMA loads into a 3-stage ring,
+wgmma TF32 products with a 3xTF32 split (float32-accurate, not bit-exact),
+and the norms, clamp, sqrt and zero diagonal fused into the store. What
+bounds it on an H100: 3 * 2*m*n*f TF32 operations at 495 TFLOP/s against
+(m*f + n*f + m*n) * 4 bytes, so operations at the main path's shapes.
+
+This module prepares what the kernel cannot: the row norms (in torch, as
+the Pallas wrapper computes them outside its kernel), a zero-padded copy
+of an operand whose feature width is not a multiple of 4 or whose base is
+not 16-byte aligned (TMA needs both), and the split-K factor
+(`launch_plan`) with its (splits, m, n) workspace.
 
 `pairwise_euclidean` runs the kernel for CUDA tensors and its plain
 PyTorch version `pairwise_euclidean_plain` for CPU tensors; any other input
@@ -22,11 +26,20 @@ raises. `pairwise_euclidean.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+
+TILE = 128           # output rows and columns per block (BM, BN in the source)
+K_STEP = 32          # features per pipeline stage (BK in the source)
+MAX_SPLITS = 16
+MIN_STEPS_PER_SPLIT = 4
+
+_ERRORS = {-1: 'no driver entry point for cuTensorMapEncodeTiled',
+           -2: 'a split-K factor that leaves a feature slice empty'}
 
 
 def pairwise_euclidean_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None,
@@ -44,11 +57,71 @@ def pairwise_euclidean_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None,
     return d
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(m: int, n: int, f: int, num_sms: int) -> Tuple[int, int]:
+    """(padded feature width, split-K factor) for an (m, n, f) call.
+
+    The width is rounded up to a multiple of 4 (TMA's 16-byte row stride).
+    Where the 128x128 output tiles fill at least one wave of the card's
+    SMs the kernel runs whole (splits = 1). Below that, the feature axis is
+    cut into `splits` slices of at least MIN_STEPS_PER_SPLIT stages each,
+    none empty, choosing the factor that minimises the waves per slice plus
+    a small charge per slice for the partials' traffic."""
+    fp = 4 * _cdiv(max(f, 1), 4)
+    tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+    ksteps = _cdiv(fp, K_STEP)
+    best, best_cost = 1, 1.01
+    if tiles < num_sms:
+        for s in range(2, min(MAX_SPLITS, ksteps // MIN_STEPS_PER_SPLIT) + 1):
+            if (s - 1) * _cdiv(ksteps, s) >= ksteps:
+                continue   # the last slice would be empty
+            cost = _cdiv(tiles * s, num_sms) / s + 0.01 * s
+            if cost < best_cost:
+                best, best_cost = s, cost
+    return fp, best
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _needs_copy(t: torch.Tensor, fp: int) -> bool:
+    return t.shape[1] != fp or t.data_ptr() % 16 != 0
+
+
+def _tma_operand(t: torch.Tensor, fp: int) -> torch.Tensor:
+    """t itself, or a 16-byte aligned copy zero-padded to fp features (zero
+    features add nothing to the sums)."""
+    if not _needs_copy(t, fp):
+        return t
+    out = t.new_zeros((t.shape[0], fp))
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def device_kernels_per_call(x: torch.Tensor,
+                            y: Optional[torch.Tensor] = None) -> int:
+    """Device kernels one `pairwise_euclidean(x, y)` call on the card issues:
+    per distinct operand two for its norms (square, row sum) and two for a
+    padded copy where one is needed (fill, copy); the main kernel; and the
+    split-K pass where the plan splits."""
+    operands = [x] if y is None else [x, y]
+    m, f = x.shape
+    n = m if y is None else y.shape[0]
+    fp, splits = launch_plan(m, n, f, _num_sms(x.device.index or 0))
+    return (sum(2 + 2 * _needs_copy(t, fp) for t in operands) + 1
+            + int(splits > 1))
+
+
 def _library():
     lib = _build.load('pairwise_sq_euclidean')
     fn = lib.pairwise_sq_euclidean_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -86,18 +159,25 @@ def pairwise_euclidean(x: torch.Tensor, y: Optional[torch.Tensor] = None,
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     if m == 0 or n == 0:
         return out
+    fp, splits = launch_plan(m, n, f, _num_sms(x.device.index or 0))
     xsq = (x * x).sum(1)
     ysq = xsq if self_dist else (y * y).sum(1)
-    yy = x if self_dist else y
+    xk = _tma_operand(x, fp)
+    yk = xk if self_dist else _tma_operand(y, fp)
+    ws = (torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
+          if splits > 1 else out)
     kernel = _library()
     with torch.cuda.device(x.device):
-        err = kernel(x.data_ptr(), yy.data_ptr(), xsq.data_ptr(),
-                     ysq.data_ptr(), out.data_ptr(), m, n, f,
-                     int(not squared), int(self_dist),
+        err = kernel(xk.data_ptr(), yk.data_ptr(), xsq.data_ptr(),
+                     ysq.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, fp,
+                     splits, int(not squared), int(self_dist),
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        what = (_ERRORS.get(err) or
+                (f'cuTensorMapEncodeTiled returned CUresult {-1000 - err}'
+                 if err <= -1000 else f'cudaError {err}'))
         raise RuntimeError(f'pairwise_sq_euclidean kernel launch failed: '
-                           f'cudaError {err}')
+                           f'{what}')
     pairwise_euclidean.launches += 1
     return out
 

@@ -13,13 +13,23 @@ assembly, so both are one `@triton.jit` kernel specialised by the
 
 What bounds it on an H100: memory. K1 moves 32 bytes per entry in float32
 (five loads, three stores) for about 20 FLOPs, far below the ~20 FLOP/byte
-where the card's float32 rate would matter. The design is one pass of
-masked, coalesced 2-D block loads over a 2-D grid with a ragged edge, the
-row and column vectors broadcast from registers, and every intermediate
-(grad, the bias-corrected moments) kept in registers. `a` is read from a
+where the card's float32 rate would matter. The design is one launch per
+call and one flat pass over the m*n entries: all (m, n) operands are
+contiguous, so a block of BLOCK consecutive entries loads and stores them
+16 bytes a thread whatever n is (a row of 1047 floats does not start on a
+16-byte boundary, which defeated the 2-D blocks of the first version).
+Each entry's row (offs // n) and column index the O(m + n) vectors, and
+the kernel folds the caller's row and column terms itself,
+
+    rowvec = Mu + rho rowsum,   colvec = Lambda^T + rho (colsum + S^T - 2),
+
+so the wrapper launches nothing else on the card; every intermediate
+(grad, the bias-corrected moments) stays in registers. `a` is read from a
 1-element device tensor, so the solver never syncs the host to pass it.
 M1 and KxFKy load and store in their own dtype (f32, or bf16 for
-state_dtype='bfloat16'); the arithmetic is always f32.
+state_dtype='bfloat16'); the arithmetic is always f32. BLOCK and
+NUM_WARPS are fixed, chosen from the sizes chip_smoke.py sweeps on the card
+(PERF.md).
 
 `fused_pd_grad_update` / `fused_pd_update` launch the kernel for CUDA
 tensors and run the plain PyTorch versions (`*_plain`) for CPU tensors; any
@@ -34,7 +44,7 @@ import numpy as np
 import torch
 
 PHO1, PHO2, DELTA = 0.9, 0.999, 1e-7
-BLOCK_M, BLOCK_N, NUM_WARPS = 8, 256, 4
+BLOCK, NUM_WARPS = 1024, 4
 
 _kernel = None
 
@@ -49,23 +59,25 @@ def _triton_kernel():
     import triton.language as tl
 
     @triton.jit
-    def pd_update_kernel(f_ptr, m1_ptr, m2_ptr, g_ptr, kxfky_ptr, rowvec_ptr,
-                         colvec_ptr, a_ptr, f_out, m1_out, m2_out, m, n,
-                         bias1, bias2, eps, HAS_GRAD: tl.constexpr,
-                         BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.program_id(1) * BLOCK_N + tl.arange(0, BLOCK_N)
-        rmask = rows < m
-        cmask = cols < n
-        mask = rmask[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * n + cols[None, :]
+    def pd_update_kernel(f_ptr, m1_ptr, m2_ptr, g_ptr, kxfky_ptr, mu_ptr,
+                         lam_ptr, s_ptr, rowsum_ptr, colsum_ptr, a_ptr, f_out,
+                         m1_out, m2_out, total, n, bias1, bias2, eps, rho,
+                         HAS_GRAD: tl.constexpr, BLOCK: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < total
         if HAS_GRAD:
+            row = offs // n
+            col = offs - row * n
             a = tl.load(a_ptr)
             mm4 = tl.load(g_ptr + offs, mask=mask, other=0.0)
             kx = tl.load(kxfky_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            rv = tl.load(rowvec_ptr + rows, mask=rmask, other=0.0)
-            cv = tl.load(colvec_ptr + cols, mask=cmask, other=0.0)
-            grad = 4.0 * mm4 - 4.0 * a * kx + rv[:, None] + cv[None, :]
+            rowvec = (tl.load(mu_ptr + row, mask=mask, other=0.0)
+                      + rho * tl.load(rowsum_ptr + row, mask=mask, other=0.0))
+            colvec = (tl.load(lam_ptr + col, mask=mask, other=0.0)
+                      + rho * (tl.load(colsum_ptr + col, mask=mask, other=0.0)
+                               + (tl.load(s_ptr + col, mask=mask, other=0.0)
+                                  - 2.0)))
+            grad = 4.0 * mm4 - 4.0 * a * kx + rowvec + colvec
         else:
             grad = tl.load(g_ptr + offs, mask=mask, other=0.0)
         m1 = (0.9 * tl.load(m1_ptr + offs, mask=mask, other=0.0).to(tl.float32)
@@ -93,8 +105,8 @@ def bias_corrections(i: int) -> Tuple[float, float]:
 
 
 def _grad_vectors(Mu, Lambda, S, rowsum, colsum, rho):
-    """The cheap O(m + n) terms the caller pre-folds (as the Pallas wrapper
-    does): rowvec (m, 1) and colvec (1, n)."""
+    """The cheap O(m + n) terms, rowvec (m, 1) and colvec (1, n), as the
+    Pallas wrapper pre-folds them (the kernel folds them itself)."""
     rowvec = Mu + rho * rowsum
     colvec = Lambda.T + rho * (colsum + (S - 2.0).T)
     return rowvec, colvec
@@ -139,22 +151,26 @@ def _check_state(F, M1, M2, others) -> None:
                              f'{tuple(F.shape)}, got {tuple(t.shape)}')
 
 
-def _launch(F, M1, M2, g, kxfky, rowvec, colvec, a, i, epsilon, has_grad):
+def _launch(F, M1, M2, g, kxfky, vectors, rho, a, i, epsilon, has_grad,
+            block=BLOCK, num_warps=NUM_WARPS):
+    """One kernel launch; `vectors` = (Mu, Lambda, S, rowsum, colsum) as
+    flat views. block and num_warps are parameters only for the sweep."""
     triton, kernel = _triton_kernel()
     m, n = F.shape
     bias1, bias2 = bias_corrections(i)
     F_out, M1_out, M2_out = (torch.empty_like(F), torch.empty_like(M1),
                              torch.empty_like(M2))
-    grid = (triton.cdiv(m, BLOCK_M), triton.cdiv(n, BLOCK_N))
     with torch.cuda.device(F.device):
-        kernel[grid](F, M1, M2, g, kxfky, rowvec, colvec, a, F_out, M1_out,
-                     M2_out, m, n, bias1, bias2, float(epsilon),
-                     HAS_GRAD=has_grad, BLOCK_M=BLOCK_M, BLOCK_N=BLOCK_N,
-                     num_warps=NUM_WARPS)
+        kernel[(triton.cdiv(m * n, block),)](
+            F, M1, M2, g, kxfky, *vectors, a, F_out, M1_out, M2_out, m * n, n,
+            bias1, bias2, float(epsilon), float(rho), HAS_GRAD=has_grad,
+            BLOCK=block, num_warps=num_warps)
     return F_out, M1_out, M2_out
 
 
 def _route(F) -> str:
+    if F.device.type == 'cuda' and F.numel() >= 2 ** 31:
+        raise ValueError('prime-dual tail: m * n must fit in int32')
     if F.device.type in ('cpu', 'cuda'):
         return F.device.type
     raise ValueError(f'prime-dual tail runs on CUDA or CPU tensors, got '
@@ -178,12 +194,16 @@ def fused_pd_grad_update(F, M1, M2, mm4, KxFKy, Mu, Lambda, S, rowsum,
         ('KxFKy', KxFKy, (torch.float32, torch.bfloat16))))
     if a.numel() != 1 or a.dtype != torch.float32 or a.device != F.device:
         raise ValueError('a must be a 1-element float32 tensor on F.device')
-    rowvec, colvec = _grad_vectors(Mu, Lambda, S, rowsum, colsum, rho)
     m, n = F.shape
-    if rowvec.shape != (m, 1) or colvec.shape != (1, n):
-        raise ValueError(f'row/column terms do not broadcast to {(m, n)}')
-    out = _launch(F, M1, M2, mm4, KxFKy, rowvec.contiguous(),
-                  colvec.contiguous(), a, i, epsilon, True)
+    vectors = []
+    for name, v, size in (('Mu', Mu, m), ('Lambda', Lambda, n), ('S', S, n),
+                          ('rowsum', rowsum, m), ('colsum', colsum, n)):
+        if (v.numel() != size or v.dtype != torch.float32
+                or v.device != F.device):
+            raise ValueError(f'{name} must hold {size} float32 values on '
+                             f'{F.device}, got {tuple(v.shape)} {v.dtype}')
+        vectors.append(v.reshape(-1))   # a view of the solver's vectors
+    out = _launch(F, M1, M2, mm4, KxFKy, vectors, rho, a, i, epsilon, True)
     fused_pd_grad_update.launches += 1
     return out
 
@@ -194,7 +214,8 @@ def fused_pd_update(F, M1, M2, grad, i: int, epsilon: float):
         return fused_pd_update_plain(F, M1, M2, grad, i, epsilon)
     _check_state(F, M1, M2, (('grad', grad, (torch.float32,)),))
     # the unused K1 operands get grad as a placeholder pointer
-    out = _launch(F, M1, M2, grad, grad, grad, grad, grad, i, epsilon, False)
+    out = _launch(F, M1, M2, grad, grad, (grad,) * 5, 0.0, grad, i, epsilon,
+                  False)
     fused_pd_update.launches += 1
     return out
 

@@ -29,7 +29,10 @@ def _rand(dev, *shape, seed=0):
 
 
 @pytest.mark.parametrize('m1_dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape', [(24, 136), (1047, 1047), (1000, 1037)])
+# 1047^2 and 1000x1037 are not multiples of the kernel's BLOCK; 1 x n and
+# m x 1 put every entry in one row or one column
+@pytest.mark.parametrize('shape', [(24, 136), (1047, 1047), (1000, 1037),
+                                   (1037, 1037), (1, 1047), (1037, 1)])
 def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype):
     m, n = shape
     F, M2, mm4 = (_rand(cuda, m, n, seed=s) for s in (1, 2, 3))
@@ -53,34 +56,71 @@ def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype):
                                    atol=1e-6 * float(w.float().abs().max()))
 
 
-def test_pd_update_kernel_matches_plain(cuda):
-    F, M2, grad = (_rand(cuda, 1047, 1047, seed=s) for s in (1, 2, 3))
-    M1 = _rand(cuda, 1047, 1047, seed=4) - 0.5
+@pytest.mark.parametrize('shape', [(1047, 1047), (1037, 1037), (1, 1047),
+                                   (1037, 1)])
+def test_pd_update_kernel_matches_plain(cuda, shape):
+    F, M2, grad = (_rand(cuda, *shape, seed=s) for s in (1, 2, 3))
+    M1 = _rand(cuda, *shape, seed=4) - 0.5
+    ops.reset_launch_counts()
     got = pd_update.fused_pd_update(F, M1, M2, grad, 7, 1e-3)
+    assert pd_update.fused_pd_update.launches == 1
     want = pd_update.fused_pd_update_plain(F, M1, M2, grad, 7, 1e-3)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5,
                                    atol=1e-6 * float(w.abs().max()))
 
 
+def _check_pairwise(x, y, squared):
+    got = pairwise.pairwise_euclidean(x, y, squared=squared)
+    want = pairwise.pairwise_euclidean_plain(x, y, squared=squared)
+    # 3xTF32 against exact float32 with Gram cancellation: held on the
+    # squares, to 1e-5 of the norm scale
+    scale = float((x * x).sum(1).max()) * 2
+    g2, w2 = (got, want) if squared else (got * got, want * want)
+    assert float((g2 - w2).abs().max()) <= 1e-5 * scale
+    if y is None:
+        # the tensor cores may sum (i, j) and (j, i) in other orders, so
+        # symmetry holds within the tolerance; the diagonal is exactly 0
+        assert float((g2 - g2.T).abs().max()) <= 1e-5 * scale
+        assert bool((torch.diagonal(got) == 0).all())
+
+
+# f = 33 and 333 are not multiples of 4 (the wrapper pads for TMA); 1 and
+# 70 rows are smaller than a 128-row tile; 1047x1047x5000 takes the
+# split-K route (test_pairwise_fit_shape_splits)
 @pytest.mark.parametrize('squared', [True, False])
 @pytest.mark.parametrize('self_dist', [True, False])
 @pytest.mark.parametrize('mnf', [(70, 50, 33), (1000, 1037, 333),
-                                 (1047, 1047, 5000)])
+                                 (1047, 1047, 5000), (1, 70, 33),
+                                 (70, 1, 333), (1, 1, 4), (300, 129, 32)])
 def test_pairwise_kernel_matches_plain(cuda, mnf, self_dist, squared):
     m, n, f = mnf
     x = torch.randn(m, f, device=cuda, generator=torch.Generator(
         device=cuda).manual_seed(0))
     y = None if self_dist else torch.randn(n, f, device=cuda)
-    got = pairwise.pairwise_euclidean(x, y, squared=squared)
-    want = pairwise.pairwise_euclidean_plain(x, y, squared=squared)
-    # Gram cancellation in float32: held on the squares, to 1e-5 of the
-    # norm scale
-    scale = float((x * x).sum(1).max()) * 2
-    g2, w2 = (got, want) if squared else (got * got, want * want)
-    assert float((g2 - w2).abs().max()) <= 1e-5 * scale
-    if self_dist:
-        assert bool((torch.diagonal(got) == 0).all())
+    ops.reset_launch_counts()
+    _check_pairwise(x, y, squared)
+    assert pairwise.pairwise_euclidean.launches == 1
+
+
+def test_pairwise_fit_shape_splits(cuda):
+    """The fit's 1047x1047 tiles (81) leave SMs idle, so the plan splits the
+    feature axis and the second pass runs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fp, splits = pairwise.launch_plan(1047, 1047, 5000, sms)
+    assert fp == 5000 and splits > 1
+    assert 81 * splits >= sms
+
+
+def test_pairwise_kernel_misaligned_base(cuda):
+    """A contiguous view whose base is not 16-byte aligned goes through an
+    aligned copy (TMA needs one)."""
+    buf = torch.rand(1 + 200 * 64, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+    x = buf[1:].view(200, 64)
+    assert x.data_ptr() % 16 != 0
+    for y in (None, x.flip(0).contiguous()):
+        _check_pairwise(x, y, squared=True)
 
 
 @pytest.mark.parametrize('mkn', [(1047, 1047, 1047), (1047, 512, 1047),

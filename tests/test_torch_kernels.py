@@ -161,3 +161,18 @@ def test_kernel_modules_import_without_triton():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+# (m, n, f) -> (padded width, split-K factor) on a 132-SM H100: the fit's
+# 1047^2 (81 tiles) splits its 3000/5000 features three ways; 9190^2 (5184
+# tiles) and one-stage widths run whole; widths pad to a multiple of 4
+@pytest.mark.parametrize('mnf, plan', [
+    ((1047, 1047, 5000), (5000, 3)), ((1047, 1047, 3000), (3000, 3)),
+    ((9190, 9190, 28930), (28932, 1)), ((1047, 1047, 32), (32, 1)),
+    ((70, 50, 33), (36, 1)), ((1, 1, 4), (4, 1))])
+def test_pairwise_launch_plan(mnf, plan):
+    fp, splits = pairwise.launch_plan(*mnf, num_sms=132)
+    assert (fp, splits) == plan
+    steps = -(-fp // pairwise.K_STEP)
+    per = -(-steps // splits)
+    assert (splits - 1) * per < steps   # no empty slice (the kernel refuses one)
