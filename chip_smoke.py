@@ -22,7 +22,20 @@
    identical modal_predict, with the counts set to 0 again; then a small
    prime-dual solve on the card held against the same solve on the CPU,
    for each precision and state dtype.
-6. A `kernels` JSON line, the nvidia-smi line, and as the last line
+6. Partial prior: a short fit on the same data with the first fit's F
+   (match_result, so no solve repeats) and P a 1-D mask with half the
+   cells set, which must sample 'hybrid'.
+7. Landmark fit: JAMIE(corr_landmarks=2048).fit_transform on 19,000
+   SNARE-shaped cells (the same generator, seed 0) with the counts at 0:
+   2000 K1 launches (the 2048x2048 solve), K3 for the landmark distances
+   and the cell-to-landmark weights, a rank-2048 LowRankF, the identity
+   sentinel P and 'diag' sampling. Then the row-blocked FOSCTTM and label
+   transfer (one K3 launch per block, better than chance) and transform
+   == the fit's output. Then the dense and k-sparse factor layouts of
+   landmark_correspondence on the same data, held to each other, and a
+   small landmark solve on the card held against the same solve on the
+   CPU.
+8. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -31,6 +44,7 @@ the jamie_tpu_torch package is not next to it.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -211,8 +225,9 @@ class KernelPhase:
         plain_ms = time_ms(
             torch, lambda: pairwise_euclidean_plain(x, y, squared=squared))
         yy = x if y is None else y
-        library_ms = (None if squared else
-                      time_ms(torch, lambda: torch.cdist(x, yy)))
+        # torch.cdist returns the sqrt; no one PyTorch call returns squared
+        # distances, so squared rows carry cdist's time marked as such
+        library_ms = time_ms(torch, lambda: torch.cdist(x, yy))
         m, f = x.shape
         n = yy.shape[0]
         ins = (x, xsq) if y is None else (x, y, xsq, ysq)
@@ -231,7 +246,7 @@ class KernelPhase:
         self.record('pairwise_euclidean', case, err, check, tol, ms, plain_ms,
                     nbytes(*ins, got), 3 * 2 * m * n * f, library_ms,
                     rate=self.tf32, fp32_bound_ms=fp32_bound_ms,
-                    max_asymmetry=sym)
+                    max_asymmetry=sym, library_output='sqrt')
 
 
 def device_kernels(torch, fn):
@@ -264,6 +279,173 @@ def mma_route(lib_path):
             route = 'wgmma' if n_wgmma else ('mma.sync' if n_mma else 'none')
             return route, f'{n_wgmma} HGMMA, {n_mma} HMMA in the SASS'
     return 'unknown', 'cuobjdump not found'
+
+
+def partial_prior_phase(JAMIE, ops, match_result, data):
+    """A short fit reusing `match_result` (no solve) with P a 1-D mask of
+    half the cells: 'hybrid' sampling and finite embeddings."""
+    n = data[0].shape[0]
+    mask = np.zeros(n, np.float32)
+    mask[::2] = 1
+    jp = JAMIE(match_result=match_result, epoch_DNN=5, min_epochs=2,
+               use_early_stop=False)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    emb = jp.fit_transform(dataset=data, P=mask)
+    print(f'partial prior: 1-D mask P with {int(mask.sum())} of {n} cells, '
+          f'{time.perf_counter() - t:.3f} s, sampling '
+          f'{jp.sampling_method!r}; launches {ops.launch_counts()}',
+          flush=True)
+    if jp.sampling_method != 'hybrid':
+        fail(f'a half mask P sampled {jp.sampling_method!r}, not hybrid')
+    if not all(e.shape == (n, 32) and np.isfinite(e).all() for e in emb):
+        fail('partial-prior embeddings are off')
+
+
+def landmark_fit_phase(torch, JAMIE, ops, data, labels, n_landmarks=2048):
+    """JAMIE(corr_landmarks=...).fit_transform with the counts at 0 just
+    before it, its row-blocked metrics with the counts at 0 again, and
+    transform == the fit's output."""
+    from jamie_tpu_torch import evaluation
+    from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
+    n = data[0].shape[0]
+    jm = JAMIE(corr_landmarks=n_landmarks, epoch_DNN=20, min_epochs=10,
+               use_early_stop=False)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = jm.fit_transform(dataset=data)
+    fit_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    print(f'landmark fit: {n} cells, corr_landmarks={n_landmarks}, '
+          f'{fit_s:.3f} s; phases {jm.phase_timings}; mapping '
+          f'{ {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
+          f'epochs {jm.epochs_run} train {jm.fit_seconds:.3f} s; '
+          f'launches {counts}', flush=True)
+    F = jm.match_result[0]
+    # the two landmark distance matrices, then one 8192-row block of
+    # cell-to-landmark distances per modality
+    k3_min = 2 + 2 * math.ceil(n / 8192)
+    if counts['fused_pd_grad_update'] != jm.config.epoch_pd:
+        fail(f'K1 launched {counts["fused_pd_grad_update"]} times in the '
+             f'landmark fit, expected epoch_pd={jm.config.epoch_pd}')
+    if counts['pairwise_euclidean'] < k3_min:
+        fail(f'K3 launched {counts["pairwise_euclidean"]} times in the '
+             f'landmark fit, expected at least {k3_min}')
+    if not (isinstance(F, LowRankF) and not isinstance(F, SparseLandmarkF)
+            and F.rank == n_landmarks and F.shape == (n, n)
+            and bool(torch.isfinite(F.u).all())
+            and bool(torch.isfinite(F.v).all())):
+        fail(f'landmark F is {F!r}, not a finite rank-{n_landmarks} '
+             'LowRankF')
+    if jm.dist is not None:
+        fail('the landmark fit built dense distance matrices')
+    if not (isinstance(jm.P, str) and jm.P == 'identity'
+            and jm.trainer._p_identity and jm.sampling_method == 'diag'):
+        fail(f'landmark fit P {jm.P!r}, sampling {jm.sampling_method!r}: '
+             "expected the identity sentinel and 'diag'")
+    for i, e in enumerate(out):
+        if e.shape != (n, 32) or not np.isfinite(e).all():
+            fail(f'landmark embedding {i}: shape {e.shape}, finite '
+                 f'{np.isfinite(e).all()}')
+    # Row-blocked metrics: one K3 launch per block
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    foscttm = jm.test_closer(out)
+    lta = jm.test_LabelTA(out, [labels, labels])
+    metrics_s = time.perf_counter() - t
+    m_counts = ops.launch_counts()
+    bs = max(evaluation._FOSCTTM_BLOCK_ENTRIES // n, 256)
+    blocks = 2 * math.ceil(n / bs)
+    print(f'landmark metrics: blocked FOSCTTM {foscttm} LTA {lta} '
+          f'({metrics_s:.3f} s, {bs}-row blocks); launches {m_counts}',
+          flush=True)
+    if m_counts['pairwise_euclidean'] != blocks:
+        fail(f'the metrics launched K3 {m_counts["pairwise_euclidean"]} '
+             f'times, expected {blocks} (one per block)')
+    if not (np.isfinite(foscttm) and np.isfinite(lta)
+            and foscttm < 0.25 and lta > 0.5):
+        fail(f'landmark fit no better than chance: FOSCTTM {foscttm} '
+             f'(limit < 0.25), LTA {lta} (limit > 0.5)')
+    if not all(np.allclose(a, b, rtol=1e-5, atol=1e-5)
+               for a, b in zip(jm.transform(data), out)):
+        fail('transform differs from the landmark fit output')
+    print('landmark serve: transform == fit output', flush=True)
+
+
+def landmark_layout_phase(torch, data, dev, n_landmarks=2048):
+    """The dense and k-sparse factor layouts of one landmark solve (same
+    seed, euclidean, 200 iterations) held to each other: float32 summation
+    order (an (N, L) x (L, L) GEMM against an 8-term mix per row), within
+    1e-4 of the largest entry."""
+    from jamie_tpu_torch.solvers.landmark import landmark_correspondence
+    n = data[0].shape[0]
+    kw = dict(n_landmarks=n_landmarks, epoch_pd=200, verbose=False,
+              distance_mode='euclidean', seed=0, device=dev)
+    t = time.perf_counter()
+    F_dense = landmark_correspondence(*data, factor_layout='dense', **kw)
+    F_sparse = landmark_correspondence(*data, factor_layout='sparse', **kw)
+    layout_s = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    for _ in range(3):
+        i0 = torch.randint(0, n, (512,), device=dev, generator=gen)
+        i1 = torch.randint(0, n, (512,), device=dev, generator=gen)
+        bd = F_dense.gather_batch(i0, i1)
+        worst = max(worst, float((bd - F_sparse.gather_batch(i0, i1)).abs()
+                                 .max() / bd.abs().max()))
+    cd = F_dense.col_sums()
+    cs_err = float((cd - F_sparse.col_sums()).abs().max() / cd.abs().max())
+    print(f'landmark layouts: {n} cells dense vs sparse (euclidean, '
+          f'epoch_pd 200, {layout_s:.3f} s for both): gather_batch 3 x '
+          f'512x512 max rel |d| {worst}, col_sums {cs_err} (limit 1e-4)',
+          flush=True)
+    if not (worst <= 1e-4 and cs_err <= 1e-4):
+        fail('the dense and sparse landmark layouts disagree')
+
+
+def landmark_reference_phase(dev, n=600, n_landmarks=128):
+    """A small landmark solve on `dev` against the same solve on the CPU:
+    identical FPS picks; on rows whose 8th and 9th landmark distances
+    differ by more than K3's 1e-5 of the norm scale (the same 8 neighbours
+    on both), weights V within 1e-4 and U within 1e-3 of its largest entry
+    (float32 solver)."""
+    from jamie_tpu_torch.solvers import landmark as LM
+    rng = np.random.RandomState(0)
+    z = rng.randn(n, 8).astype(np.float32)
+    xs = [(z @ rng.randn(8, f) + 0.1 * rng.randn(n, f)).astype(np.float32)
+          for f in (50, 30)]
+    picks = []
+    for d in (dev, 'cpu'):
+        prng = np.random.RandomState(5)
+        picks.append([LM._select_landmarks(a, n_landmarks, 'fps', prng, d)
+                      for a in xs])
+    if not all(np.array_equal(a, b) for a, b in zip(*picks)):
+        fail('FPS picked other landmarks on the card than on the CPU')
+    kw = dict(n_landmarks=n_landmarks, k_interp=8, epoch_pd=200,
+              verbose=False, distance_mode='euclidean', precision='highest',
+              seed=5)
+    F_dev = LM.landmark_correspondence(*xs, device=dev, **kw)
+    F_cpu = LM.landmark_correspondence(*xs, device='cpu', **kw)
+
+    def resolved(x, lm):
+        d2 = ((x[:, None, :].astype(np.float64) - lm[None]) ** 2).sum(-1)
+        d2.sort(axis=1)
+        scale = 2 * float((x.astype(np.float64) ** 2).sum(1).max())
+        return d2[:, 8] - d2[:, 7] > 1e-5 * scale
+
+    ok_x = resolved(xs[0], xs[0][picks[1][0]])
+    ok_y = resolved(xs[1], xs[1][picks[1][1]])
+    v_err = float(np.abs(F_dev.v.cpu().numpy() - F_cpu.v.numpy())[ok_y].max())
+    u_cpu = F_cpu.u.numpy()
+    u_err = float(np.abs(F_dev.u.cpu().numpy() - u_cpu)[ok_x].max())
+    u_lim = 1e-3 * float(np.abs(u_cpu).max())
+    print(f'reference: landmark_correspondence {n} cells L={n_landmarks} '
+          f'euclidean epoch_pd 200 card vs CPU: FPS identical; on '
+          f'{ok_x.mean():.3f} / {ok_y.mean():.3f} resolved rows max |dV| '
+          f'{v_err} (limit 1e-4), max |dU| {u_err} (limit {u_lim})',
+          flush=True)
+    if not (v_err <= 1e-4 and u_err <= u_lim):
+        fail('landmark_correspondence on the card disagrees with the CPU')
 
 
 def main():
@@ -385,6 +567,29 @@ def main():
             kp.pairwise(big, y, squared=sq)
     del big, big2, xr, yr
     torch.cuda.empty_cache()
+    # The landmark path's shapes on 19,000 cells: K1 on the 2048x2048
+    # landmark solve; K3 self sqrt on the landmark subsets (geodesic base),
+    # cross squared from an 8192-row block of cells to the landmarks, and
+    # cross squared on one row block of the blocked FOSCTTM / kNN
+    t = time.perf_counter()
+    data19, labels19 = make_snare_like(n=19000)
+    print(f'data: 19000 cells generated in {time.perf_counter() - t:.2f} s',
+          flush=True)
+    kp.pd_update(2048, 2048, torch.float32)
+    lm_rows = np.sort(np.random.RandomState(0).choice(19000, 2048,
+                                                      replace=False))
+    for x_host in data19:
+        cells = torch.as_tensor(x_host[:8192], device=dev)
+        lms = torch.as_tensor(x_host[lm_rows], device=dev)
+        kp.pairwise(lms, None, squared=False)
+        kp.pairwise(cells, lms, squared=True)
+    from jamie_tpu_torch import evaluation
+    emb19 = torch.randn(19000, 32, device=dev, generator=g)
+    bs19 = max(evaluation._FOSCTTM_BLOCK_ENTRIES // 19000, 256)
+    kp.pairwise(emb19[:bs19], torch.randn(19000, 32, device=dev, generator=g),
+                squared=True)
+    del cells, lms, emb19
+    torch.cuda.empty_cache()
 
     # 4. Fit, with every launch count at 0 just before it
     kw = dict(epoch_DNN=20, min_epochs=10, use_early_stop=False)
@@ -465,7 +670,15 @@ def main():
             fail(f'prime_dual ({precision}, {state_dtype}) on the card '
                  f'disagrees with the CPU')
 
-    # 6. The kernels line, the device line, the result
+    # 6. Partial prior: the first fit's F, half the cells paired
+    partial_prior_phase(JAMIE, ops, jm.match_result, data)
+    # 7. The landmark path on 19,000 cells
+    landmark_fit_phase(torch, JAMIE, ops, data19, labels19)
+    landmark_layout_phase(torch, data19, dev)
+    del data19
+    landmark_reference_phase(dev)
+
+    # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',
                  'pd_update': '1047x1047 M1=float32',
                  'pairwise_euclidean': '1047x1047x5000 self sqrt'}

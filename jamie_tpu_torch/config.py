@@ -8,10 +8,9 @@ Fields that only steer the TPU build are accepted and inert here:
 `prng_impl`, `mesh_shape`, `mesh_axis_names`, `dispatch_lookahead`,
 `epoch_chunk` and `tp_wide_threshold` (PyTorch runs eagerly on one card,
 with its own generators). Fields whose feature this port does not have yet
-(`corr_landmarks`, `f_top_k`, `checkpoint_dir`, `metrics_path`,
-`project_mode='tsne'`, `model_pca` other than 'pca', `corr_method='jamie'`,
-`compute_dtype='bfloat16'`) make `JAMIE` raise NotImplementedError naming
-the ROADMAP.md item that ports them.
+(`checkpoint_dir`, `metrics_path`, `project_mode='tsne'`, `model_pca` other
+than 'pca', `corr_method='jamie'`, `compute_dtype='bfloat16'`) make `JAMIE`
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ class JamieConfig:
     rho: float = 10.0                 # augmented-lagrangian penalty
     delay: int = 0                    # iterations before scale factor updates
     log_pd: int = 500
-    corr_landmarks: Optional[int] = None     # landmark F (not ported)
+    corr_landmarks: Optional[int] = None     # landmark F with L landmarks
     corr_landmark_k: int = 8
     corr_landmark_selection: str = 'fps'
     corr_factor_layout: str = 'auto'
@@ -114,7 +113,7 @@ class JamieConfig:
     mesh_shape: Optional[Tuple[int, ...]] = None   # inert: one card
     mesh_axis_names: Tuple[str, ...] = ('data',)   # inert: one card
     true_ratio: float = 0.8           # hybrid-sampling corr fraction (jamie.py:529)
-    f_top_k: Optional[int] = None     # SparseRows top-k F (not ported)
+    f_top_k: Optional[int] = None     # SparseRows top-k F
     tp_wide_threshold: int = 1024     # inert (TPU tensor parallelism)
     prng_impl: Optional[str] = None   # inert (jax PRNG implementation)
     checkpoint_dir: Optional[str] = None   # mid-fit snapshots (not ported)

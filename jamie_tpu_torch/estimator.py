@@ -8,8 +8,12 @@ jamie/jamie.py:29-972). Same surface: `fit_transform(dataset, P)`,
 
 `JAMIE(device=...)` picks the device; with none given it runs on the CUDA
 card and raises when there is none (`device='cpu'` is the explicit CPU
-route). Everything outside the dense main path raises NotImplementedError
-naming the ROADMAP.md item that ports it.
+route). Past the dense solver's range the estimator takes jamie_tpu's
+large-dataset route: landmark F (`corr_landmarks`, or automatically past
+`LANDMARK_AUTO_ENTRIES`), the implicit 'identity'/'zeros' P/F sentinels past
+`SENTINEL_ENTRIES`, and sparse or 1-D mask priors and `f_top_k`. What is
+not ported raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -30,17 +34,22 @@ from .models.coupled_vae import CoupledVAE
 from .ops.distances import dataset_distance_matrix
 from .persistence import load_checkpoint, save_checkpoint
 from .preprocess import Preprocessor
+from .ops.sparse import SparseRows, is_sparse_input
+from .solvers.landmark import landmark_correspondence
 from .solvers.prime_dual import prime_dual
 from .train.trainer import JamieTrainer
 
-# jamie_tpu passes string sentinels for P/F past this many N0*N1 entries
-# (estimator.py:41): ROADMAP.md item 9.
+# jamie_tpu's thresholds (estimator.py:41-59), set there for a 16 GB TPU
+# and kept until a probe on the card re-derives them. Module globals read
+# at call time, so tests can patch them to force either route.
+# Past this many N0*N1 entries P and an all-zeros F stay implicit (the
+# 'identity' / 'zeros' sentinels, a zero-nnz SparseRows for unequal rows).
 SENTINEL_ENTRIES = 50_000_000
 # Dense prime-dual state: exact f32 up to this many (N0, N1) entries, bf16
 # M1 / carried products above ('auto', estimator.py:50).
 DENSE_F32_STATE_ENTRIES = 250_000_000
-# Past this many entries jamie_tpu switches to landmark F (estimator.py:59):
-# ROADMAP.md item 10.
+# Past this many entries the correspondence takes the landmark route
+# (corr_landmarks forces it at any size).
 LANDMARK_AUTO_ENTRIES = 520_000_000
 
 
@@ -59,10 +68,6 @@ def _check_config(cfg) -> None:
         raise _unported(f'corr_method={cfg.corr_method!r}', 12)
     if cfg.compute_dtype != 'float32':
         raise _unported(f'compute_dtype={cfg.compute_dtype!r}', 13)
-    if cfg.corr_landmarks is not None:
-        raise _unported('landmark F (corr_landmarks)', 10)
-    if cfg.f_top_k is not None:
-        raise _unported('f_top_k (SparseRows F)', 9)
     if cfg.checkpoint_dir is not None:
         raise _unported('checkpoint_dir (mid-fit snapshots)', 13)
     if cfg.metrics_path is not None:
@@ -96,6 +101,7 @@ class JAMIE:
         self.dataset_num = 2
         self.loss_history = {}
         self.dist = None
+        self._use_landmarks = False
         self.trainer: Optional[JamieTrainer] = None
 
     # ------------------------------------------------------------------ fit
@@ -120,19 +126,24 @@ class JAMIE:
         self.row = [int(np.shape(d)[0]) for d in self.dataset]
         self.col = [int(np.shape(d)[1]) for d in self.dataset]
         entries = self.row[0] * self.row[1]
-        if (cfg.use_f_tilde and self.match_result is None
-                and entries > LANDMARK_AUTO_ENTRIES):
-            raise _unported(f'landmark F at {entries:,} (N0, N1) entries', 10)
-        if entries > SENTINEL_ENTRIES:
-            raise _unported(f'sentinel P/F at {entries:,} (N0, N1) entries', 9)
 
+        # Landmark route: the dense N x N distance matrices exist only to
+        # feed the dense solver; the landmark solver builds its own L x L
+        # ones (jamie_tpu/estimator.py:144-156)
+        self._use_landmarks = (
+            cfg.use_f_tilde and self.match_result is None
+            and (cfg.corr_landmarks is not None
+                 or entries > LANDMARK_AUTO_ENTRIES))
         self.compute_distances(save_dist=(
-            self.match_result is None and cfg.use_f_tilde))
+            self.match_result is None and cfg.use_f_tilde
+            and not self._use_landmarks))
         time.log('Distance')
 
         if not cfg.use_f_tilde:
-            self.match_result = [
-                np.zeros([d.shape[0] for d in self.dataset], np.float32)]
+            # Past SENTINEL_ENTRIES the zero matrix stays implicit
+            self.match_result = (
+                ['zeros'] if entries > SENTINEL_ENTRIES else
+                [np.zeros([d.shape[0] for d in self.dataset], np.float32)])
         if self.match_result is None:
             self.match_result = self.match()
         time.log('Correspondence')
@@ -181,11 +192,33 @@ class JAMIE:
                 print('-' * 33)
                 print(f'Find correspondence between Dataset {i + 1} '
                       f'and Dataset {j + 1}')
-                cor_pairs.append(self.Prime_Dual(
-                    [self.dist[i], self.dist[j]],
-                    dx=self.col[i], dy=self.col[j]))
+                if self._use_landmarks:
+                    cor_pairs.append(self._landmark_correspondence(i, j))
+                else:
+                    cor_pairs.append(self.Prime_Dual(
+                        [self.dist[i], self.dist[j]],
+                        dx=self.col[i], dy=self.col[j]))
         print('Finished Matching!')
         return cor_pairs
+
+    def _landmark_correspondence(self, i: int, j: int):
+        """Low-rank F between datasets i and j (jamie_tpu/estimator.py:
+        283-301); the L x L solver state is small, so 'auto' state is f32."""
+        cfg = self.config
+        return landmark_correspondence(
+            self.dataset[i], self.dataset[j],
+            n_landmarks=cfg.corr_landmarks or 2048,
+            k_interp=cfg.corr_landmark_k,
+            selection=cfg.corr_landmark_selection,
+            factor_layout=cfg.corr_factor_layout,
+            distance_mode=cfg.distance_mode, kmax=cfg.kmax,
+            seed=cfg.manual_seed, device=self.device,
+            epoch_pd=cfg.epoch_pd, rho=cfg.rho, epsilon=cfg.epsilon,
+            delay=cfg.delay, log_pd=cfg.log_pd,
+            precision=('highest' if cfg.solver_dtype == 'float32'
+                       else 'default'),
+            state_dtype=(cfg.solver_state_dtype
+                         if cfg.solver_state_dtype != 'auto' else 'float32'))
 
     def _resolved_state_dtype(self, entries: int) -> str:
         """'auto' -> exact f32 state up to DENSE_F32_STATE_ENTRIES, bf16
@@ -216,12 +249,30 @@ class JAMIE:
         print('-' * 33)
         print('Train coupled autoencoders')
         assert len(W) == 2, 'Currently only compatible with 2 modalities.'
+        implicit = self.row[0] * self.row[1] > SENTINEL_ENTRIES
         if self.P is None:
-            # P defaults (jamie_tpu/estimator.py:356-371, dense only)
-            self.P = (np.eye(self.row[0], dtype=np.float32)
-                      if self.row[0] == self.row[1]
-                      else np.zeros((self.row[0], self.row[1]), np.float32))
+            # P defaults (jamie_tpu/estimator.py:356-371): past
+            # SENTINEL_ENTRIES the identity stays implicit, and an unaligned
+            # pair gets a zero-nnz SparseRows (the 'zeros' regime)
+            if self.row[0] == self.row[1]:
+                self.P = ('identity' if implicit
+                          else np.eye(self.row[0], dtype=np.float32))
+            elif implicit:
+                self.P = SparseRows.from_coo(
+                    [], [], [], (self.row[0], self.row[1]))
+            else:
+                self.P = np.zeros((self.row[0], self.row[1]), np.float32)
+        if not (isinstance(self.P, (str, torch.Tensor))
+                or is_sparse_input(self.P)):
+            self.P = np.asarray(self.P, np.float32)
+        # F passes through in its form: sentinel, sparse, low-rank, or the
+        # solver's device tensor (:374-386)
         self.F = W[0][1]
+        if (cfg.f_top_k is not None
+                and isinstance(self.F, (np.ndarray, torch.Tensor))
+                and self.F.ndim == 2):
+            # top-k compression bounds the trainer's F at O(N k)
+            self.F = SparseRows.top_k(self.F, cfg.f_top_k)
 
         pca_dims = cfg.pca_dim if cfg.pca_dim is not None else (None, None)
         timer = TimeLogger(block=True)

@@ -3,11 +3,12 @@
 Reference parity: `jamie_tpu/evaluation.py:41-170` (jamie/evaluation.py
 `test_closer` :65-85, `test_label_dist` :88-111, `test_LabelTA`
 :114-132). FOSCTTM, the kNN label transfer and the centroid distances take
-their distances from the K3 kernel (`ops/pairwise.py`) on `device`.
+their distances from the K3 kernel (`ops/pairwise.py`) on `device`, in row
+blocks of max(_FOSCTTM_BLOCK_ENTRIES // n, 256) rows (one block up to
+`_FOSCTTM_BLOCK_ENTRIES` entries), exact at any N.
 
-Not ported yet: the row-blocked FOSCTTM / kNN past
-`_FOSCTTM_BLOCK_ENTRIES`, occlusion/SHAP, `test_partial` and the figures
-(ROADMAP.md item 13).
+Not ported yet: occlusion/SHAP, `test_partial` and the figures (ROADMAP.md
+item 13).
 """
 
 from __future__ import annotations
@@ -18,22 +19,29 @@ import numpy as np
 import torch
 
 from .core.dtypes import resolve_device
+from .ops.distances import _as_device_f32
 from .ops.pairwise import pairwise_euclidean
 
-# jamie_tpu computes these metrics in one N x N piece up to this many
-# entries and in row blocks beyond (evaluation.py:67)
+# Each row block of these metrics' distances holds about this many entries
+# (1 GB of f32; jamie_tpu/evaluation.py:67)
 _FOSCTTM_BLOCK_ENTRIES = 1 << 28
 
 
-def _device_f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+def _block_rows(n_cols: int) -> int:
+    return max(_FOSCTTM_BLOCK_ENTRIES // n_cols, 256)
 
 
-def _check_unblocked(nq: int, nf: int, what: str) -> None:
-    if nq * nf > _FOSCTTM_BLOCK_ENTRIES:
-        raise NotImplementedError(
-            f'{what} over {nq} x {nf} entries needs the row-blocked route: '
-            'ROADMAP.md item 13')
+def _foscttm_block(a_blk, b, diag_blk, diag, start: int) -> torch.Tensor:
+    """One row block's count for both FOSCTTM directions (int64): the
+    (bs, n) distance block against the block's own true-match distances
+    (a->b) and every column's (b->a). The block's self-pair entries are
+    overwritten with the exact diagonal, so K3's rounding there never flips
+    the strict < (a self-pair counts in neither direction)."""
+    d = pairwise_euclidean(a_blk, b, squared=True)
+    rows = torch.arange(a_blk.shape[0], device=d.device)
+    d[rows, start + rows] = diag_blk
+    return (torch.sum(d < diag_blk[:, None])
+            + torch.sum(d < diag[None, :]))
 
 
 def test_closer(integrated_data, distance_metric=None, device=None) -> float:
@@ -51,14 +59,14 @@ def test_closer(integrated_data, distance_metric=None, device=None) -> float:
         foscttm = raw / (2 * size ** 2)
     else:
         device = resolve_device(device)
-        a = _device_f32(integrated_data[0], device)
-        b = _device_f32(integrated_data[1], device)
+        a = _as_device_f32(integrated_data[0], device)
+        b = _as_device_f32(integrated_data[1], device)
         n = a.shape[0]
-        _check_unblocked(n, n, 'FOSCTTM')
-        d = pairwise_euclidean(a, b, squared=True)
-        diag = torch.diagonal(d)
-        closer = (torch.sum(d < diag[:, None]) + torch.sum(d < diag[None, :]))
-        foscttm = float(closer) / (2.0 * n * n)
+        bs = _block_rows(n)
+        diag = torch.sum((a - b) ** 2, dim=1)
+        closer = sum(_foscttm_block(a[s:s + bs], b, diag[s:s + bs], diag, s)
+                     for s in range(0, n, bs))
+        foscttm = int(closer) / (2.0 * n * n)
     print(f'foscttm: {foscttm}')
     return foscttm
 
@@ -75,7 +83,7 @@ def test_label_dist(integrated_data, datatype, distance_metric=None,
         [np.average(data[labels == lab, :], axis=0) for lab in keys])
     if distance_metric is None:
         dist = pairwise_euclidean(
-            _device_f32(centroids, resolve_device(device)),
+            _as_device_f32(centroids, resolve_device(device)),
             squared=False).cpu().numpy()
     else:
         dist = distance_metric(centroids)
@@ -96,17 +104,24 @@ def knn_label_transfer_accuracy(integrated_data, datatype,
         k = int(0.2 * total_size / num_classes)
     k = max(int(k), 1)
     device = resolve_device(device)
-    fit_x = _device_f32(integrated_data[1], device)
-    query = _device_f32(integrated_data[0], device)
+    fit_x = _as_device_f32(integrated_data[1], device)
+    query = _as_device_f32(integrated_data[0], device)
     uniq, fit_labels = np.unique(np.asarray(datatype[1]), return_inverse=True)
     k = min(k, fit_x.shape[0])
-    _check_unblocked(query.shape[0], fit_x.shape[0], 'kNN label transfer')
-    d = pairwise_euclidean(query, fit_x, squared=True)
-    nn_idx = torch.topk(d, k, dim=1, largest=False).indices
-    votes = torch.as_tensor(fit_labels, device=device)[nn_idx]   # (nq, k)
-    counts = torch.nn.functional.one_hot(votes, len(uniq)).sum(1)
-    pred = torch.argmax(counts, dim=1).cpu().numpy()
-    acc = float(np.mean(uniq[pred] == np.asarray(datatype[0])))
+    fit_labels = torch.as_tensor(fit_labels, device=device)
+
+    def block_pred(q_blk):
+        d = pairwise_euclidean(q_blk, fit_x, squared=True)
+        nn_idx = torch.topk(d, k, dim=1, largest=False).indices
+        votes = fit_labels[nn_idx]                              # (bq, k)
+        counts = torch.nn.functional.one_hot(votes, len(uniq)).sum(1)
+        return torch.argmax(counts, dim=1)
+
+    # kNN is per query row: row blocks are exact at any N
+    bs = _block_rows(fit_x.shape[0])
+    pred = torch.cat([block_pred(query[s:s + bs])
+                      for s in range(0, query.shape[0], bs)])
+    acc = float(np.mean(uniq[pred.cpu().numpy()] == np.asarray(datatype[0])))
     return acc, k
 
 

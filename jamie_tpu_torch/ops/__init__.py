@@ -3,6 +3,8 @@
 - `pd_update`: K1/K2, the prime-dual iteration tail (Triton).
 - `pairwise`: K3, pairwise (squared) euclidean distances (CUDA C++).
 - `distances`: the distance-matrix dispatch on top of K3.
+- `sparse`: `SparseRows` (padded-ELL priors / top-k F) and its batch gather.
+- `lowrank`: `LowRankF` / `SparseLandmarkF`, the landmark F layouts.
 - `_build`: nvcc + ctypes loader for `csrc/*.cu`.
 """
 

@@ -29,7 +29,12 @@ PORTED_MODES = ('euclidean', 'l2', 'sqeuclidean', 'geodesic')
 _FEATURE_CHUNK_THRESHOLD = 100_000_000
 
 
-def _as_device_f32(x, device) -> torch.Tensor:
+def _check_source(x) -> None:
+    """Refuse the host inputs whose jamie_tpu routes are not ported:
+    scipy-sparse matrices and dense ones past `_FEATURE_CHUNK_THRESHOLD`
+    elements (ROADMAP.md item 11). Tensors are already resident."""
+    if isinstance(x, torch.Tensor):
+        return
     if is_scipy_sparse(x):
         raise NotImplementedError(
             'sparse inputs are ROADMAP.md item 11 (sparse and atlas data '
@@ -39,6 +44,12 @@ def _as_device_f32(x, device) -> torch.Tensor:
             f'a {x.shape[0]} x {x.shape[1]} matrix is past the '
             f'{_FEATURE_CHUNK_THRESHOLD:,}-element bf16-resident threshold: '
             'ROADMAP.md item 11 (sparse and atlas data inputs)')
+
+
+def _as_device_f32(x, device) -> torch.Tensor:
+    """x (host array or tensor) as a contiguous float32 tensor on device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).contiguous()
     return torch.as_tensor(as_f32_ndarray(x), device=device).contiguous()
 
 
@@ -50,6 +61,7 @@ def pairwise_distance(x, metric: str = 'euclidean',
         raise NotImplementedError(
             f'metric {metric!r} is ROADMAP.md item 12; ported metrics: '
             'euclidean, l2, sqeuclidean')
+    _check_source(x)
     xt = _as_device_f32(x, resolve_device(device))
     return pairwise_euclidean(xt, squared=(metric == 'sqeuclidean'))
 

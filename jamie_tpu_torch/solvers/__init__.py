@@ -1,1 +1,2 @@
-"""Correspondence solvers (the dense prime-dual F-estimator)."""
+"""Correspondence solvers: the dense prime-dual F-estimator and its
+landmark (low-rank) extension."""

@@ -1,0 +1,210 @@
+"""Landmark (Nystrom-style) correspondence: prime-dual F past the dense N².
+
+Reference parity: `jamie_tpu/solvers/landmark.py`. The dense solver holds
+five (N0, N1) arrays; this one bounds the estimation at O(N L + L²):
+
+1. pick L landmark cells per modality (farthest-point cover by default,
+   or uniform), with the same `RandomState(seed)` draws as jamie_tpu, so
+   both packages start from the same cell and draw the same subsets;
+2. run the exact prime-dual solver (K1) on the (L, L) landmark distance
+   matrices (K3, plus the host graph for geodesic);
+3. extend to all cells with row-stochastic kNN-Gaussian weights A: each
+   cell mixes its k nearest landmarks, bandwidth its own mean kNN squared
+   distance, from K3's cross squared distances in 8192-row blocks;
+4. return F = (A_x F_L) A_y^T as a `LowRankF`, or in the k-sparse
+   `SparseLandmarkF` layout past `_SPARSE_FACTOR_ENTRIES`.
+
+Everything runs on `device` (the card unless the caller passes another).
+FPS keeps its picks on the device: no host read inside its loop. With
+`verbose` (the solver's flag, on by default) it prints the seconds of its
+four steps, each ended by a device synchronize.
+
+Not ported (NotImplementedError, ROADMAP.md item 11): scipy-sparse sources,
+host sources past `ops/distances._FEATURE_CHUNK_THRESHOLD` elements
+(jamie_tpu streams them through its uploader), and the JL-sketch FPS past
+`_FPS_BYTES_BUDGET`.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.dtypes import resolve_device
+from ..core.hostmat import is_scipy_sparse
+from ..core.timing import TimeLogger
+from ..ops.distances import (_as_device_f32, _check_source,
+                             dataset_distance_matrix)
+from ..ops.lowrank import LowRankF, SparseLandmarkF
+from ..ops.pairwise import pairwise_euclidean
+from .prime_dual import prime_dual
+
+# FPS keeps the whole matrix on the device in f32; jamie_tpu runs it on a
+# JL sketch past this many bytes
+_FPS_BYTES_BUDGET = 2 << 30
+
+# Past this many dense-factor entries per side (N x L) the correspondence
+# takes the k-sparse factor layout
+_SPARSE_FACTOR_ENTRIES = 400_000_000
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is not ported to jamie_tpu_torch yet: ROADMAP.md item 11 '
+        '(sparse and atlas data inputs)')
+
+
+def _interp_weights_sparse(d2: torch.Tensor, k: int):
+    """Row-stochastic kNN-Gaussian weights from squared cell->landmark
+    distances, k-sparse: each row's k nearest landmark indices (int64) and
+    their weights exp(-d2 / mean_knn_d2), normalized to sum 1."""
+    neg, idx = torch.topk(-d2, k, dim=1)
+    knn_d2 = -neg                                    # (n, k), ascending
+    bw = torch.clamp(knn_d2.mean(1, keepdim=True), min=1e-12)
+    w = torch.exp(-knn_d2 / bw)
+    return idx, w / w.sum(1, keepdim=True)
+
+
+def _interp_weights(d2: torch.Tensor, k: int, n_landmarks: int):
+    """Dense (n, L) layout of `_interp_weights_sparse`."""
+    idx, w = _interp_weights_sparse(d2, k)
+    a = torch.zeros((d2.shape[0], n_landmarks), dtype=torch.float32,
+                    device=d2.device)
+    return a.scatter_(1, idx, w)
+
+
+def _fps_indices_device(x: torch.Tensor, first: int,
+                        n_landmarks: int) -> torch.Tensor:
+    """Farthest-point sampling (greedy 2-approx k-center cover): repeatedly
+    add the cell farthest from the chosen set, by the Gram formula
+    sq + sq[nxt] - 2 x.x[nxt] and argmax's first index on ties. Each pick is
+    one mat-vec over x; the picks stay on x's device (no host sync)."""
+    sq = (x * x).sum(1)
+
+    def dist_to(j: torch.Tensor) -> torch.Tensor:
+        xj = x.index_select(0, j)                    # (1, f)
+        return torch.clamp(sq + sq.index_select(0, j) - 2.0 * (x @ xj.T)[:, 0],
+                           min=0.0)
+
+    nxt = torch.tensor([int(first)], dtype=torch.long, device=x.device)
+    picks = [nxt]
+    d = dist_to(nxt)
+    for _ in range(1, n_landmarks):
+        nxt = torch.argmax(d).reshape(1)
+        picks.append(nxt)
+        d = torch.minimum(d, dist_to(nxt))
+    return torch.cat(picks)
+
+
+def _select_landmarks(x, n_landmarks: int, method: str, rng,
+                      device=None) -> np.ndarray:
+    n = int(x.shape[0])
+    if method == 'uniform':
+        return np.sort(rng.choice(n, n_landmarks, replace=False))
+    if method == 'fps':
+        first = int(rng.randint(n))
+        if is_scipy_sparse(x):
+            raise _unported('FPS over a scipy-sparse modality')
+        if x.shape[0] * x.shape[1] * 4 > _FPS_BYTES_BUDGET:
+            raise _unported(f'FPS over {x.shape[0]} x {x.shape[1]} (the JL '
+                            f'sketch past {_FPS_BYTES_BUDGET:,} bytes)')
+        xd = _as_device_f32(x, resolve_device(device))
+        return np.sort(_fps_indices_device(xd, first,
+                                           int(n_landmarks)).cpu().numpy())
+    raise ValueError(f'unknown landmark selection method {method!r}')
+
+
+def _cell_to_landmark_weights(x, landmarks, k: int, block: int = 8192,
+                              sparse: bool = False, device=None):
+    """A (n, L) in row blocks, so the (n, L) distance intermediate stays
+    bounded: each block's squared distances to the landmarks come from K3
+    (cross, squared). x may be a dense host array (each block uploaded as
+    exact f32) or a tensor. sparse=True returns the k-sparse layout
+    (idx (n, k) int64, w (n, k) f32) instead of the dense matrix."""
+    device = (x.device if isinstance(x, torch.Tensor) and device is None
+              else resolve_device(device))
+    lm = _as_device_f32(landmarks, device)
+    n, L = int(x.shape[0]), int(lm.shape[0])
+    verbose = n >= 50_000        # atlas scale: show block progress
+    t0 = time.perf_counter()
+    parts = []
+    for s in range(0, n, block):
+        d2 = pairwise_euclidean(_as_device_f32(x[s:s + block], device), lm,
+                                squared=True)
+        parts.append(_interp_weights_sparse(d2, min(k, L)) if sparse
+                     else _interp_weights(d2, min(k, L), L))
+        if verbose:
+            print(f'landmark weights: rows [{min(s + block, n)}/{n}] '
+                  f'{time.perf_counter() - t0:.1f}s', flush=True)
+    if sparse:
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    return torch.cat(parts)
+
+
+def landmark_correspondence(
+    X, Y,
+    n_landmarks: int = 2048,
+    k_interp: int = 8,
+    distance_mode: str = 'euclidean',
+    seed: int = 666,
+    kmax: int = 40,
+    selection: str = 'fps',
+    factor_layout: str = 'auto',
+    device=None,
+    **prime_dual_kwargs,
+) -> LowRankF:
+    """Low-rank unsupervised correspondence between datasets X (N0, f0) and
+    Y (N1, f1), dense host arrays or tensors. `prime_dual_kwargs` forward to
+    the exact solver (epoch_pd, rho, epsilon, delay, log_pd, verbose,
+    precision, state_dtype).
+    selection: 'fps' (farthest-point cover, default) or 'uniform'.
+    factor_layout: 'dense' -> LowRankF (U = A_x F_L materialized, N x L),
+    'sparse' -> SparseLandmarkF (k-sparse A factors, O(N k) memory),
+    'auto' -> sparse once max(N) x L crosses _SPARSE_FACTOR_ENTRIES."""
+    if factor_layout not in ('auto', 'dense', 'sparse'):
+        raise ValueError(f'unknown factor_layout {factor_layout!r}')
+    _check_source(X)
+    _check_source(Y)
+    device = resolve_device(device)
+    n0, n1 = int(X.shape[0]), int(Y.shape[0])
+    L0, L1 = min(int(n_landmarks), n0), min(int(n_landmarks), n1)
+    timer = TimeLogger(block=True)
+
+    rng = np.random.RandomState(seed)
+    lx = _select_landmarks(X, L0, selection, rng, device)
+    ly = _select_landmarks(Y, L1, selection, rng, device)
+    Xl, Yl = X[lx], Y[ly]
+    timer.log('selection')
+
+    # Exact solver on the landmark subproblem; graph modes (geodesic) run
+    # on the landmark subset's own graph
+    Kx = dataset_distance_matrix(Xl, distance_mode, kmax=kmax, device=device)
+    Ky = dataset_distance_matrix(Yl, distance_mode, kmax=kmax, device=device)
+    timer.log('distances')
+    F_L = prime_dual(Kx, Ky, dx=int(X.shape[1]), dy=int(Y.shape[1]),
+                     device=device, **prime_dual_kwargs)
+    timer.log('solve')
+
+    if factor_layout == 'auto':
+        factor_layout = ('sparse' if max(n0, n1) * max(L0, L1)
+                         > _SPARSE_FACTOR_ENTRIES else 'dense')
+    if factor_layout == 'sparse':
+        ix, wx = _cell_to_landmark_weights(X, Xl, k_interp, sparse=True,
+                                           device=device)
+        iy, wy = _cell_to_landmark_weights(Y, Yl, k_interp, sparse=True,
+                                           device=device)
+        F = SparseLandmarkF(ix, wx, iy, wy, F_L)
+    else:
+        A_x = _cell_to_landmark_weights(X, Xl, k_interp, device=device)
+        A_y = _cell_to_landmark_weights(Y, Yl, k_interp, device=device)
+        # U carries the solved landmark correspondences mixed by each row
+        # cell's weights; V is the column side's affinity
+        F = LowRankF(A_x @ F_L, A_y)
+    timer.log('weights')
+    if prime_dual_kwargs.get('verbose', True):
+        print('landmark correspondence seconds: ' + ', '.join(
+            f'{k} {v:.3f}' for k, v in timer.totals().items()))
+    return F

@@ -15,8 +15,15 @@ losses once per epoch, which is where logging and the early-stop decision
 happen; an early stop therefore leaves the state exactly where jamie_tpu's
 `lax.cond`-skipped epochs leave it.
 
-Dense P/F only: sentinels, 1-D prior masks, sparse P/F (ROADMAP.md item
-9) and low-rank landmark F (item 10) raise NotImplementedError.
+P and F come in every form jamie_tpu's trainer takes (:110-207), and no
+form but a dense one is ever built as an (N0, N1) matrix:
+- P: a dense matrix, the 'identity' sentinel, a 1-D diagonal prior mask, or
+  a sparse prior (SparseRows, scipy.sparse, or a coordinate tuple);
+- F: a dense matrix, the 'zeros' sentinel, a sparse F (e.g. top-k), or a
+  low-rank landmark F (`LowRankF`, `SparseLandmarkF`).
+Each batch block P[idx0][:, idx1] / F[idx0][:, idx1] is synthesized from
+the indices (`_p_sub`, `_f_sub`), and the sampling regime follows the form
+(:218-259).
 """
 
 from __future__ import annotations
@@ -30,24 +37,34 @@ import torch
 
 from ..config import JamieConfig
 from ..core.dtypes import resolve_device
-from ..core.hostmat import is_scipy_sparse
+from ..ops.lowrank import LowRankF
+from ..ops.sparse import (SparseRows, as_sparse_rows, is_sparse_input,
+                          sparse_gather_batch)
 from .losses import (
-    LOSS_NAMES, f_reconstruction_loss, kl_anneal, kl_divergence,
-    latent_consistency_loss, reconstruction_loss, row_normalize,
+    LOSS_NAMES, col_normalize, f_reconstruction_loss, kl_anneal,
+    kl_divergence, latent_consistency_loss, reconstruction_loss,
+    row_normalize,
 )
 from .sampling import detect_sampling_method, make_epoch_sampler
 
 
-def _dense_matrix(M, name: str, item: str, device) -> torch.Tensor:
-    if (isinstance(M, str) or is_scipy_sparse(M)
-            or not (isinstance(M, torch.Tensor) or hasattr(M, '__array__'))
-            or np.ndim(M) != 2):
-        raise NotImplementedError(
-            f'{name} must be a dense 2-D matrix here; sentinels, masks, '
-            f'sparse and low-rank forms are ROADMAP.md item {item}')
+def _dense_matrix(M, name: str, rows, device) -> torch.Tensor:
+    if isinstance(M, str):
+        raise ValueError(f'unknown {name} sentinel {M!r}')
     if isinstance(M, torch.Tensor):
-        return M.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(M, np.float32), device=device)
+        M = M.to(device=device, dtype=torch.float32)
+    else:
+        M = torch.as_tensor(np.asarray(M, np.float32), device=device)
+    if tuple(M.shape) != tuple(rows):
+        raise ValueError(f'{name} shape {tuple(M.shape)} != dataset rows '
+                         f'{tuple(rows)}')
+    return M
+
+
+def _ell_device(sp: SparseRows, device):
+    """A SparseRows' slot tables, uploaded once."""
+    return (torch.as_tensor(sp.cols.astype(np.int64), device=device),
+            torch.as_tensor(sp.vals, device=device))
 
 
 class FlatClipAdam:
@@ -113,13 +130,10 @@ class JamieTrainer:
         self.cols = [int(d.shape[1]) for d in dataset]
         self.data = [torch.as_tensor(np.asarray(d, np.float32),
                                      device=self.device) for d in dataset]
-        self.P = _dense_matrix(P, 'P', '9', self.device)
-        self.F = _dense_matrix(F, 'F', '9 (sparse F) or 10 (landmark F)',
-                               self.device)
-        for name, M in (('P', self.P), ('F', self.F)):
-            if tuple(M.shape) != tuple(self.rows):
-                raise ValueError(f'{name} shape {tuple(M.shape)} != dataset '
-                                 f'rows {tuple(self.rows)}')
+        self._init_p(P)
+        self._init_f(F)
+        # Row budget when final_corr must compress a low-rank F to sparse
+        self._final_corr_top_k = int(config.f_top_k or 32)
 
         # Batch-size setup, from UnionCom via jamie.py:511-514
         self.batch_size = int(config.batch_size)
@@ -128,11 +142,7 @@ class JamieTrainer:
             self.len_dataloader = 1
             self.batch_size = int(max(self.rows))
 
-        # Sampling regime (jamie.py:517-534)
-        P_np = self.P.cpu().numpy()
-        self.sampling_method = detect_sampling_method(P_np)
-        corr_pairs = (np.argwhere(P_np > 0)
-                      if self.sampling_method == 'hybrid' else None)
+        self.sampling_method, corr_pairs = self._sampling_regime()
         self.epoch_sampler = make_epoch_sampler(
             self.sampling_method, self.rows, self.batch_size,
             self.len_dataloader, corr_pairs=corr_pairs,
@@ -154,6 +164,110 @@ class JamieTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.manual_seed)
 
+    # ------------------------------------------------------------ P/F forms
+    def _init_p(self, P) -> None:
+        """Exactly one of: self.P (dense), _p_identity, _p_diag_mask (N,),
+        _p_sparse (SparseRows, with its slot tables in _p_ell)."""
+        rows = tuple(self.rows)
+        self._p_identity = isinstance(P, str) and P == 'identity'
+        self._p_diag_mask = None
+        self._p_sparse = None
+        self.P = None
+        if self._p_identity:
+            if rows[0] != rows[1]:
+                raise ValueError("P='identity' requires equal-sized "
+                                 'modalities')
+        elif is_sparse_input(P):
+            self._p_sparse = as_sparse_rows(P, shape=rows)
+            if self._p_sparse.shape != rows:
+                raise ValueError(f'sparse P shape {self._p_sparse.shape} != '
+                                 f'dataset rows {rows}')
+            self._p_ell = _ell_device(self._p_sparse, self.device)
+        elif not isinstance(P, str) and np.ndim(P) == 1:
+            if rows[0] != rows[1]:
+                raise ValueError('a diagonal prior mask requires '
+                                 'equal-sized modalities')
+            self._p_diag_mask = np.asarray(P, np.float32)
+            self._p_mask_dev = torch.as_tensor(self._p_diag_mask,
+                                               device=self.device)
+        else:
+            self.P = _dense_matrix(P, 'P', rows, self.device)
+
+    def _init_f(self, F) -> None:
+        """Exactly one of: self.F (dense), _f_zeros, _f_lowrank (LowRankF or
+        SparseLandmarkF, on this trainer's device), _f_sparse (SparseRows,
+        slot tables in _f_ell)."""
+        rows = tuple(self.rows)
+        self._f_zeros = isinstance(F, str) and F == 'zeros'
+        self._f_lowrank = None
+        self._f_sparse = None
+        self.F = None
+        if self._f_zeros:
+            return
+        if isinstance(F, LowRankF):
+            if F.shape != rows:
+                raise ValueError(f'low-rank F shape {F.shape} != dataset '
+                                 f'rows {rows}')
+            self._f_lowrank = F.to(self.device)
+        elif is_sparse_input(F):
+            self._f_sparse = as_sparse_rows(F, shape=rows)
+            if self._f_sparse.shape != rows:
+                raise ValueError(f'sparse F shape {self._f_sparse.shape} != '
+                                 f'dataset rows {rows}')
+            self._f_ell = _ell_device(self._f_sparse, self.device)
+        else:
+            self.F = _dense_matrix(F, 'F', rows, self.device)
+
+    def _sampling_regime(self):
+        """(method, matched pairs or None) from P's form (jamie.py:517-534,
+        jamie_tpu/train/trainer.py:218-259)."""
+        if self._p_identity:
+            return 'diag', None
+        if self._p_sparse is not None:
+            sp = self._p_sparse
+            if sp.nnz == 0:
+                return 'zeros', None
+            if (self.rows[0] == self.rows[1] and sp.nnz == self.rows[0]
+                    and sp.is_diagonal() and np.allclose(sp.row_sums(), 1.0)):
+                return 'diag', None
+            return 'hybrid', sp.pairs()
+        if self._p_diag_mask is not None:
+            mask = self._p_diag_mask
+            # 'diag' only for the exact identity prior, as for the dense
+            # (P == eye) and sparse (diagonal, unit row sums) forms
+            if (mask == 1).all():
+                return 'diag', None
+            if (mask > 0).any():
+                nz = np.flatnonzero(mask > 0)
+                return 'hybrid', np.stack([nz, nz], axis=1)
+            return 'zeros', None
+        P_np = self.P.cpu().numpy()
+        method = detect_sampling_method(P_np)
+        return method, (np.argwhere(P_np > 0) if method == 'hybrid'
+                        else None)
+
+    def _p_sub(self, idx0, idx1) -> torch.Tensor:
+        """P[idx0][:, idx1] for a batch, from whichever form P has."""
+        if self._p_identity:
+            return (idx0[:, None] == idx1[None, :]).float()
+        if self._p_sparse is not None:
+            return sparse_gather_batch(*self._p_ell, idx0, idx1)
+        if self._p_diag_mask is not None:
+            return (self._p_mask_dev[idx0][:, None]
+                    * (idx0[:, None] == idx1[None, :]).float())
+        return self.P[idx0][:, idx1]
+
+    def _f_sub(self, idx0, idx1) -> torch.Tensor:
+        """F[idx0][:, idx1] for a batch, from whichever form F has."""
+        if self._f_zeros:
+            return torch.zeros((idx0.shape[0], idx1.shape[0]),
+                               dtype=torch.float32, device=self.device)
+        if self._f_lowrank is not None:
+            return self._f_lowrank.gather_batch(idx0, idx1)
+        if self._f_sparse is not None:
+            return sparse_gather_batch(*self._f_ell, idx0, idx1)
+        return self.F[idx0][:, idx1]
+
     # ----------------------------------------------------------- batch step
     def batch_loss(self, idx0, idx1, epoch_idx: int, noise=None):
         """Weighted loss sum and its 4-vector for one batch, in train mode.
@@ -161,8 +275,8 @@ class JamieTrainer:
         cfg = self.config
         x0 = self.data[0][idx0]
         x1 = self.data[1][idx1]
-        P_sub = self.P[idx0][:, idx1]
-        F_sub = self.F[idx0][:, idx1]
+        P_sub = self._p_sub(idx0, idx1)
+        F_sub = self._f_sub(idx0, idx1)
         Fn = row_normalize(F_sub)
         corr = self.pf_ratio * row_normalize(P_sub) + (1 - self.pf_ratio) * Fn
         zs, combined, x_hat, mus, logvars = self.model(
@@ -251,6 +365,69 @@ class JamieTrainer:
         return self.model
 
     # ----------------------------------------------------------- inference
+    def _p_sparse_form(self):
+        """P as SparseRows, or None for a dense P."""
+        n0, n1 = self.rows
+        if self._p_sparse is not None:
+            return self._p_sparse
+        if self._p_diag_mask is not None:
+            nz = np.flatnonzero(self._p_diag_mask)
+            return SparseRows.from_coo(nz, nz, self._p_diag_mask[nz],
+                                       (n0, n1))
+        if self._p_identity:
+            idx = np.arange(n0)
+            return SparseRows.from_coo(idx, idx, np.ones(n0, np.float32),
+                                       (n0, n1))
+        return None
+
+    def _f_sparse_form(self, dense_ok: bool):
+        """F as SparseRows, or None for a dense F (or a low-rank F small
+        enough to densify)."""
+        n0, n1 = self.rows
+        if self._f_sparse is not None:
+            return self._f_sparse
+        if self._f_zeros:
+            return SparseRows.from_coo([], [], [], (n0, n1))
+        if self._f_lowrank is not None and not dense_ok:
+            # Column-normalize in factored form (a row scaling of V), then
+            # keep each row's top correspondences
+            return self._f_lowrank.col_normalized().top_k(
+                self._final_corr_top_k)
+        return None
+
+    @torch.no_grad()
+    def final_corr(self, max_dense_entries: int = 50_000_000):
+        """Column-normalized correspondence PF_Ratio col(P) + (1 -
+        PF_Ratio) col(F) (jamie.py:795-797, jamie_tpu/train/trainer.py:
+        711-770). The returned embeddings never depend on it (they are the
+        mu heads); kept for parity.
+
+        Past `max_dense_entries` (N0 N1) with P and F both in sparse form it
+        is returned as SparseRows (each side column-normalized, scaled, and
+        the slot tables concatenated); otherwise as a dense tensor on the
+        trainer's device. A low-rank F past the budget is compressed to its
+        per-row top `f_top_k` (32 by default) first."""
+        n0, n1 = self.rows
+        dense_ok = n0 * n1 <= max_dense_entries
+        Psp, Fsp = self._p_sparse_form(), self._f_sparse_form(dense_ok)
+        if Psp is not None and Fsp is not None and not dense_ok:
+            Pn, Fn = Psp.col_normalized(), Fsp.col_normalized()
+            cols = np.concatenate([Pn.cols, Fn.cols], axis=1)
+            vals = np.concatenate([self.pf_ratio * Pn.vals,
+                                   (1 - self.pf_ratio) * Fn.vals], axis=1)
+            return SparseRows(cols, vals, (n0, n1))
+        dev = self.device
+        P = (torch.as_tensor(Psp.to_dense(), device=dev) if Psp is not None
+             else self.P)
+        if Fsp is not None:
+            F = torch.as_tensor(Fsp.to_dense(), device=dev)
+        elif self._f_lowrank is not None:
+            F = torch.as_tensor(self._f_lowrank.to_dense(), device=dev)
+        else:
+            F = self.F
+        return (self.pf_ratio * col_normalize(P)
+                + (1 - self.pf_ratio) * col_normalize(F))
+
     @torch.no_grad()
     def final_embed(self) -> List[np.ndarray]:
         """Eval-mode full-dataset mu-head embeddings per modality

@@ -6,12 +6,14 @@ jax nor jamie_tpu, so on the card it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from jamie_tpu_torch import ops
+from jamie_tpu_torch import evaluation, ops
 from jamie_tpu_torch.core import dtypes
 from jamie_tpu_torch.ops import pairwise, pd_update
+from jamie_tpu_torch.solvers import landmark
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +153,75 @@ def test_kernel_wrappers_refuse_bad_cuda_inputs(cuda):
         pairwise.pairwise_euclidean(x)
     with pytest.raises(ValueError):
         pairwise.pairwise_euclidean(torch.zeros((8, 4), device=cuda).T)
+
+
+def _pair(n, f0, f1, seed):
+    rng = np.random.RandomState(seed)
+    z = rng.randn(n, 8).astype(np.float32)
+    x = (z @ rng.randn(8, f0) + 0.1 * rng.randn(n, f0)).astype(np.float32)
+    y = (z @ rng.randn(8, f1) + 0.1 * rng.randn(n, f1)).astype(np.float32)
+    return x, y
+
+
+def _resolved_rows(x, lm, k):
+    """Rows whose k-th and (k+1)-th nearest landmark (squared distance, in
+    float64) differ by more than K3's 1e-5 of the norm scale: there the
+    card and the CPU must pick the same k neighbours."""
+    d2 = ((x[:, None, :].astype(np.float64) - lm[None]) ** 2).sum(-1)
+    d2.sort(axis=1)
+    scale = 2 * float((x.astype(np.float64) ** 2).sum(1).max())
+    return d2[:, k] - d2[:, k - 1] > 1e-5 * scale
+
+
+@pytest.mark.parametrize('layout', ['dense', 'sparse'])
+def test_landmark_correspondence_card_matches_cpu(cuda, layout):
+    """The same landmark solve on the card (K1, K3) and on the CPU (plain
+    versions): identical FPS picks; on rows whose k-th/(k+1)-th landmark
+    gap exceeds K3's error, interpolation weights within 1e-4 and the
+    mixed factor U within 1e-3 of its largest entry (float32 solver,
+    whose distance inputs differ at K3's 1e-5 of the norm scale)."""
+    x, y = _pair(600, 50, 30, seed=0)
+    kw = dict(n_landmarks=128, k_interp=8, epoch_pd=200, verbose=False,
+              distance_mode='euclidean', precision='highest', seed=5,
+              factor_layout=layout)
+    picks = []
+    for dev in (cuda, 'cpu'):
+        rng = np.random.RandomState(5)
+        picks.append([landmark._select_landmarks(d, 128, 'fps', rng, dev)
+                      for d in (x, y)])
+    for a, b in zip(*picks):
+        np.testing.assert_array_equal(a, b)
+    ops.reset_launch_counts()
+    F_gpu = landmark.landmark_correspondence(x, y, device=cuda, **kw)
+    # 2 landmark distance matrices + one weight block per modality
+    assert pairwise.pairwise_euclidean.launches == 4
+    assert pd_update.fused_pd_grad_update.launches == 200
+    F_cpu = landmark.landmark_correspondence(x, y, device='cpu', **kw)
+    ok_x = _resolved_rows(x, x[picks[1][0]], 8)
+    ok_y = _resolved_rows(y, y[picks[1][1]], 8)
+    assert ok_x.mean() > 0.9 and ok_y.mean() > 0.9
+    v_gpu, v_cpu = F_gpu.v.cpu().numpy(), F_cpu.v.numpy()
+    assert np.abs(v_gpu - v_cpu)[ok_y].max() <= 1e-4
+    u_gpu, u_cpu = F_gpu.u.cpu().numpy(), F_cpu.u.numpy()
+    assert np.abs(u_gpu - u_cpu)[ok_x].max() <= 1e-3 * np.abs(u_cpu).max()
+
+
+def test_blocked_metrics_card_matches_cpu(cuda, monkeypatch):
+    """Row-blocked FOSCTTM and kNN on the card: one K3 launch per block,
+    and values within what K3's 1e-5-of-norm-scale distances can flip
+    (FOSCTTM to 1e-4, label transfer to 0.005) of the CPU's."""
+    rng = np.random.RandomState(1)
+    a = rng.randn(2000, 32).astype(np.float32)
+    b = (a + 0.6 * rng.randn(2000, 32)).astype(np.float32)
+    labels = rng.randint(0, 4, 2000)
+    monkeypatch.setattr(evaluation, '_FOSCTTM_BLOCK_ENTRIES', 2000 * 600)
+    ops.reset_launch_counts()
+    f_gpu = evaluation.test_closer([a, b], device=cuda)
+    assert pairwise.pairwise_euclidean.launches == 4      # 600-row blocks
+    acc_gpu, _ = evaluation.knn_label_transfer_accuracy(
+        [a, b], [labels, labels], k=5, device=cuda)
+    assert pairwise.pairwise_euclidean.launches == 8
+    f_cpu = evaluation.test_closer([a, b], device='cpu')
+    acc_cpu, _ = evaluation.knn_label_transfer_accuracy(
+        [a, b], [labels, labels], k=5, device='cpu')
+    assert abs(f_gpu - f_cpu) <= 1e-4 and abs(acc_gpu - acc_cpu) <= 5e-3

@@ -1,0 +1,141 @@
+"""jamie_tpu_torch.solvers.landmark against jamie_tpu.solvers.landmark on the
+CPU, on the same seeded inputs: the interpolation weights, FPS indices,
+landmark selection, the blocked cell-to-landmark weights and
+landmark_correspondence's factors (euclidean mode, both layouts), and the
+routes that stay with ROADMAP.md item 11.
+
+Tolerances: weights and factors are float32 with different summation
+orders (squared distances via the Gram formula in both packages), held at
+rtol 1e-5 (atol 1e-6 of unit-scale weights); after 200 prime-dual
+iterations the factors are held at 1e-4 of their largest entry. Indices
+are compared exactly on tie-free random data (torch.topk and lax.top_k may
+order ties differently)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as ss
+import torch
+
+from jamie_tpu.solvers import landmark as jl
+from jamie_tpu_torch.ops import distances as td
+from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
+from jamie_tpu_torch.solvers import landmark as tl
+
+
+def _paired(n=120, f0=20, f1=14, seed=0):
+    rng = np.random.RandomState(seed)
+    z = rng.randn(n, 6).astype(np.float32)
+    x = (z @ rng.randn(6, f0) + 0.05 * rng.randn(n, f0)).astype(np.float32)
+    y = (z @ rng.randn(6, f1) + 0.05 * rng.randn(n, f1)).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.parametrize('k', [1, 4, 8])
+def test_interp_weights_match(k):
+    d2 = np.random.RandomState(k).rand(50, 24).astype(np.float32) * 10
+    idx, w = tl._interp_weights_sparse(torch.as_tensor(d2), k)
+    ridx, rw = jl._interp_weights_sparse(jnp.asarray(d2), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+    np.testing.assert_allclose(w.numpy(), np.asarray(rw), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(w.sum(1).numpy(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(
+        tl._interp_weights(torch.as_tensor(d2), k, 24).numpy(),
+        np.asarray(jl._interp_weights(jnp.asarray(d2), k, 24)), rtol=1e-5,
+        atol=1e-6)
+
+
+def test_fps_indices_match():
+    rng = np.random.RandomState(3)
+    x = np.concatenate([rng.randn(60, 5) + c * 6
+                        for c in range(4)]).astype(np.float32)
+    for first in (0, 17, 239):
+        ours = tl._fps_indices_device(torch.as_tensor(x), first, 30)
+        ref = jl._fps_indices_device(jnp.asarray(x), first, 30)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+        assert ours[0] == first and len(np.unique(ours.numpy())) == 30
+
+
+@pytest.mark.parametrize('method', ['fps', 'uniform'])
+def test_select_landmarks_match(method):
+    """Same RandomState draws: the same first cell and uniform subset."""
+    x, _ = _paired(n=150)
+    ours = tl._select_landmarks(x, 24, method, np.random.RandomState(5),
+                                device='cpu')
+    ref = jl._select_landmarks(x, 24, method, np.random.RandomState(5))
+    np.testing.assert_array_equal(ours, ref)
+    # a tensor source picks the same cells
+    np.testing.assert_array_equal(
+        tl._select_landmarks(torch.as_tensor(x), 24, method,
+                             np.random.RandomState(5), device='cpu'), ref)
+    with pytest.raises(ValueError):
+        tl._select_landmarks(x, 4, 'kmeanz', np.random.RandomState(0))
+
+
+@pytest.mark.parametrize('sparse', [False, True])
+def test_cell_to_landmark_weights_match(sparse):
+    """Row blocks of 32 over 100 cells (four blocks, the last ragged)."""
+    x, _ = _paired(n=100)
+    lm = x[np.arange(0, 100, 7)]
+    ours = tl._cell_to_landmark_weights(x, lm, 4, block=32, sparse=sparse,
+                                        device='cpu')
+    ref = jl._cell_to_landmark_weights(x, lm, 4, block=32, sparse=sparse)
+    # a tensor source gives the same weights as a host array
+    again = tl._cell_to_landmark_weights(torch.as_tensor(x), lm, 4,
+                                         block=32, sparse=sparse)
+    if sparse:
+        np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
+        ours, ref, again = ours[1], ref[1], again[1]
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(again.numpy(), ours.numpy())
+
+
+@pytest.mark.parametrize('layout', ['dense', 'sparse'])
+def test_landmark_correspondence_factors_match(layout):
+    x, y = _paired(n=140)
+    kw = dict(n_landmarks=40, k_interp=4, epoch_pd=200, verbose=False,
+              distance_mode='euclidean', factor_layout=layout, seed=11)
+    ours = tl.landmark_correspondence(x, y, device='cpu', **kw)
+    ref = jl.landmark_correspondence(x, y, **kw)
+    assert isinstance(ours, SparseLandmarkF if layout == 'sparse'
+                      else LowRankF)
+    assert ours.shape == (140, 140) and ours.rank == 40
+    if layout == 'sparse':
+        for a in ('ix', 'iy'):
+            np.testing.assert_array_equal(getattr(ours, a).numpy(),
+                                          np.asarray(getattr(ref, a)))
+    for a in ('u', 'v'):
+        r = np.asarray(getattr(ref, a))
+        np.testing.assert_allclose(getattr(ours, a).numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max())
+    with pytest.raises(ValueError):
+        tl.landmark_correspondence(x, y, device='cpu',
+                                   **{**kw, 'factor_layout': 'bogus'})
+
+
+def test_auto_layout_goes_sparse(monkeypatch):
+    x, y = _paired(n=60)
+    monkeypatch.setattr(tl, '_SPARSE_FACTOR_ENTRIES', 60 * 16 - 1)
+    F = tl.landmark_correspondence(x, y, n_landmarks=16, k_interp=3,
+                                   epoch_pd=20, verbose=False, device='cpu')
+    assert isinstance(F, SparseLandmarkF)
+
+
+def test_item_11_routes_raise(monkeypatch):
+    """Scipy-sparse sources, host sources at the chunk-uploaded size and
+    FPS past its device budget stay with ROADMAP.md item 11, and raise
+    before any work."""
+    x, y = _paired(n=60)
+    kw = dict(n_landmarks=16, epoch_pd=5, verbose=False, device='cpu')
+    with pytest.raises(NotImplementedError, match='item 11'):
+        tl.landmark_correspondence(ss.csr_matrix(x), y, **kw)
+    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 60 * 14 - 1)
+    with pytest.raises(NotImplementedError, match='item 11'):
+        tl.landmark_correspondence(x, y, **kw)
+    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 100_000_000)
+    monkeypatch.setattr(tl, '_FPS_BYTES_BUDGET', 1024)
+    with pytest.raises(NotImplementedError, match='item 11'):
+        tl._select_landmarks(x, 8, 'fps', np.random.RandomState(0),
+                             device='cpu')

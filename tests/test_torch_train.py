@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import scipy.sparse as ss
 import torch
 
 from jamie_tpu.config import JamieConfig as JConfig
@@ -14,6 +15,10 @@ from jamie_tpu.models.coupled_vae import CoupledVAE as FlaxVAE
 from jamie_tpu.train import losses as jl
 from jamie_tpu.train import sampling as js
 from jamie_tpu.train.trainer import JamieTrainer as JTrainer
+from jamie_tpu.ops import lowrank as jtl
+from jamie_tpu.ops import sparse as jsp
+from jamie_tpu_torch.ops.lowrank import from_fields
+from jamie_tpu_torch.ops.sparse import SparseRows
 from jamie_tpu_torch.config import JamieConfig
 from jamie_tpu_torch.models.convert import (load_flax_variables,
                                             to_flax_variables)
@@ -198,8 +203,227 @@ def test_fit_runs_and_early_stops(batch_step):
 
 
 def test_unported_priors_raise():
+    """Every P/F form of jamie_tpu's trainer is ported: the sentinels and a
+    1-D mask build, and what is malformed raises ValueError (an unknown
+    sentinel, a prior of the wrong shape, 'identity' for unequal rows)."""
     data, P, F, cfg_kw = _setup()
-    for bad_P, bad_F in (('identity', F), (np.ones(40), F), (P, 'zeros')):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md item'):
-            JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE((12, 9), 5), data,
-                         bad_P, bad_F, device='cpu')
+    for good_P, good_F in (('identity', F), (np.ones(40), F), (P, 'zeros')):
+        JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE((12, 9), 5), data,
+                     good_P, good_F, device='cpu')
+    unequal = [data[0], data[1][:30]]
+    for bad_data, bad_P, bad_F in (
+            (data, 'eye', F), (data, P, 'identity'), (data, P[:30], F),
+            (data, P, SparseRows.from_dense(F[:, :30])),
+            (unequal, 'identity', 'zeros'), (unequal, np.ones(40), 'zeros')):
+        with pytest.raises(ValueError):
+            JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE((12, 9), 5),
+                         bad_data, bad_P, bad_F, device='cpu')
+
+
+# ---------------------------------------------------------------- P/F forms
+N = 40
+_rng = np.random.RandomState(21)
+MASK = (_rng.rand(N) < 0.5).astype(np.float32)
+P_SPARSE = np.where(_rng.rand(N, N) < 0.08, _rng.rand(N, N), 0).astype(
+    np.float32)
+F_DENSE = _rng.rand(N, N).astype(np.float32)
+F_SPARSE = np.where(_rng.rand(N, N) < 0.15, F_DENSE, 0).astype(np.float32)
+_LM = (np.stack([_rng.choice(10, 3, replace=False) for _ in range(N)]),
+       _rng.rand(N, 3).astype(np.float32),
+       np.stack([_rng.choice(12, 3, replace=False) for _ in range(N)]),
+       _rng.rand(N, 3).astype(np.float32), _rng.rand(10, 12).astype(np.float32))
+
+
+def _p_form(name):
+    """(the form both trainers take, or None where jamie_tpu takes the
+    same object; the dense equivalent)."""
+    r, c = np.nonzero(P_SPARSE)
+    return {
+        'dense': (None, np.eye(N, dtype=np.float32)),
+        'identity': ('identity', np.eye(N, dtype=np.float32)),
+        'mask': (MASK, np.diag(MASK)),
+        'mask_ones': (np.ones(N, np.float32), np.eye(N, dtype=np.float32)),
+        'mask_zeros': (np.zeros(N, np.float32), np.zeros((N, N), np.float32)),
+        'sparse_rows': ('SparseRows', P_SPARSE),
+        'scipy': (ss.csr_matrix(P_SPARSE), P_SPARSE),
+        'coo': ((r, c, P_SPARSE[r, c], (N, N)), P_SPARSE),
+        'sparse_empty': ('SparseRows', np.zeros((N, N), np.float32)),
+        'sparse_eye': ('SparseRows', np.eye(N, dtype=np.float32)),
+        'sparse_half_eye': ('SparseRows', 0.5 * np.eye(N, dtype=np.float32)),
+    }[name]
+
+
+def _f_form(name):
+    sp = jtl.SparseLandmarkF(*_LM)
+    lr = jtl.LowRankF(np.asarray(sp.u), np.asarray(sp.v))
+    return {
+        'dense': (None, F_DENSE),
+        'zeros': ('zeros', np.zeros((N, N), np.float32)),
+        'sparse_rows': ('SparseRows', F_SPARSE),
+        'lowrank': (lr, lr.to_dense()),
+        'sparse_landmark': (sp, sp.to_dense()),
+    }[name]
+
+
+def _forms(p_name, f_name):
+    """((our P, our F), (jamie_tpu's P, F)) in the named forms."""
+    out = []
+    for (form, dense) in (_p_form(p_name), _f_form(f_name)):
+        if form is None:
+            out.append((dense, dense))
+        elif isinstance(form, str) and form == 'SparseRows':
+            out.append((SparseRows.from_dense(dense),
+                        jsp.SparseRows.from_dense(dense)))
+        elif isinstance(form, jtl.LowRankF):
+            out.append((from_fields(form, device='cpu'), form))
+        else:
+            out.append((form, form))
+    return tuple(zip(*out))
+
+
+P_FORMS = ['dense', 'identity', 'mask', 'mask_ones', 'mask_zeros',
+           'sparse_rows', 'scipy', 'coo', 'sparse_empty', 'sparse_eye',
+           'sparse_half_eye']
+F_FORMS = ['dense', 'zeros', 'sparse_rows', 'lowrank', 'sparse_landmark']
+
+
+def _trainers(p_name, f_name, **kw):
+    data, _, _, cfg_kw = _setup(**kw)
+    (P, F), (jP, jF) = _forms(p_name, f_name)
+    jtr = JTrainer(JConfig(**cfg_kw), FlaxVAE(input_dim=(12, 9), output_dim=5,
+                                               dropout=0.0), data, jP, jF)
+    tr = JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE((12, 9), 5,
+                                                        dropout=0.0),
+                      data, P, F, device='cpu')
+    return jtr, tr, data, cfg_kw
+
+
+@pytest.mark.parametrize('p_name', P_FORMS)
+def test_sampling_regime_per_form(p_name):
+    """The regime (and the matched-pair table of 'hybrid') follows P's
+    form as in jamie_tpu: a zero-nnz sparse P selects 'zeros', a diagonal
+    sparse P with unit row sums 'diag', a mask of all ones 'diag', any
+    other positive mask 'hybrid' on its nonzero pairs."""
+    jtr, tr, _, _ = _trainers(p_name, 'zeros')
+    assert tr.sampling_method == jtr.sampling_method
+    expect = {'dense': 'diag', 'identity': 'diag', 'mask_ones': 'diag',
+              'sparse_eye': 'diag', 'mask_zeros': 'zeros',
+              'sparse_empty': 'zeros'}.get(p_name, 'hybrid')
+    assert tr.sampling_method == expect
+    _, pairs = tr._sampling_regime()
+    if expect == 'hybrid':
+        np.testing.assert_array_equal(pairs, np.asarray(jtr._pairs))
+    else:
+        assert pairs is None
+
+
+def _reference_batch(jtr, data, idx0, idx1, epoch=12, seed=9):
+    """jamie_tpu's loss vector for one batch, the flax variables it used,
+    and the reparameterization noise it drew."""
+    state = jtr.init_state()
+    key = jax.random.PRNGKey(seed)
+    _, vec, _, _ = jtr._batch_loss_and_grads(
+        state.params, state.batch_stats, key, epoch, jtr._operands(),
+        jnp.asarray(idx0), jnp.asarray(idx1))
+    k_d, k_r = jax.random.split(key)
+    (zs, _, _, mus, logvars), _ = jtr.model.apply(
+        {'params': state.params, 'batch_stats': state.batch_stats},
+        [jnp.asarray(data[0][idx0]), jnp.asarray(data[1][idx1])],
+        jnp.eye(len(idx0)), train=True,
+        rngs={'dropout': k_d, 'reparam': k_r}, mutable=['batch_stats'])
+    noise = [torch.as_tensor(np.asarray((z - mu) / (jnp.exp(lv / 2) + 1e-7)))
+             for z, mu, lv in zip(zs, mus, logvars)]
+    return (np.asarray(vec), jax.tree.map(np.asarray, state.params),
+            jax.tree.map(np.asarray, state.batch_stats), noise)
+
+
+@pytest.mark.parametrize('p_name, f_name', [
+    *((p, 'dense') for p in ('identity', 'mask', 'sparse_rows', 'scipy',
+                             'coo')),
+    *(('dense', f) for f in ('zeros', 'sparse_rows', 'lowrank',
+                             'sparse_landmark')),
+    ('identity', 'sparse_landmark'), ('sparse_rows', 'lowrank')])
+def test_batch_loss_per_form(p_name, f_name):
+    """One batch's loss vector with P and F in each form, held to
+    jamie_tpu's loss on the dense-equivalent P and F (same parameters,
+    indices with duplicates, and noise) at rtol 1e-5; the batch blocks
+    themselves to the dense blocks at 1e-6."""
+    data, _, _, cfg_kw = _setup()
+    (P, F), _ = _forms(p_name, f_name)
+    _, P_dense = _p_form(p_name)
+    _, F_dense = _f_form(f_name)
+    jtr = JTrainer(JConfig(**cfg_kw), FlaxVAE(input_dim=(12, 9), output_dim=5,
+                                               dropout=0.0), data, P_dense,
+                   F_dense)
+    idx0 = np.array([3, 17, 8, 0, 25, 39, 11, 30, 5, 21, 14, 3, 33, 7, 19, 5])
+    idx1 = idx0 if p_name == 'identity' else np.roll(idx0, 3)
+    idx1 = np.where(np.arange(16) % 5 == 0, idx0, idx1)   # some true pairs
+    vec, params, bstats, noise = _reference_batch(jtr, data, idx0, idx1)
+
+    model = CoupledVAE((12, 9), 5, dropout=0.0)
+    load_flax_variables(model, params, bstats)
+    tr = JamieTrainer(JamieConfig(**cfg_kw), model, data, P, F, device='cpu')
+    i0, i1 = torch.as_tensor(idx0), torch.as_tensor(idx1)
+    np.testing.assert_allclose(tr._p_sub(i0, i1).numpy(),
+                               P_dense[np.ix_(idx0, idx1)], rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(tr._f_sub(i0, i1).numpy(),
+                               F_dense[np.ix_(idx0, idx1)], rtol=1e-6,
+                               atol=1e-7)
+    tr.model.train()
+    _, ours = tr.batch_loss(i0, i1, 12, noise=noise)
+    np.testing.assert_allclose(ours.detach().numpy(), vec, rtol=1e-5)
+
+
+def _summed_dense(sr):
+    """Float64 dense build of a SparseRows' slots, duplicates summed."""
+    out = np.zeros(sr.shape)
+    rows = np.repeat(np.arange(sr.shape[0]), sr.cols.shape[1])
+    keep = sr.cols.ravel() >= 0
+    np.add.at(out, (rows[keep], sr.cols.ravel()[keep]),
+              sr.vals.ravel()[keep].astype(np.float64))
+    return out
+
+
+@pytest.mark.parametrize('budget', [50_000_000, 100])
+@pytest.mark.parametrize('p_name, f_name', [
+    ('dense', 'dense'), ('identity', 'zeros'), ('mask', 'sparse_rows'),
+    ('sparse_rows', 'zeros'), ('identity', 'lowrank'),
+    ('mask', 'sparse_landmark'), ('dense', 'lowrank')])
+def test_final_corr_per_form(p_name, f_name, budget):
+    """final_corr against jamie_tpu's on the same forms, within and past
+    its dense budget (past it, sparse-form P and F combine as SparseRows
+    and a low-rank F is compressed to its per-row top-k first): rtol 1e-5
+    of float32 column normalization."""
+    jtr, tr, _, _ = _trainers(p_name, f_name)
+    ours = tr.final_corr(max_dense_entries=budget)
+    ref = jtr.final_corr(max_dense_entries=budget)
+    assert isinstance(ours, SparseRows) == isinstance(ref, jsp.SparseRows)
+    if isinstance(ours, SparseRows):
+        assert budget == 100 and f_name != 'dense' and p_name != 'dense'
+        # P's identity/mask slots and F's top-k slots share the diagonal:
+        # both sides are built by summing their slots (jamie_tpu's to_dense
+        # keeps only the last of them, ROADMAP.md Queue 3)
+        np.testing.assert_allclose(ours.to_dense(), _summed_dense(ours),
+                                   rtol=1e-6, atol=0)
+        ours, ref = _summed_dense(ours), _summed_dense(ref)
+    else:
+        ours, ref = ours.numpy(), np.asarray(ref)
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize('layout', ['lowrank', 'sparse_landmark'])
+def test_fit_with_factorized_f_matches_dense_f(layout):
+    """A fit with F factorized matches the same fit with the dense F (same
+    generator, so the same batches): the epoch losses within rtol 1e-4 of
+    float32 summation order compounded over 10 epochs."""
+    data, P, _, cfg_kw = _setup()
+    cfg_kw.update(epoch_DNN=10, use_early_stop=False)
+    (_, F), _ = _forms('dense', layout)
+    losses = []
+    for f in (F, F.to_dense()):
+        tr = JamieTrainer(JamieConfig(**cfg_kw), CoupledVAE(
+            (12, 9), 5, dropout=0.0, seed=3), data, P, f, device='cpu')
+        tr.fit()
+        losses.append(tr.epoch_losses)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4, atol=1e-6)
