@@ -13,7 +13,9 @@
    function (torch.cdist, which the port never calls). K3's MMA route and
    ptxas's report; a sweep of K1's block sizes; the device kernels that one
    K1 call and one K3 call issue (torch.profiler), held to 1 for K1 and to
-   the wrapper's stated count for K3.
+   the wrapper's stated count for K3. The atlas path's K3 shapes too: self
+   sqrt on 2048-cell atlas landmark subsets (20,000 / 40,000 features) and
+   one 2684-row block of the blocked FOSCTTM at 100,000 cells.
 4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
    to 20) on SNARE-seq-shaped synthetic data (1047 cells x 3000 RNA / 5000
    ATAC, seed 0), with every launch count set to 0 just before it; then
@@ -35,7 +37,22 @@
    landmark_correspondence on the same data, held to each other, and a
    small landmark solve on the card held against the same solve on the
    CPU.
-8. A `kernels` JSON line, the nvidia-smi line, and as the last line
+8. Sparse reference: DeviceCSR's SpMMs, row norms and decode on a
+   3000 x 5000 CSR (3% nonzero, made on the card) against the CPU, on the
+   exact and the bf16 route; the resident bf16 builds bit-identical.
+9. Wide modality at the scGLUE shape: a 9190 x 241,757 0/1 CSR (5%
+   nonzero) and a dense 9190 x 28,930 matrix through the bf16-resident and
+   feature-chunked distance routes (held to each other and, on 256 rows,
+   to float64) and the resident and column-streamed PCA (held by subspace
+   cosine); the resident Gram timed.
+10. Atlas fit: JAMIE(corr_landmarks=2048, pca_dim=(512, 512)) on the
+   100,000-cell sparse multiome of examples/atlas_scale.py --sparse-data
+   (20,000 / 40,000 features, 3% nonzero, made on the card, handed over as
+   host CSR; epoch_DNN cut to 10), with the counts at 0: K1 2000 launches,
+   K3 at least 2, the routes by `residency.route_counts`, a rank-2048
+   LowRankF, the identity sentinel; exact FOSCTTM and LTA on 10,000 cells;
+   transform and modal_predict on CSR; the SpMM's nonzeros per second.
+11. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -56,10 +73,20 @@ import numpy as np
 
 # Published dense peaks (NVIDIA data sheet) of each card this script has run
 # on, by torch.cuda.get_device_name: bytes/s of device memory, float32
-# FLOP/s outside the tensor cores, and dense TF32 FLOP/s on the tensor cores.
+# FLOP/s outside the tensor cores, and dense TF32 and bf16 FLOP/s on the
+# tensor cores.
 PEAKS = {
-    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12, 495e12),     # H100 SXM
+    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12, 495e12, 989e12),   # H100 SXM
 }
+
+
+# The atlas fit's embeddings come from the PCA sketch's scores (Q Ub s);
+# transform re-projects the CSR inputs by SpMM through the bf16-rounded
+# components. The two differ by the part of the data outside the sketch's
+# range, so transform is held to the fit output at this share of the
+# output's largest entry (tests/test_torch_sparse_data.py holds the same
+# routes at 300 cells to 5%), and its FOSCTTM to the fit's within 0.01.
+TRANSFORM_REL = 0.15
 
 
 def fail(msg):
@@ -129,9 +156,9 @@ def nbytes(*ts):
 class KernelPhase:
     """Hold each kernel against its plain version and time both."""
 
-    def __init__(self, torch, bw, fp32, tf32):
+    def __init__(self, torch, bw, fp32, tf32, bf16):
         self.torch = torch
-        self.bw, self.fp32, self.tf32 = bw, fp32, tf32
+        self.bw, self.fp32, self.tf32, self.bf16 = bw, fp32, tf32, bf16
         self.dev = torch.device('cuda')
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
         self.rows = []
@@ -448,6 +475,362 @@ def landmark_reference_phase(dev, n=600, n_landmarks=128):
         fail('landmark_correspondence on the card disagrees with the CPU')
 
 
+def host_csr_from_card(torch, n, f, fill, rows=4096):
+    """A host scipy CSR (n, f) made on the card: dense f32 row blocks
+    fill(s, e) converted to CSR there and brought back as indices and
+    values, so the dense matrix never exists on the host."""
+    import warnings
+
+    import scipy.sparse as sp
+    indptr, cols, vals, nnz = [np.zeros(1, np.int64)], [], [], 0
+    for s in range(0, n, rows):
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore', UserWarning)  # "beta state"
+            blk = fill(s, min(s + rows, n)).to_sparse_csr()
+        indptr.append((blk.crow_indices()[1:] + nnz).cpu().numpy())
+        cols.append(blk.col_indices().to(torch.int32).cpu().numpy())
+        vals.append(blk.values().cpu().numpy())
+        nnz = int(indptr[-1][-1])
+    ip = np.concatenate(indptr)
+    return sp.csr_matrix((np.concatenate(vals), np.concatenate(cols),
+                          ip.astype(np.int32 if nnz < 2 ** 31 else np.int64)),
+                         shape=(n, f))
+
+
+def cutoff_for(torch, gen, block, density):
+    """The (1 - density) quantile of a block, from a 2^22-entry sample."""
+    flat = block.reshape(-1)
+    idx = torch.randint(0, flat.numel(), (1 << 22,), generator=gen,
+                        device=flat.device)
+    return float(torch.quantile(flat[idx], 1.0 - density))
+
+
+def atlas_on_card(torch, dev, n, dims=(20000, 40000), density=0.03,
+                  seed=0, dense=False):
+    """The sparse multiome atlas of examples/atlas_scale.py --sparse-data
+    (examples/synth.py:77-128), generated on the card from a seeded
+    torch.Generator: a 24-dimensional latent around 12 cluster centres,
+    each modality relu(z W + 0.3 noise - cutoff) with the cutoff at the
+    first 4096 rows' (1 - density) quantile. Returns host scipy CSR
+    matrices (or dense device tensors with dense=True) and the labels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(n, 24, generator=g, device=dev)
+    centres = 2.0 * torch.randn(12, 24, generator=g, device=dev)
+    assign = torch.randint(0, 12, (n,), generator=g, device=dev)
+    z += centres[assign]
+    out = []
+    for d in dims:
+        w = torch.randn(24, d, generator=g, device=dev)
+
+        def fill(s, e):
+            xb = z[s:e] @ w
+            xb += 0.3 * torch.randn(xb.shape, generator=g, device=dev)
+            return xb
+        cut = cutoff_for(torch, g, fill(0, min(4096, n)), density)
+
+        def relu_block(s, e):
+            return (fill(s, e) - cut).clamp_(min=0.0)
+        out.append(relu_block(0, n) if dense
+                   else host_csr_from_card(torch, n, d, relu_block))
+    return out, assign.cpu().numpy()
+
+
+def scglue_on_card(torch, dev, n=9190, f_atac=241757, f_rna=28930,
+                   density=0.05, latent=8, seed=1):
+    """scGLUE-shaped modalities (bench.py:211-233's shapes, before its
+    per-column scaling), generated on the card: an 8-dimensional latent
+    around 6 cluster centres; ATAC as 0/1 peaks, (z W + noise) above the
+    first 1024 rows' 95% quantile, as a host CSR (about 111M nonzeros);
+    RNA as a dense host f32 relu(z W + 0.5 noise)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(n, latent, generator=g, device=dev)
+    z += 3.0 * torch.randn(6, latent, generator=g, device=dev)[
+        torch.randint(0, 6, (n,), generator=g, device=dev)]
+    w = torch.randn(latent, f_atac, generator=g, device=dev)
+
+    def logits(s, e):
+        xb = z[s:e] @ w
+        xb += torch.randn(xb.shape, generator=g, device=dev)
+        return xb
+    cut = cutoff_for(torch, g, logits(0, 1024), density)
+    atac = host_csr_from_card(torch, n, f_atac,
+                              lambda s, e: (logits(s, e) > cut).float(),
+                              rows=1024)
+    w = torch.randn(latent, f_rna, generator=g, device=dev)
+    rna = (z @ w + 0.5 * torch.randn((n, f_rna), generator=g, device=dev)
+           ).clamp_(min=0.0).cpu().numpy()
+    return atac, rna
+
+
+def library_row(kp, name, case, ms, bytes_, flops, rate, **extra):
+    """Print a timed library call (not a kernel of this repository) with
+    its bound on a `library` line."""
+    bound_ms, bound_by = kp.bound(bytes_, flops, rate)
+    print('library ' + json.dumps(dict(
+        name=name, case=case, ms=ms[0], call_ms=ms[1], bound_ms=bound_ms,
+        bound_by=bound_by, **extra)), flush=True)
+
+
+def sparse_reference_phase(torch, dev):
+    """A. DeviceCSR on the card against the CPU on a 3000 x 5000 CSR at 3%
+    nonzero made on the card, on the exact route and on the bf16 route
+    (BF16_LINK_ELEMS patched): matmul, matmul on a row range, tmatmul and
+    row_sq_sums within f32 summation order (1e-5 of the same product of
+    absolute values), rows bit-identical; then the resident bf16 builds on
+    the card and on the CPU bit-identical."""
+    from unittest import mock
+
+    from jamie_tpu_torch.core import residency as R
+    g = torch.Generator(device=dev).manual_seed(11)
+    X = host_csr_from_card(torch, 3000, 5000, lambda s, e: torch.where(
+        torch.rand((e - s, 5000), generator=g, device=dev) < 0.03,
+        torch.randn((e - s, 5000), generator=g, device=dev), 0.0))
+    M = torch.randn(5000, 64, generator=g, device=dev).cpu().numpy()
+    Q = torch.randn(3000, 16, generator=g, device=dev).cpu().numpy()
+    absX = abs(X)
+    worst = {}
+    for route, limit in (('exact', R.BF16_LINK_ELEMS), ('bf16', 1)):
+        with mock.patch.multiple(R, BF16_LINK_ELEMS=limit):
+            gd, cd = R.DeviceCSR(X, dev), R.DeviceCSR(X, 'cpu')
+            if gd.bf16 != (route == 'bf16'):
+                fail(f'DeviceCSR took the wrong rounding on the {route} route')
+            for what, got, want, scale in (
+                    ('matmul', gd.matmul(M), cd.matmul(M), absX @ abs(M)),
+                    ('matmul[700:2300]', gd.matmul(M, 700, 2300),
+                     cd.matmul(M, 700, 2300), absX[700:2300] @ abs(M)),
+                    ('tmatmul', gd.tmatmul(Q), cd.tmatmul(Q),
+                     absX.T @ abs(Q)),
+                    ('row_sq_sums', gd.row_sq_sums(), cd.row_sq_sums(),
+                     np.asarray(absX.multiply(absX).sum(1)).ravel())):
+                r = float((np.abs(got.cpu().numpy() - want.numpy())
+                           / (scale + 1e-30)).max())
+                worst[f'{route} {what}'] = r
+                if not r <= 1e-5:
+                    fail(f'DeviceCSR.{what} ({route}) on the card: '
+                         f'{r} of sum |x||m| (limit 1e-5)')
+            if not torch.equal(gd.rows(100, 600).cpu(), cd.rows(100, 600)):
+                fail(f'DeviceCSR.rows ({route}) differs on the card')
+    a = R.build_resident_bf16(X, dev).cpu()
+    b = R.build_resident_bf16(X, 'cpu')
+    if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        fail('the resident bf16 builds differ between the card and the CPU')
+    print(f'sparse reference: 3000x5000 CSR ({X.nnz} nonzeros) card vs CPU, '
+          f'worst |d| / sum|x||m| {worst} (limit 1e-5); rows and the '
+          'resident bf16 build bit-identical', flush=True)
+
+
+def wide_phase(torch, kp, dev, **shape):
+    """B. The wide modality at the scGLUE shape: a 9190 x 241,757 CSR of
+    0/1 peaks (~5% nonzero) and a dense 9190 x 28,930 f32 host matrix.
+    Each through dataset_distance_matrix's bf16-resident route (the
+    resident Gram timed), through the feature-chunked route with the
+    budget lowered (held to the resident result) and on 256 rows to
+    float64 on the bf16-rounded data. Both routes' Grams are cuBLAS bf16
+    GEMMs whose f32 accumulation inside the tensor cores truncates: up to
+    one f32 ulp of the running sum per 16-deep step, so squared distances
+    are held to (f / 16) 2^-23 of the norm scale (0/1 data sum exactly).
+    Then
+    Preprocessor.fit(pca_dim=512) through the resident and, with the
+    budget lowered, the column-streamed PCA: the leading 8 components (the
+    generator's latent) agree by subspace cosine (limit > 0.99)."""
+    from unittest import mock
+
+    from jamie_tpu_torch import preprocess as PP
+    from jamie_tpu_torch.core import residency as R
+    from jamie_tpu_torch.ops import distances as D
+    t = time.perf_counter()
+    atac, rna = scglue_on_card(torch, dev, **shape)
+    print(f'data: scGLUE-shaped ATAC {atac.shape} ({atac.nnz} nonzeros, '
+          f'{atac.nnz / (atac.shape[0] * atac.shape[1]):.4f} dense) and RNA '
+          f'{rna.shape} dense, {time.perf_counter() - t:.2f} s', flush=True)
+    for name, x in (('ATAC', atac), ('RNA', rna)):
+        n, f = x.shape
+        R.route_counts.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = D.dataset_distance_matrix(x, 'euclidean', device=dev)
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t
+        xdev = R.device_bf16(x, device=dev)           # the cached build
+        gram = time_ms(torch, lambda: D._euclidean_resident_bf16(
+            xdev, False, True))
+        library_row(kp, 'resident_gram', f'{n}x{n}x{f} {name} bf16 sqrt',
+                    gram, n * f * 2 + n * n * 4, 2 * n * n * f, kp.bf16)
+        sq = D._row_sq_norms(xdev).double()
+        scale = 2 * float(sq.max())
+        d2 = d.double() ** 2
+        # 256 rows against float64 on the bf16-rounded data
+        x0 = xdev[:256].double()
+        g64 = torch.cat([x0 @ xdev[s:s + 1024].double().T
+                         for s in range(0, n, 1024)], dim=1)
+        ref64 = (sq[:256, None] + sq[None, :] - 2 * g64).clamp_(min=0)
+        ref64.fill_diagonal_(0.0)
+        err64 = float((d2[:256] - ref64).abs().max())
+        del x0, g64, ref64
+        xs = x.tocsc() if name == 'ATAC' else x
+        with mock.patch.multiple(R, DEFAULT_BUDGET_BYTES=0):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dc = D.dataset_distance_matrix(xs, 'euclidean', device=dev)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t
+        err_c = float((dc.double() ** 2 - d2).abs().max())
+        del dc, d2, d
+        # PCA: the resident residency is still cached
+        t = time.perf_counter()
+        pre_r = PP.Preprocessor.fit(x, pca_dim=512, device=dev)
+        torch.cuda.synchronize()
+        pca_r_s = time.perf_counter() - t
+        R.clear_residency_cache()
+        del xdev
+        torch.cuda.empty_cache()
+        with mock.patch.multiple(R, DEFAULT_BUDGET_BYTES=0):
+            t = time.perf_counter()
+            pre_s = PP.Preprocessor.fit(xs, pca_dim=512, device=dev)
+            torch.cuda.synchronize()
+            pca_s_s = time.perf_counter() - t
+        qa = torch.linalg.qr(pre_r.pca.components_[:8].double().T)[0]
+        qb = torch.linalg.qr(pre_s.pca.components_[:8].double().T)[0]
+        cos = torch.linalg.svdvals(qa.T @ qb).cpu().numpy()
+        routes = dict(R.route_counts)
+        print(f'wide {name} {n}x{f}: distances resident {resident_s:.3f} s '
+              f'(build + Gram), feature-chunked {chunked_s:.3f} s, max '
+              f'|d2 chunked - d2 resident| {err_c}, 256 rows vs float64 '
+              f'{err64} (limit {f / 16 * 2.0 ** -23 * scale:.6g}); PCA 512 '
+              f'resident '
+              f'{pca_r_s:.3f} s, column-streamed {pca_s_s:.3f} s, leading-8 '
+              f'subspace cosines min {cos.min():.6f}; routes {routes}',
+              flush=True)
+        want = {'distance_resident_bf16': 1, 'distance_feature_chunked': 1,
+                'pca_resident_bf16': 1, 'pca_streamed': 1}
+        if routes != want:
+            fail(f'wide {name}: routes {routes}, expected {want}')
+        tol = f / 16 * 2.0 ** -23 * scale
+        if not (err_c <= tol and err64 <= tol):
+            fail(f'wide {name}: the bf16 distance routes disagree')
+        if not cos.min() > 0.99:
+            fail(f'wide {name}: the PCA routes span other subspaces')
+        del pre_r, pre_s, qa, qb
+        R.clear_residency_cache()
+        torch.cuda.empty_cache()
+
+
+def atlas_phase(torch, JAMIE, ops, kp, dev, n=100_000, dims=(20000, 40000),
+                epochs=10, metric_cells=10_000, n_landmarks=2048, **fit_kw):
+    """C. The 100,000-cell sparse multiome atlas fit
+    (examples/atlas_scale.py --sparse-data): 20,000 RNA and 40,000 ATAC
+    features at 3% nonzero, JAMIE(corr_landmarks=2048, pca_dim=(512, 512),
+    batch_size=512, use_early_stop=False), epoch_DNN the only cut. With
+    the counts at 0 just before the fit: K1 epoch_pd launches, K3 at least
+    2, the JL-sketch FPS and the SpMM weights for both modalities, the RNA
+    PCA bf16-resident and the ATAC PCA row-streamed, a dense-layout
+    rank-2048 LowRankF, the identity sentinel and 'diag' sampling. Then
+    the exact row-blocked FOSCTTM and LTA on a uniform 10,000-cell
+    subsample (FOSCTTM < 0.25, LTA > 0.5), transform on the CSR inputs
+    against the fit output, modal_predict on a CSR row block, and the
+    SpMM's nonzeros per second at the fit's shapes."""
+    import resource
+    from jamie_tpu_torch.core import residency as R
+    from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
+    t = time.perf_counter()
+    (rna, atac), labels = atlas_on_card(torch, dev, n, dims)
+    print(f'data: atlas {n} cells, RNA {rna.shape} {rna.nnz} nonzeros, ATAC '
+          f'{atac.shape} {atac.nnz} nonzeros '
+          f'({(rna.nnz + atac.nnz) / (n * sum(dims)):.4f} dense), '
+          f'{time.perf_counter() - t:.2f} s', flush=True)
+    jm = JAMIE(corr_landmarks=n_landmarks, pca_dim=(512, 512), batch_size=512,
+               use_early_stop=False, epoch_DNN=epochs, min_epochs=epochs,
+               **fit_kw)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    R.route_counts.clear()
+    t = time.perf_counter()
+    out = jm.fit_transform(dataset=[rna, atac])
+    fit_s = time.perf_counter() - t
+    counts, routes = ops.launch_counts(), dict(R.route_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    print(f'atlas fit: {n} cells, {fit_s:.3f} s; phases {jm.phase_timings}; '
+          f'mapping { {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
+          f'epochs {jm.epochs_run} train {jm.fit_seconds:.3f} s; launches '
+          f'{counts}; routes {routes}; max_memory_allocated {peak_gb:.2f} GB; '
+          f'host peak RSS {rss_gb:.2f} GB', flush=True)
+    F = jm.match_result[0]
+    if counts['fused_pd_grad_update'] != jm.config.epoch_pd:
+        fail(f'K1 launched {counts["fused_pd_grad_update"]} times in the '
+             f'atlas fit, expected epoch_pd={jm.config.epoch_pd}')
+    if counts['pairwise_euclidean'] < 2:
+        fail('K3 launched fewer than 2 times in the atlas fit')
+    want = {'fps_jl_sketch': 2, 'weights_spmm': 2, 'pca_resident_bf16': 1,
+            'pca_row_streamed': 1}
+    if any(routes.get(k) != v for k, v in want.items()):
+        fail(f'atlas fit routes {routes}, expected {want}')
+    if not (isinstance(F, LowRankF) and not isinstance(F, SparseLandmarkF)
+            and F.rank == n_landmarks and F.shape == (n, n)):
+        fail(f'atlas F is {F!r}, not a dense-layout rank-{n_landmarks} '
+             'LowRankF')
+    if not (jm.P == 'identity' and jm.sampling_method == 'diag'):
+        fail(f'atlas P {jm.P!r}, sampling {jm.sampling_method!r}')
+    for i, e in enumerate(out):
+        if e.shape != (n, 32) or not np.isfinite(e).all():
+            fail(f'atlas embedding {i}: shape {e.shape}')
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    foscttm = jm.test_closer(out)
+    sub = np.random.RandomState(0).choice(n, metric_cells, replace=False)
+    lta = jm.test_LabelTA([e[sub] for e in out], [labels[sub]] * 2)
+    print(f'atlas metrics: exact FOSCTTM {foscttm} over {n} cells, LTA {lta} '
+          f'on {metric_cells} cells ({time.perf_counter() - t:.3f} s); '
+          f'launches {ops.launch_counts()}', flush=True)
+    if not (foscttm < 0.25 and lta > 0.5):
+        fail(f'atlas fit: FOSCTTM {foscttm} (limit < 0.25), LTA {lta} '
+             '(limit > 0.5)')
+    # Serve on the CSR inputs
+    R.route_counts.clear()
+    t = time.perf_counter()
+    again = jm.transform([rna, atac])
+    serve_routes = dict(R.route_counts)
+    block = min(4096, n)
+    imputed = jm.modal_predict(rna[:block], 0)
+    serve_s = time.perf_counter() - t
+    rel = [float(np.abs(a - o).max() / np.abs(o).max())
+           for a, o in zip(again, out)]
+    f_again = jm.test_closer(again)
+    print(f'atlas serve: transform on CSR {serve_s:.3f} s, max |transform - '
+          f'fit| / max |fit| {rel}, FOSCTTM of transform {f_again}; '
+          f'modal_predict on {block} CSR rows finite '
+          f'{bool(np.isfinite(imputed).all())}; transform routes '
+          f'{serve_routes}', flush=True)
+    if serve_routes.get('pca_transform_spmm') != 2:
+        fail('transform on the CSR inputs did not take the SpMM projection')
+    if not (max(rel) <= TRANSFORM_REL and abs(f_again - foscttm) <= 0.01):
+        fail(f'transform on the CSR inputs is off the fit output: {rel} '
+             f'(limit {TRANSFORM_REL}), FOSCTTM {f_again} vs {foscttm}')
+    if not (imputed.shape == (block, dims[1]) and np.isfinite(imputed).all()):
+        fail('modal_predict on a CSR row block is off')
+    del jm, out, again, imputed
+    R.clear_residency_cache()
+    torch.cuda.empty_cache()
+    # The SpMM at the fit's shapes: the row-streamed sketch block and its
+    # projection (k = 522), a cell-to-landmark weight block (k = 2048)
+    dc = R.DeviceCSR(atac, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for case, k, r, trans in (('sketch block', 522, min(65536, n), False),
+                              ('projection X^T Q', 522, n, True),
+                              ('weights block', 2048, min(8192, n), False)):
+        M = torch.randn((n if trans else dims[1], k), generator=g,
+                        device=dev)
+        fn = ((lambda: dc.tmatmul(M)) if trans
+              else (lambda: dc.matmul(M, 0, r)))
+        ms = time_ms(torch, fn)
+        nnz = int(dc.indptr_np[r])
+        out_rows = dims[1] if trans else r
+        library_row(kp, 'spmm', f'ATAC {case} {r} rows k={k}', ms,
+                    nnz * 8 + (r + 1) * 4 + M.numel() * 4 + out_rows * k * 4,
+                    2 * nnz * k, kp.fp32, nnz=nnz,
+                    nnz_per_s=nnz / (ms[0] * 1e-3))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -467,7 +850,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     smi_line = smi[0]
     kind = torch.cuda.get_device_name(0)
-    bw, fp32, tf32 = peaks_for(kind)
+    peaks = peaks_for(kind)
     import triton
     print(f'device: {smi_line} | torch {torch.__version__} cuda '
           f'{torch.version.cuda} triton {triton.__version__} | bf16 matmul route: '
@@ -503,7 +886,7 @@ def main():
           flush=True)
 
     # 3. Kernels against their plain versions
-    kp = KernelPhase(torch, bw, fp32, tf32)
+    kp = KernelPhase(torch, *peaks)
     data, labels = make_snare_like()
     k1_calls = {}
     for (m, n, dt) in ((1047, 1047, torch.float32), (1047, 1047, torch.bfloat16),
@@ -589,6 +972,18 @@ def main():
     kp.pairwise(emb19[:bs19], torch.randn(19000, 32, device=dev, generator=g),
                 squared=True)
     del cells, lms, emb19
+    torch.cuda.empty_cache()
+    # The 100,000-cell atlas path's K3 shapes: self sqrt on the densified
+    # 2048-cell landmark subsets (20,000 RNA / 40,000 ATAC features, the
+    # geodesic base) and one row block of the exact blocked FOSCTTM / kNN
+    (lm_rna, lm_atac), _ = atlas_on_card(torch, dev, 2048, dense=True)
+    kp.pairwise(lm_rna, None, squared=False)
+    kp.pairwise(lm_atac, None, squared=False)
+    del lm_rna, lm_atac
+    bs100 = max(evaluation._FOSCTTM_BLOCK_ENTRIES // 100_000, 256)
+    kp.pairwise(torch.randn(bs100, 32, device=dev, generator=g),
+                torch.randn(100_000, 32, device=dev, generator=g),
+                squared=True)
     torch.cuda.empty_cache()
 
     # 4. Fit, with every launch count at 0 just before it
@@ -677,6 +1072,10 @@ def main():
     landmark_layout_phase(torch, data19, dev)
     del data19
     landmark_reference_phase(dev)
+    # 9-11. The sparse and atlas input path
+    sparse_reference_phase(torch, dev)
+    wide_phase(torch, kp, dev)
+    atlas_phase(torch, JAMIE, ops, kp, dev)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

@@ -48,7 +48,7 @@ class JamieConfig:
     output_dim: int = 32
     pca_dim: Optional[Tuple[Optional[int], ...]] = (512, 512)
     model_pca: str = 'pca'            # only 'pca' is ported
-    pca_power_iters: int = 1          # row-streamed PCA route (not ported)
+    pca_power_iters: int = 1          # row-streamed PCA route
     dropout: Optional[float] = None   # None -> 0.6 if max(dim) > 64 else 0
     dist_method: str = 'euclidean'    # similarity used in the cosine loss term
     PF_Ratio: Optional[float] = None  # None -> 1.0 (jamie/jamie.py:517)

@@ -1,9 +1,17 @@
-"""Host-matrix helpers.
+"""Host-matrix helpers: uniform handling of dense and scipy-sparse inputs.
 
-The part of `jamie_tpu/core/hostmat.py` the dense main path needs, copied
-(this package imports nothing of `jamie_tpu`): `is_scipy_sparse` to refuse
-sparse inputs, `as_f32_ndarray` to keep ndarray identity. The streaming
-helpers join when the sparse and atlas routes are ported (ROADMAP item 11).
+A copy of `jamie_tpu/core/hostmat.py` (this package imports nothing of
+`jamie_tpu`). Single-cell matrices arrive sparse (10x matrices are born
+CSR); densifying a 100k x 40k matrix on the host costs 16 GB before the
+pipeline starts. Every streaming device route (the bf16 residency build,
+the feature-chunked Gram, the streamed PCA routes, landmark selection)
+densifies only the row or column block it is about to use, so sparse
+inputs flow through `fit_transform` with peak host memory O(block).
+
+Conventions: row-streamed consumers want CSR (`ensure_row_major`; the
+estimator normalizes inputs once), column-streamed consumers convert to
+CSC themselves (`ensure_col_major`), so the O(nnz) transpose-copy happens
+once, not per chunk.
 """
 
 from __future__ import annotations
@@ -16,13 +24,45 @@ def is_scipy_sparse(x) -> bool:
     return type(x).__module__.startswith('scipy.sparse')
 
 
+def ensure_row_major(x):
+    """CSR (cheap row slicing) for anything sparse; dense passes through."""
+    if is_scipy_sparse(x) and x.format != 'csr':
+        return x.tocsr()
+    return x
+
+
+def ensure_col_major(x):
+    """CSC (cheap column slicing) for anything sparse; dense passes through.
+    Column-streaming a CSR costs a full O(nnz) scan PER chunk: convert
+    once before the chunk loop."""
+    if is_scipy_sparse(x) and x.format != 'csc':
+        return x.tocsc()
+    return x
+
+
+def densify(x) -> np.ndarray:
+    """Whole matrix as a C-contiguous dense f32 ndarray."""
+    if is_scipy_sparse(x):
+        x = x.toarray()
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def dense_rows(x, start: int, stop: int) -> np.ndarray:
+    """Rows [start:stop) as a C-contiguous dense f32 block."""
+    return densify(x[start:stop])
+
+
+def dense_cols(x, start: int, stop: int) -> np.ndarray:
+    """Columns [start:stop) as a C-contiguous dense f32 block (pass CSC for
+    sparse inputs; see ensure_col_major)."""
+    return densify(x[:, start:stop])
+
+
 def as_f32_ndarray(x):
     """float32 host array that PRESERVES ndarray identity when x already is
-    one (np.memmap included — it keeps .filename, the on-disk encode-cache
-    key). np.asarray(memmap) returns a fresh base-class view per call:
-    .filename is lost AND id() is unstable, so the id-keyed residency cache
-    re-uploads the same matrix once per phase (caught in round 4: the warm
-    scGLUE leg shipped 1,651.8 MB — exactly two full resident builds)."""
+    one (np.memmap included). np.asarray(memmap) returns a fresh base-class
+    view per call, whose id() changes, so the id-keyed residency cache
+    would upload the same matrix once per phase."""
     if isinstance(x, np.ndarray) and x.dtype == np.float32:
         return x
     return np.asarray(x, np.float32)

@@ -11,9 +11,13 @@ card and raises when there is none (`device='cpu'` is the explicit CPU
 route). Past the dense solver's range the estimator takes jamie_tpu's
 large-dataset route: landmark F (`corr_landmarks`, or automatically past
 `LANDMARK_AUTO_ENTRIES`), the implicit 'identity'/'zeros' P/F sentinels past
-`SENTINEL_ENTRIES`, and sparse or 1-D mask priors and `f_top_k`. What is
-not ported raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+`SENTINEL_ENTRIES`, and sparse or 1-D mask priors and `f_top_k`. Modalities
+may be dense arrays or scipy-sparse matrices (normalized to CSR once): the
+distance, PCA and landmark phases take jamie_tpu's sparse and bf16
+residency routes (`core/residency.py`), whose device copies are released
+after preprocessing, before training claims device memory. What is not
+ported raises NotImplementedError naming the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 from ._meta import __version__
 from .config import config_from_kwargs
 from .core.dtypes import resolve_device
-from .core.hostmat import is_scipy_sparse
+from .core.hostmat import ensure_row_major, is_scipy_sparse
+from .core.residency import clear_residency_cache
 from .core.timing import TimeLogger
 from .models.convert import load_flax_variables, to_flax_variables
 from .models.coupled_vae import CoupledVAE
@@ -116,9 +121,11 @@ class JAMIE:
         np.random.seed(cfg.manual_seed)
 
         self.dataset, self.dataset_annotation = _unwrap_anndata(dataset)
-        if any(is_scipy_sparse(d) for d in self.dataset):
-            raise _unported('sparse input matrices', 11)
-        self.dataset = [d if isinstance(d, np.ndarray) else np.asarray(d)
+        # Never copied or written (the residency caches key on identity);
+        # scipy-sparse modalities stay sparse, as CSR for the row-streamed
+        # device routes
+        self.dataset = [ensure_row_major(d) if is_scipy_sparse(d)
+                        else d if isinstance(d, np.ndarray) else np.asarray(d)
                         for d in self.dataset]
         self.dataset_num = len(self.dataset)
         assert self.dataset_num == 2, (
@@ -278,9 +285,13 @@ class JAMIE:
         timer = TimeLogger(block=True)
         self.preprocessors = tuple(
             Preprocessor.fit(data, pca_dim=dim, method=cfg.model_pca,
-                             device=self.device)
+                             device=self.device,
+                             power_iters=cfg.pca_power_iters)
             for dim, data in zip(pca_dims, self.dataset))
+        # the cached fit samples: no second projection of the raw matrices
         transformed = [pre.transform_fit() for pre in self.preprocessors]
+        # the distance/PCA residencies release their device memory
+        clear_residency_cache()
         timer.log('Preprocessing')
         self.col = [int(x.shape[1]) for x in transformed]
 

@@ -1,21 +1,32 @@
 """Invertible preprocessing: PCA projection + fit-sample standardization.
 
 Reference parity: `jamie_tpu/preprocess.py` — `PCA` with the `_pca_fit`
-routing (:276-323) between the exact Gram/covariance eigh route
-(`_pca_fit_direct`, :326-345) and the Halko randomized route
-(`_pca_fit_randomized`, :46-73) past `_RANDOMIZED_THRESHOLD`; the
-`_component_signs` convention (:267-273); and `Preprocessor` (:506-680),
-the reference's `preclass` (jamie/utilities.py:654-678): PCA to `pca_dim`
-then scalar standardization, or per-feature standardization without PCA,
-NaN -> 0, fully invertible, with the same `to_dict` keys so checkpoints
-cross between the packages.
+routing (:276-323), `_component_signs` (:267-273) and `Preprocessor`
+(:506-680), the reference's `preclass` (jamie/utilities.py:654-678): PCA to
+`pca_dim` then scalar standardization, or per-feature standardization
+without PCA, NaN -> 0, fully invertible, with the same `to_dict` keys so
+checkpoints cross between the packages.
 
-The PCA linear algebra runs on `device` (the card unless the caller asks
-for another); the standardization runs on the host, as in jamie_tpu.
+PCA routes, chosen as jamie_tpu chooses them (`_pca_fit_host`):
 
-Not ported: the bf16-resident, column-streamed and row-streamed routes
-past `_STREAM_THRESHOLD` (ROADMAP.md item 11), scipy-sparse inputs (item
-11) and the t-SNE/UMAP preclass (item 12).
+- up to `_STREAM_THRESHOLD` elements (compared with `>`): the exact
+  Gram/covariance eigh (`_pca_fit_direct`), or the Halko randomized range
+  finder (`_pca_fit_randomized`) past `_RANDOMIZED_THRESHOLD`; a sparse
+  source is densified first;
+- past it, the matrix is rounded to bf16: `_pca_fit_resident_bf16` from
+  the shared bf16 residency (`core/residency.device_bf16`) while it fits
+  the budget, else `_pca_fit_streamed` over column chunks (f > n) or
+  `_pca_fit_row_streamed` over row blocks (the tall atlas case; a CSR
+  source runs its sketch and projection as SpMMs on a `DeviceCSR`). These
+  routes return the fit's scores as a device tensor, which
+  `Preprocessor.transform_fit` standardizes on the device (one-shot).
+
+Every matmul is torch on `device` (the card unless the caller asks for
+another): the products are plain large GEMMs or library SpMMs that
+jamie_tpu leaves to XLA. Omega comes from a `torch.Generator`, so a sketch
+differs from jamie_tpu's (a jax key) while the subspace it finds agrees.
+
+Not ported: the t-SNE/UMAP preclass (ROADMAP.md item 12).
 """
 
 from __future__ import annotations
@@ -26,23 +37,32 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.dtypes import resolve_device
-from .core.hostmat import as_f32_ndarray, is_scipy_sparse
+from .core import residency
+from .core.dtypes import bf16_matmul, resolve_device
+from .core.hostmat import (as_f32_ndarray, dense_rows, densify,
+                           ensure_col_major, is_scipy_sparse)
 
-# jamie_tpu's bf16-resident / streamed PCA threshold (preprocess.py:32)
+# Past this many elements (compared with `>`) PCA takes the bf16-resident
+# or streamed routes (preprocess.py:32). Read at call time.
 _STREAM_THRESHOLD = 100_000_000
 
 # Above this many cells (and with n_components <= min(n, f) // 4) the
 # randomized range finder replaces the full eigh (preprocess.py:37)
 _RANDOMIZED_THRESHOLD = 4096
 
+# Row-block size of the row-streamed PCA's SpMM sketch (preprocess.py:43).
+# Read at call time.
+_SKETCH_SPMM_ROWS = 65_536
+
+# Feature columns per f32 chunk when a product reads a bf16 matrix
+# exactly (Q^T X): bounds the f32 copy at this many bytes
+_F32_CHUNK_BYTES = 1 << 30
+
 
 def _pca_fit_randomized(X: torch.Tensor, n_components: int,
                         oversample: int = 10, power_iters: int = 2,
                         seed: int = 0):
-    """Halko-style randomized PCA: tall matmuls plus a small eigh. Omega
-    comes from a torch.Generator on X's device, so the sketch differs from
-    jamie_tpu's (a jax key) while the subspace it finds agrees."""
+    """Halko-style randomized PCA: tall matmuls plus a small eigh."""
     n, f = X.shape
     k = min(n_components + oversample, min(n, f))
     mean = X.mean(0)
@@ -87,53 +107,234 @@ def _component_signs(comps: torch.Tensor) -> torch.Tensor:
 
 
 def _pca_fit(X: torch.Tensor, n_components: int):
-    """Return (mean, sign-fixed components[k, F]) by jamie_tpu's routing."""
+    """(mean, sign-fixed components[k, F]) of a tensor by jamie_tpu's
+    in-memory routing: exact eigh, or randomized past the threshold."""
     n, f = X.shape
     if (min(n, f) > _RANDOMIZED_THRESHOLD
             and n_components <= min(n, f) // 4):
+        residency.route_counts['pca_randomized'] += 1
         mean, comps = _pca_fit_randomized(X, n_components)
     else:
+        residency.route_counts['pca_direct'] += 1
         mean, comps = _pca_fit_direct(X, n_components)
     return mean, comps * _component_signs(comps)[:, None]
 
 
-def _check_dense(X, what: str):
+def _qt_x(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Q^T X for an f32 Q and a bf16 X, with X read exactly (as jamie_tpu's
+    f32 x bf16 matmul promotes it) in column chunks: no f32 copy of the
+    whole matrix."""
+    cols = max(_F32_CHUNK_BYTES // max(4 * X.shape[0], 1), 1)
+    return torch.cat([Q.T @ X[:, s:s + cols].float()
+                      for s in range(0, X.shape[1], cols)], dim=1)
+
+
+def _eig_finish(B: torch.Tensor, Q: torch.Tensor, n_components: int):
+    """Components and the fit's scores from the projection B = Q^T Xc:
+    the top right-singular vectors of B, and Xc comps^T ~ Q Ub s."""
+    w, Ub = torch.linalg.eigh(B @ B.T)
+    Ub = Ub.flip(1)[:, :n_components]
+    s = torch.sqrt(torch.clamp(w.flip(0)[:n_components], min=1e-12))
+    return (Ub / s).T @ B, Q @ (Ub * s)
+
+
+def _pca_fit_resident_bf16(X: torch.Tensor, n_components: int,
+                           oversample: int = 10, seed: int = 0):
+    """Randomized PCA straight from a device-resident bf16 matrix, with one
+    power iteration. Centering is implicit, (X - 1 mean^T) M = X M -
+    1 (mean^T M), so no f32 or centered copy of X exists; X @ M runs with
+    bf16 operands and an f32 result, Q^T X reads X exactly. Returns
+    (mean, components, fit scores)."""
+    n, f = X.shape
+    k = min(n_components + oversample, n)
+    mean = X.sum(0, dtype=torch.float32) / n                  # (f,)
+    gen = torch.Generator(device=X.device).manual_seed(seed)
+    omega = torch.randn((f, k), generator=gen, device=X.device,
+                        dtype=torch.float32)
+    Y = bf16_matmul(X, omega) - (mean @ omega)[None, :]
+    Q, _ = torch.linalg.qr(Y)                                 # (n, k)
+    Zt = _qt_x(Q, X) - Q.sum(0)[:, None] * mean[None, :]      # (k, f)
+    Y = bf16_matmul(X, Zt.T) - (mean @ Zt.T)[None, :]
+    Q, _ = torch.linalg.qr(Y)
+    B = _qt_x(Q, X) - Q.sum(0)[:, None] * mean[None, :]       # (k, f)
+    return (mean, *_eig_finish(B, Q, n_components))
+
+
+def _pca_fit_streamed(X, n_components: int, oversample: int = 10,
+                      seed: int = 0, device=None):
+    """Randomized PCA with the feature axis streamed from the host, for
+    wide matrices too large to keep whole (e.g. 9.2k x 242k ATAC past the
+    budget). Two passes over column chunks (`residency.ChunkUploader`;
+    sparse X should arrive CSC): the sketch Y = sum_b Xc_b Omega_b with the
+    column means, then the projection B = Q^T Xc, kept on the device."""
+    device = resolve_device(device)
+    n, f = (int(d) for d in X.shape)
+    k = min(n_components + oversample, n)
+    chunk = max(int((1 << 30) / (n * 4)), 1024)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    up = residency.ChunkUploader(X, device)
+    means = []
+    Y = torch.zeros((n, k), dtype=torch.float32, device=device)
+    for s in range(0, f, chunk):
+        xb = up.cols(s, s + chunk)
+        mb = xb.mean(0)
+        omega_b = torch.randn((xb.shape[1], k), generator=gen, device=device,
+                              dtype=torch.float32)
+        Y += (xb - mb) @ omega_b
+        means.append(mb)
+    Q, _ = torch.linalg.qr(Y)
+    parts = []
+    for s in range(0, f, chunk):
+        xb = up.cols(s, s + chunk)
+        parts.append(Q.T @ (xb - xb.mean(0)))
+    comps, scores = _eig_finish(torch.cat(parts, dim=1), Q, n_components)
+    return torch.cat(means), comps, scores
+
+
+def _pca_fit_row_streamed(X, n_components: int, oversample: int = 10,
+                          seed: int = 0, chunk_bytes: int = 1 << 30,
+                          power_iters: int = 1, device=None):
+    """Randomized PCA with the CELL axis streamed, for tall matrices (n >
+    f) too large to be resident, e.g. 100k cells x 40k ATAC peaks. The
+    matrix is read in row blocks for the sketch, each power iteration (two
+    passes) and the projection; the scores come from the final range. A
+    CSR source that fits the budget runs these as SpMMs on its DeviceCSR
+    (the sketch in `_SKETCH_SPMM_ROWS` row blocks, the projection through
+    the transposed twin, released afterwards)."""
+    device = resolve_device(device)
+    n, f = (int(d) for d in X.shape)
+    k = min(n_components + oversample, min(n, f))
+    rows = max(int(chunk_bytes / max(f * 4, 1)), 256)
+    up = residency.ChunkUploader(X, device)
+
+    # Column means: scipy's sparse mean is O(nnz); dense in f64 row blocks
     if is_scipy_sparse(X):
-        raise NotImplementedError(
-            f'sparse {what} is ROADMAP.md item 11 (sparse and atlas data '
-            'inputs)')
-    n, f = np.shape(X)
+        mean_np = np.asarray(X.mean(axis=0), np.float32).ravel()
+    else:
+        acc = np.zeros((f,), np.float64)
+        for s in range(0, n, rows):
+            acc += dense_rows(X, s, s + rows).sum(axis=0, dtype=np.float64)
+        mean_np = (acc / n).astype(np.float32)
+    mean = torch.as_tensor(mean_np, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    omega = torch.randn((f, k), generator=gen, device=device,
+                        dtype=torch.float32)
+    dcsr = up.dcsr
+
+    def sketch(M):
+        """Y = Xc M, (n, k) on the device, in row blocks."""
+        mo = (mean @ M)[None, :]
+        step = _SKETCH_SPMM_ROWS if dcsr is not None else rows
+        blk = ((lambda s: dcsr.matmul(M, s, s + step)) if dcsr is not None
+               else (lambda s: up.rows(s, s + step) @ M))
+        return torch.cat([blk(s) - mo for s in range(0, n, step)])
+
+    def project(Q):
+        """B = Q^T Xc, (k, f) on the device."""
+        B = -Q.sum(0)[:, None] * mean[None, :]
+        if dcsr is not None:
+            return B + dcsr.tmatmul(Q).T
+        for s in range(0, n, rows):
+            B = B + Q[s:s + rows].T @ up.rows(s, s + rows)
+        return B
+
+    Q, _ = torch.linalg.qr(sketch(omega))
+    for _ in range(power_iters):      # each iteration = 2 more data passes
+        Q, _ = torch.linalg.qr(sketch(project(Q).T))
+    B = project(Q)
+    if dcsr is not None:
+        dcsr.release_csc()
+    return (mean, *_eig_finish(B, Q, n_components))
+
+
+def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
+    """(mean, sign-fixed components[k, F], fit scores or None) of a host
+    matrix (dense or scipy-sparse) by jamie_tpu's `_pca_fit` routing.
+    power_iters applies to the row-streamed route only."""
+    device = resolve_device(device)
+    sparse_in = is_scipy_sparse(X)
+    n, f = (int(d) for d in X.shape)
     if n * f > _STREAM_THRESHOLD:
-        raise NotImplementedError(
-            f'{what} of {n} x {f} is past the {_STREAM_THRESHOLD:,}-element '
-            'streamed-PCA threshold: ROADMAP.md item 11')
-    return as_f32_ndarray(X)
+        xdev = residency.device_bf16(X, device=device)
+        if xdev is not None:
+            residency.route_counts['pca_resident_bf16'] += 1
+            mean, comps, scores = _pca_fit_resident_bf16(xdev, n_components)
+        elif f > n:
+            residency.route_counts['pca_streamed'] += 1
+            mean, comps, scores = _pca_fit_streamed(
+                ensure_col_major(X), n_components, device=device)
+        else:
+            residency.route_counts['pca_row_streamed'] += 1
+            mean, comps, scores = _pca_fit_row_streamed(
+                X, n_components, power_iters=power_iters, device=device)
+        signs = _component_signs(comps)
+        return mean, comps * signs[:, None], scores * signs[None, :]
+    if sparse_in:
+        X = densify(X)
+    mean, comps = _pca_fit(torch.as_tensor(X, device=device), n_components)
+    return mean, comps, None
 
 
 class PCA:
     """Minimal sklearn-compatible PCA whose linear algebra runs on
-    `device`. `mean_` and `components_` are device tensors; transforms take
-    and return host arrays."""
+    `device`. `mean_` and `components_` are device tensors; `scores_` holds
+    the fit data's projection where the fit route computes it (the
+    bf16-resident and streamed routes), as a device tensor. Transforms take
+    host arrays (dense or scipy-sparse) and return host arrays."""
 
-    def __init__(self, n_components: int, device=None):
+    def __init__(self, n_components: int, device=None, power_iters: int = 1):
         self.n_components = int(n_components)
+        self.power_iters = int(power_iters)
         self.device = resolve_device(device)
         self.mean_: Optional[torch.Tensor] = None
         self.components_: Optional[torch.Tensor] = None
+        self.scores_: Optional[torch.Tensor] = None
 
     def fit(self, X):
-        X = _check_dense(X, 'PCA input')
-        self.mean_, self.components_ = _pca_fit(
-            torch.as_tensor(X, device=self.device), self.n_components)
+        if not is_scipy_sparse(X):
+            X = as_f32_ndarray(X)
+        self.mean_, self.components_, self.scores_ = _pca_fit_host(
+            X, self.n_components, self.power_iters, self.device)
         return self
 
-    def transform(self, X) -> np.ndarray:
-        X = _check_dense(X, 'PCA input')
-        Xt = torch.as_tensor(X, device=self.device)
-        return ((Xt - self.mean_) @ self.components_.T).cpu().numpy()
+    def transform(self, X, row_chunk_bytes: int = 2 << 30) -> np.ndarray:
+        """(X - mean) @ components^T. Small dense inputs go whole and
+        exact; larger ones in row blocks, through `residency.ChunkUploader`
+        from `_STREAM_THRESHOLD` elements on (compared with `>=`), and a
+        resident CSR by SpMM (jamie_tpu/preprocess.py:396-429)."""
+        sparse_in = is_scipy_sparse(X)
+        if not sparse_in:
+            X = as_f32_ndarray(X)
+        n, f = (int(d) for d in X.shape)
+        comps_t = self.components_.T
+        if n * f * 4 <= row_chunk_bytes and not sparse_in:
+            Xt = torch.as_tensor(X, device=self.device)
+            return ((Xt - self.mean_) @ comps_t).cpu().numpy()
+        rows = max(int(row_chunk_bytes / (f * 4)), 64)
+        up = (residency.ChunkUploader(X, self.device)
+              if n * f >= _STREAM_THRESHOLD else None)
+        if up is not None and up.dcsr is not None:
+            residency.route_counts['pca_transform_spmm'] += 1
+            mproj = (self.mean_ @ comps_t)[None, :]
+            return np.concatenate([
+                (up.dcsr.matmul(comps_t, s, s + rows) - mproj).cpu().numpy()
+                for s in range(0, n, rows)])
+        if up is not None:
+            residency.route_counts['pca_transform_uploader'] += 1
 
-    def fit_transform(self, X) -> np.ndarray:
-        return self.fit(X).transform(X)
+        def block(s):
+            if up is not None:
+                return up.rows(s, s + rows)
+            return torch.as_tensor(dense_rows(X, s, s + rows),
+                                   device=self.device)
+        return np.concatenate([((block(s) - self.mean_) @ comps_t)
+                               .cpu().numpy() for s in range(0, n, rows)])
+
+    def fit_transform(self, X):
+        """The fit's scores where the route computed them (a device
+        tensor), else transform(X) (a host array)."""
+        self.fit(X)
+        return self.scores_ if self.scores_ is not None else self.transform(X)
 
     def inverse_transform(self, Y) -> np.ndarray:
         Yt = torch.as_tensor(np.asarray(Y, np.float32), device=self.device)
@@ -148,13 +349,19 @@ class Preprocessor:
     no-PCA path, jamie.py:455,462-465).
     """
 
-    def __init__(self, sample: Optional[np.ndarray] = None,
-                 pca: Optional[PCA] = None, axis: Optional[int] = None):
+    def __init__(self, sample=None, pca: Optional[PCA] = None,
+                 axis: Optional[int] = None):
         self.pca = pca
         self.axis = axis
         if sample is None:
             self.sample_mean = None
             self.sample_std = None
+        elif isinstance(sample, torch.Tensor):
+            # device fit sample (the large PCA routes' scores): fetch only
+            # the statistics, never the sample
+            kw = {} if axis is None else {'dim': axis}
+            self.sample_mean = sample.mean(**kw).cpu().numpy()
+            self.sample_std = sample.std(correction=0, **kw).cpu().numpy()
         else:
             sample = np.asarray(sample, np.float32)
             self.sample_mean = np.asarray(sample.mean(axis), np.float32)
@@ -164,15 +371,27 @@ class Preprocessor:
 
     @classmethod
     def fit(cls, data, pca_dim: Optional[int] = None, method: str = 'pca',
-            device=None) -> 'Preprocessor':
+            device=None, power_iters: int = 1) -> 'Preprocessor':
         """Build the per-modality preprocessor as project_jamie does
         (jamie/jamie.py:436-465): PCA to pca_dim (clamped, with a warning)
-        then scalar standardization; or per-feature standardization."""
+        then scalar standardization; or per-feature standardization.
+        scipy-sparse data streams through the PCA routes; without pca_dim
+        it is densified (per-feature standardization destroys sparsity),
+        with a warning past 1e9 elements."""
         if method != 'pca':
             raise NotImplementedError(
                 f"model_pca={method!r} is ROADMAP.md item 12; only 'pca' is "
                 'ported')
-        data = _check_dense(data, 'Preprocessor input')
+        if is_scipy_sparse(data):
+            if pca_dim is None:
+                if data.shape[0] * data.shape[1] > 1_000_000_000:
+                    warnings.warn(
+                        'sparse input without pca_dim densifies '
+                        f'{data.shape} on host; set pca_dim to keep the '
+                        'pipeline streaming', UserWarning)
+                data = densify(data)
+        else:
+            data = as_f32_ndarray(data)
         if pca_dim is not None:
             dim = int(pca_dim)
             if min(*data.shape) < dim:
@@ -180,7 +399,8 @@ class Preprocessor:
                     f'PCA dim must be lower than {min(*data.shape)}, found '
                     f'{dim}, adjusting to compensate.')
                 dim = min(*data.shape)
-            pca = PCA(n_components=dim, device=device)
+            pca = PCA(n_components=dim, device=device,
+                      power_iters=power_iters)
             sample = pca.fit_transform(data)
             pre = cls(sample, pca=pca, axis=None)
             pre._fit_sample = sample
@@ -198,13 +418,37 @@ class Preprocessor:
         out[np.isnan(out)] = 0
         return out
 
-    def transform_fit(self) -> np.ndarray:
+    def transform_fit(self):
         """Standardized transform of the data this preprocessor was fit on,
-        from the cached fit sample (no second projection)."""
-        return self._standardize(self._fit_sample)
+        from the cached fit sample (no second projection).
+
+        A device fit sample is standardized on the device, in place, and
+        handed on as a tensor: ONE-SHOT by design (jamie_tpu donates the
+        buffer; keeping it would double peak device memory at atlas
+        scale), so the raw sample is gone afterwards and a second call
+        raises. The host path is repeatable."""
+        sample = getattr(self, '_fit_sample', None)
+        if sample is None:
+            raise RuntimeError(
+                'transform_fit: the device fit sample was already consumed '
+                '(the device path standardizes in place and is one-shot by '
+                'design; call transform(X) to re-project instead)')
+        if isinstance(sample, torch.Tensor):
+            out = sample.sub_(float(self.sample_mean)).div_(
+                float(self.sample_std))
+            out.masked_fill_(torch.isnan(out), 0.0)
+            self._fit_sample = None
+            if self.pca is not None:
+                self.pca.scores_ = None
+            return out
+        return self._standardize(sample)
 
     def transform(self, X) -> np.ndarray:
-        out = _check_dense(X, 'Preprocessor input')
+        if is_scipy_sparse(X):
+            # PCA.transform streams sparse rows itself
+            out = X if self.pca is not None else densify(X)
+        else:
+            out = as_f32_ndarray(X)
         if self.pca is not None:
             out = self.pca.transform(out)
         return self._standardize(out)

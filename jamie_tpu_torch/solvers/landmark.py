@@ -10,7 +10,8 @@ five (N0, N1) arrays; this one bounds the estimation at O(N L + L²):
    matrices (K3, plus the host graph for geodesic);
 3. extend to all cells with row-stochastic kNN-Gaussian weights A: each
    cell mixes its k nearest landmarks, bandwidth its own mean kNN squared
-   distance, from K3's cross squared distances in 8192-row blocks;
+   distance, from squared distances in 8192-row blocks (K3, or an SpMM
+   Gram for a CSR source);
 4. return F = (A_x F_L) A_y^T as a `LowRankF`, or in the k-sparse
    `SparseLandmarkF` layout past `_SPARSE_FACTOR_ENTRIES`.
 
@@ -19,10 +20,18 @@ FPS keeps its picks on the device: no host read inside its loop. With
 `verbose` (the solver's flag, on by default) it prints the seconds of its
 four steps, each ended by a device synchronize.
 
-Not ported (NotImplementedError, ROADMAP.md item 11): scipy-sparse sources,
-host sources past `ops/distances._FEATURE_CHUNK_THRESHOLD` elements
-(jamie_tpu streams them through its uploader), and the JL-sketch FPS past
-`_FPS_BYTES_BUDGET`.
+Sources may be dense host arrays, scipy CSR matrices or tensors, routed as
+jamie_tpu routes them (`residency.route_counts` records which):
+
+- FPS runs on a 256-dimensional JL sketch past `_FPS_BYTES_BUDGET` bytes of
+  f32 (`_project_for_fps`: an SpMM on the source's DeviceCSR, or row
+  blocks through `residency.ChunkUploader`), its projection drawn from the
+  same `RandomState` as jamie_tpu's so the later draws stay in step;
+- the cell-to-landmark weights of a CSR source come from the SpMM Gram
+  with the DeviceCSR's row norms (values bf16-rounded at scale); a dense
+  host source of `_UPLOAD_ELEMS` elements or more streams through the
+  uploader; anything else goes through K3 directly;
+- landmark rows of a CSR source are gathered with `X[lx].toarray()`.
 """
 
 from __future__ import annotations
@@ -32,28 +41,27 @@ import time
 import numpy as np
 import torch
 
+from ..core import residency
 from ..core.dtypes import resolve_device
-from ..core.hostmat import is_scipy_sparse
+from ..core.hostmat import dense_rows, densify, is_scipy_sparse
 from ..core.timing import TimeLogger
-from ..ops.distances import (_as_device_f32, _check_source,
-                             dataset_distance_matrix)
+from ..ops.distances import _as_device_f32, dataset_distance_matrix
 from ..ops.lowrank import LowRankF, SparseLandmarkF
 from ..ops.pairwise import pairwise_euclidean
 from .prime_dual import prime_dual
 
-# FPS keeps the whole matrix on the device in f32; jamie_tpu runs it on a
-# JL sketch past this many bytes
+# FPS keeps the whole matrix on the device in f32; past this many bytes it
+# runs on a JL sketch (compared with `>`)
 _FPS_BYTES_BUDGET = 2 << 30
+
+# A dense host source of this many elements or more (`>=`) streams its
+# cell-to-landmark weight blocks through the uploader (jamie_tpu writes
+# the number at landmark.py:145)
+_UPLOAD_ELEMS = 100_000_000
 
 # Past this many dense-factor entries per side (N x L) the correspondence
 # takes the k-sparse factor layout
 _SPARSE_FACTOR_ENTRIES = 400_000_000
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is not ported to jamie_tpu_torch yet: ROADMAP.md item 11 '
-        '(sparse and atlas data inputs)')
 
 
 def _interp_weights_sparse(d2: torch.Tensor, k: int):
@@ -98,19 +106,46 @@ def _fps_indices_device(x: torch.Tensor, first: int,
     return torch.cat(picks)
 
 
+def _project_for_fps(arr, rng, dim: int = 256, chunk_rows: int = 8192,
+                     device=None) -> torch.Tensor:
+    """A (n, dim) random Gaussian projection of arr for FPS on modalities
+    too large to sit on the device in f32: pairwise distances survive a JL
+    sketch, which is all FPS consumes. The projection is drawn from `rng`
+    as jamie_tpu draws it. A CSR source that fits the budget multiplies on
+    its DeviceCSR (SpMM); other host sources stream row blocks through the
+    uploader; a tensor is multiplied where it lies."""
+    device = resolve_device(device)
+    n, d = (int(s) for s in arr.shape)
+    proj = torch.as_tensor(
+        np.asarray(rng.randn(d, dim).astype(np.float32) / np.sqrt(dim),
+                   np.float32), device=device)
+    up = (None if isinstance(arr, torch.Tensor)
+          else residency.ChunkUploader(arr, device))
+    if up is not None and up.dcsr is not None:
+        return up.dcsr.matmul(proj)
+    out = []
+    for s in range(0, n, chunk_rows):
+        xb = (arr[s:s + chunk_rows].to(device=device, dtype=torch.float32)
+              if up is None else up.rows(s, s + chunk_rows))
+        out.append(xb @ proj)
+    return torch.cat(out)
+
+
 def _select_landmarks(x, n_landmarks: int, method: str, rng,
                       device=None) -> np.ndarray:
     n = int(x.shape[0])
     if method == 'uniform':
         return np.sort(rng.choice(n, n_landmarks, replace=False))
     if method == 'fps':
+        device = resolve_device(device)
         first = int(rng.randint(n))
-        if is_scipy_sparse(x):
-            raise _unported('FPS over a scipy-sparse modality')
-        if x.shape[0] * x.shape[1] * 4 > _FPS_BYTES_BUDGET:
-            raise _unported(f'FPS over {x.shape[0]} x {x.shape[1]} (the JL '
-                            f'sketch past {_FPS_BYTES_BUDGET:,} bytes)')
-        xd = _as_device_f32(x, resolve_device(device))
+        if int(x.shape[0]) * int(x.shape[1]) * 4 > _FPS_BYTES_BUDGET:
+            residency.route_counts['fps_jl_sketch'] += 1
+            xd = _project_for_fps(x, rng, device=device)
+        else:
+            residency.route_counts['fps_dense'] += 1
+            xd = _as_device_f32(densify(x) if is_scipy_sparse(x) else x,
+                                device)
         return np.sort(_fps_indices_device(xd, first,
                                            int(n_landmarks)).cpu().numpy())
     raise ValueError(f'unknown landmark selection method {method!r}')
@@ -119,24 +154,44 @@ def _select_landmarks(x, n_landmarks: int, method: str, rng,
 def _cell_to_landmark_weights(x, landmarks, k: int, block: int = 8192,
                               sparse: bool = False, device=None):
     """A (n, L) in row blocks, so the (n, L) distance intermediate stays
-    bounded: each block's squared distances to the landmarks come from K3
-    (cross, squared). x may be a dense host array (each block uploaded as
-    exact f32) or a tensor. sparse=True returns the k-sparse layout
-    (idx (n, k) int64, w (n, k) f32) instead of the dense matrix."""
+    bounded. A CSR source that fits the budget takes the SpMM Gram on its
+    DeviceCSR, |x|^2 + |l|^2 - 2 x.l with the DeviceCSR's row norms;
+    otherwise each block's squared distances come from K3 (cross,
+    squared), the block read through the uploader for a host source of
+    `_UPLOAD_ELEMS` elements or more, exactly otherwise. sparse=True
+    returns the k-sparse layout (idx (n, k) int64, w (n, k) f32) instead
+    of the dense matrix."""
     device = (x.device if isinstance(x, torch.Tensor) and device is None
               else resolve_device(device))
     lm = _as_device_f32(landmarks, device)
     n, L = int(x.shape[0]), int(lm.shape[0])
+    host = not isinstance(x, torch.Tensor)
+    dcsr = residency.device_csr(x, device=device) if host else None
+    up = (residency.ChunkUploader(x, device)
+          if host and dcsr is None and n * int(x.shape[1]) >= _UPLOAD_ELEMS
+          else None)
+    route = ('weights_spmm' if dcsr is not None else
+             'weights_uploader' if up is not None else 'weights_dense')
+    residency.route_counts[route] += 1
+    lm_sq = (lm * lm).sum(1) if dcsr is not None else None
     verbose = n >= 50_000        # atlas scale: show block progress
     t0 = time.perf_counter()
     parts = []
     for s in range(0, n, block):
-        d2 = pairwise_euclidean(_as_device_f32(x[s:s + block], device), lm,
-                                squared=True)
+        e = min(s + block, n)
+        if dcsr is not None:
+            xlm = dcsr.matmul(lm.T, s, e)                       # (r, L)
+            d2 = (dcsr.row_sq_sums()[s:e, None] + lm_sq[None, :]
+                  - 2.0 * xlm).clamp_(min=0.0)
+        else:
+            xb = (up.rows(s, e) if up is not None else
+                  _as_device_f32(dense_rows(x, s, e) if host else x[s:e],
+                                 device))
+            d2 = pairwise_euclidean(xb, lm, squared=True)
         parts.append(_interp_weights_sparse(d2, min(k, L)) if sparse
                      else _interp_weights(d2, min(k, L), L))
         if verbose:
-            print(f'landmark weights: rows [{min(s + block, n)}/{n}] '
+            print(f'landmark weights: rows [{e}/{n}] '
                   f'{time.perf_counter() - t0:.1f}s', flush=True)
     if sparse:
         return (torch.cat([p[0] for p in parts]),
@@ -157,17 +212,15 @@ def landmark_correspondence(
     **prime_dual_kwargs,
 ) -> LowRankF:
     """Low-rank unsupervised correspondence between datasets X (N0, f0) and
-    Y (N1, f1), dense host arrays or tensors. `prime_dual_kwargs` forward to
-    the exact solver (epoch_pd, rho, epsilon, delay, log_pd, verbose,
-    precision, state_dtype).
+    Y (N1, f1): dense host arrays, scipy CSR matrices or tensors.
+    `prime_dual_kwargs` forward to the exact solver (epoch_pd, rho,
+    epsilon, delay, log_pd, verbose, precision, state_dtype).
     selection: 'fps' (farthest-point cover, default) or 'uniform'.
     factor_layout: 'dense' -> LowRankF (U = A_x F_L materialized, N x L),
     'sparse' -> SparseLandmarkF (k-sparse A factors, O(N k) memory),
     'auto' -> sparse once max(N) x L crosses _SPARSE_FACTOR_ENTRIES."""
     if factor_layout not in ('auto', 'dense', 'sparse'):
         raise ValueError(f'unknown factor_layout {factor_layout!r}')
-    _check_source(X)
-    _check_source(Y)
     device = resolve_device(device)
     n0, n1 = int(X.shape[0]), int(Y.shape[0])
     L0, L1 = min(int(n_landmarks), n0), min(int(n_landmarks), n1)
@@ -176,7 +229,9 @@ def landmark_correspondence(
     rng = np.random.RandomState(seed)
     lx = _select_landmarks(X, L0, selection, rng, device)
     ly = _select_landmarks(Y, L1, selection, rng, device)
-    Xl, Yl = X[lx], Y[ly]
+    # fancy row indexing of a CSR gathers just the landmark rows
+    Xl, Yl = (A[idx].toarray() if is_scipy_sparse(A) else A[idx]
+              for A, idx in ((X, lx), (Y, ly)))
     timer.log('selection')
 
     # Exact solver on the landmark subproblem; graph modes (geodesic) run

@@ -128,7 +128,11 @@ class JamieTrainer:
         self.model = model.to(self.device)
         self.rows = [int(d.shape[0]) for d in dataset]
         self.cols = [int(d.shape[1]) for d in dataset]
-        self.data = [torch.as_tensor(np.asarray(d, np.float32),
+        # device tensors (the large PCA routes' standardized scores) are
+        # taken where they lie, without a host round trip
+        self.data = [d.to(device=self.device, dtype=torch.float32)
+                     if isinstance(d, torch.Tensor) else
+                     torch.as_tensor(np.asarray(d, np.float32),
                                      device=self.device) for d in dataset]
         self._init_p(P)
         self._init_f(F)

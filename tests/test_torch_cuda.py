@@ -8,11 +8,12 @@ jax nor jamie_tpu, so on the card it runs without the suite's conftest:
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from jamie_tpu_torch import evaluation, ops
-from jamie_tpu_torch.core import dtypes
-from jamie_tpu_torch.ops import pairwise, pd_update
+from jamie_tpu_torch.core import dtypes, residency
+from jamie_tpu_torch.ops import distances, pairwise, pd_update
 from jamie_tpu_torch.solvers import landmark
 
 pytestmark = pytest.mark.cuda
@@ -225,3 +226,57 @@ def test_blocked_metrics_card_matches_cpu(cuda, monkeypatch):
     acc_cpu, _ = evaluation.knn_label_transfer_accuracy(
         [a, b], [labels, labels], k=5, device='cpu')
     assert abs(f_gpu - f_cpu) <= 1e-4 and abs(acc_gpu - acc_cpu) <= 5e-3
+
+
+@pytest.mark.parametrize('rounded', [False, True])
+def test_device_csr_card_matches_cpu(cuda, rounded, monkeypatch):
+    """DeviceCSR's SpMMs (cuSPARSE), row norms and decode on the card
+    against the same calls on the CPU, on the exact and the bf16 route:
+    products within f32 summation order (1e-5 of sum |x||M|), the decode
+    bit-identical."""
+    if rounded:
+        monkeypatch.setattr(residency, 'BF16_LINK_ELEMS', 1000)
+    rng = np.random.RandomState(2)
+    X = sp.random(3000, 500, density=0.03, format='csr', random_state=rng,
+                  dtype=np.float32)
+    M = rng.randn(500, 40).astype(np.float32)
+    Q = rng.randn(3000, 12).astype(np.float32)
+    g, c = residency.DeviceCSR(X, cuda), residency.DeviceCSR(X, 'cpu')
+    assert g.bf16 == c.bf16 == rounded
+    absX = abs(X)
+    for got, want, scale in (
+            (g.matmul(M), c.matmul(M), absX @ np.abs(M)),
+            (g.matmul(M, 100, 2100), c.matmul(M, 100, 2100),
+             absX[100:2100] @ np.abs(M)),
+            (g.tmatmul(Q), c.tmatmul(Q), absX.T @ np.abs(Q)),
+            (g.row_sq_sums(), c.row_sq_sums(),
+             np.asarray(absX.multiply(absX).sum(1)).ravel())):
+        assert np.all(np.abs(got.cpu().numpy() - want.numpy())
+                      <= 1e-5 * scale + 1e-30)
+    assert torch.equal(g.rows(5, 900).cpu(), c.rows(5, 900))
+
+
+@pytest.mark.parametrize('route', ['resident', 'chunked'])
+def test_large_distance_routes_card_match_cpu(cuda, route, monkeypatch):
+    """The bf16-resident Gram and the feature-chunked Gram (thresholds
+    patched) on the card against the CPU: the bf16 residencies
+    bit-identical, squared distances within f32 summation order (1e-5 of
+    the norm scale), zero diagonal."""
+    monkeypatch.setattr(distances, '_FEATURE_CHUNK_THRESHOLD', 1000)
+    monkeypatch.setattr(residency, 'BF16_LINK_ELEMS', 1000)
+    if route == 'chunked':
+        monkeypatch.setattr(residency, 'DEFAULT_BUDGET_BYTES', 0)
+    rng = np.random.RandomState(4)
+    x = np.maximum(rng.randn(600, 3000), 0).astype(np.float32)
+    x[rng.rand(600, 3000) < 0.9] = 0
+    for src in (x, sp.csr_matrix(x)):
+        residency.clear_residency_cache()
+        d = [distances.pairwise_distance(src, 'sqeuclidean', device=dev)
+             .cpu() for dev in (cuda, 'cpu')]
+        scale = 2 * float((x.astype(np.float64) ** 2).sum(1).max())
+        assert float((d[0] - d[1]).abs().max()) <= 1e-5 * scale
+        assert bool((d[0].diagonal() == 0).all())
+    if route == 'resident':
+        a = residency.build_resident_bf16(x, cuda).cpu()
+        b = residency.build_resident_bf16(sp.csr_matrix(x), 'cpu')
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -66,10 +66,22 @@ def test_unported_modes_raise(mode):
 
 
 def test_sparse_and_oversized_inputs_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match='item 11'):
-        td.dataset_distance_matrix(scipy.sparse.csr_matrix(np.eye(4)),
-                                   'euclidean', device='cpu')
-    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 10)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        td.dataset_distance_matrix(np.ones((4, 3), np.float32), 'geodesic',
+    """Sparse inputs and inputs past _FEATURE_CHUNK_THRESHOLD no longer
+    raise (ROADMAP.md item 11 is ported): a CSR source gives its dense
+    copy's matrix, and past the threshold the bf16-resident route runs
+    (exact here: small integers are exact in bf16). Unported metrics still
+    raise for either source."""
+    eye = np.eye(4, dtype=np.float32)
+    np.testing.assert_array_equal(
+        td.dataset_distance_matrix(scipy.sparse.csr_matrix(eye), 'euclidean',
+                                   device='cpu').numpy(),
+        td.dataset_distance_matrix(eye, 'euclidean', device='cpu').numpy())
+    with pytest.raises(NotImplementedError, match='item 12'):
+        td.dataset_distance_matrix(scipy.sparse.csr_matrix(eye), 'cosine',
                                    device='cpu')
+    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 10)
+    x = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ref = jd.dataset_distance_matrix(x, 'geodesic')
+    np.testing.assert_allclose(
+        td.dataset_distance_matrix(x, 'geodesic', device='cpu'), ref,
+        rtol=1e-6)

@@ -245,9 +245,11 @@ def test_partial_priors(synthetic_pair, prior):
 
 
 def test_unported_inputs_raise(synthetic_pair):
+    """Scipy-sparse modalities are ported (item 11): they reach the
+    distance phase, where an unported metric raises as for dense data."""
     data, _ = synthetic_pair
-    with pytest.raises(NotImplementedError, match='item 11'):
-        JAMIE(device='cpu').fit_transform(
+    with pytest.raises(NotImplementedError, match='item 12'):
+        JAMIE(device='cpu', distance_mode='cosine', epoch_pd=1).fit_transform(
             [scipy.sparse.csr_matrix(d) for d in data])
     with pytest.raises(NotImplementedError, match='item 12'):
         JAMIE(device='cpu', distance_mode='cosine', epoch_pd=1).fit_transform(

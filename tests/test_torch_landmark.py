@@ -2,7 +2,8 @@
 CPU, on the same seeded inputs: the interpolation weights, FPS indices,
 landmark selection, the blocked cell-to-landmark weights and
 landmark_correspondence's factors (euclidean mode, both layouts), and the
-routes that stay with ROADMAP.md item 11.
+routes ROADMAP.md item 11 ported (tests/test_torch_sparse_data.py holds
+them to jamie_tpu in full).
 
 Tolerances: weights and factors are float32 with different summation
 orders (squared distances via the Gram formula in both packages), held at
@@ -18,7 +19,6 @@ import scipy.sparse as ss
 import torch
 
 from jamie_tpu.solvers import landmark as jl
-from jamie_tpu_torch.ops import distances as td
 from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
 from jamie_tpu_torch.solvers import landmark as tl
 
@@ -125,17 +125,27 @@ def test_auto_layout_goes_sparse(monkeypatch):
 
 def test_item_11_routes_raise(monkeypatch):
     """Scipy-sparse sources, host sources at the chunk-uploaded size and
-    FPS past its device budget stay with ROADMAP.md item 11, and raise
-    before any work."""
+    FPS past its device budget no longer raise: ROADMAP.md item 11 ported
+    them. Each now runs and takes jamie_tpu's route (a CSR source the SpMM
+    weights, a source at the patched upload limit the uploader, FPS past
+    its budget the JL sketch, with jamie_tpu's picks)."""
+    from jamie_tpu_torch.core import residency
     x, y = _paired(n=60)
     kw = dict(n_landmarks=16, epoch_pd=5, verbose=False, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tl.landmark_correspondence(ss.csr_matrix(x), y, **kw)
-    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 60 * 14 - 1)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tl.landmark_correspondence(x, y, **kw)
-    monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 100_000_000)
+    residency.route_counts.clear()
+    F = tl.landmark_correspondence(ss.csr_matrix(x), y, **kw)
+    assert F.shape == (60, 60)
+    assert residency.route_counts['weights_spmm'] == 1
+    assert residency.route_counts['weights_dense'] == 1
+    monkeypatch.setattr(tl, '_UPLOAD_ELEMS', 60 * 20)      # x: 60 x 20
+    residency.route_counts.clear()
+    tl.landmark_correspondence(x, y, **kw)
+    assert residency.route_counts['weights_uploader'] == 1
+    assert residency.route_counts['weights_dense'] == 1      # y: 60 x 14
     monkeypatch.setattr(tl, '_FPS_BYTES_BUDGET', 1024)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tl._select_landmarks(x, 8, 'fps', np.random.RandomState(0),
-                             device='cpu')
+    monkeypatch.setattr(jl, '_FPS_BYTES_BUDGET', 1024)
+    ours = tl._select_landmarks(x, 8, 'fps', np.random.RandomState(0),
+                                device='cpu')
+    np.testing.assert_array_equal(
+        ours, jl._select_landmarks(x, 8, 'fps', np.random.RandomState(0)))
+    assert residency.route_counts['fps_jl_sketch'] == 1

@@ -37,10 +37,14 @@ import jamie_tpu_torch
 from jamie_tpu_torch import JAMIE, ops, evaluation, persistence
 from jamie_tpu_torch.models import convert
 from jamie_tpu_torch.solvers import prime_dual
+from jamie_tpu_torch.core import residency
 import numpy as np
+import scipy.sparse
 x = np.random.RandomState(0).randn(12, 5).astype('float32')
 F = prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
                           device='cpu')
+residency.DeviceCSR(scipy.sparse.csr_matrix(x), 'cpu').tmatmul(x)
+residency.device_bf16(x, device='cpu')
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED))
 print('leaked', leaked, tuple(F.shape))

@@ -101,9 +101,15 @@ def test_pca_dim_clamped_with_warning():
 
 
 def test_unported_preprocessing_raises():
+    """The t-SNE/UMAP preclass raises (item 12); a scipy-sparse input,
+    ported with item 11, fits as its dense copy does."""
     with pytest.raises(NotImplementedError, match='item 12'):
         tp.Preprocessor.fit(_data(20, 10), pca_dim=5, method='umap',
                             device='cpu')
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tp.Preprocessor.fit(scipy.sparse.csr_matrix(_data(20, 10)),
-                            pca_dim=5, device='cpu')
+    x = _data(20, 10)
+    pre = tp.Preprocessor.fit(scipy.sparse.csr_matrix(x), pca_dim=5,
+                              device='cpu')
+    np.testing.assert_allclose(
+        pre.transform_fit(),
+        tp.Preprocessor.fit(x, pca_dim=5, device='cpu').transform_fit(),
+        rtol=1e-5, atol=1e-5)
