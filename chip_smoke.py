@@ -52,7 +52,21 @@
    K3 at least 2, the routes by `residency.route_counts`, a rank-2048
    LowRankF, the identity sentinel; exact FOSCTTM and LTA on 10,000 cells;
    transform and modal_predict on CSR; the SpMM's nonzeros per second.
-11. A `kernels` JSON line, the nvidia-smi line, and as the last line
+11. t-SNE fit (D): JAMIE(project_mode='tsne') with every default on the
+   1047-cell data, counts at 0: K1 2000, K3 2 + 2 per t-SNE iteration,
+   the Hungarian pairs permutations, FOSCTTM within TSNE_FOSCTTM_LIMIT;
+   its launch counts on a `tsne_launches` line.
+12. t-SNE card vs CPU (D'): joint_probabilities, a 600-cell project_tsne
+   and its KL gradient along the CPU's trajectory.
+13. Nonlinear preclass (E): JAMIE(model_pca='umap'), then 'tsne' on the
+   first fit's F, at pca_dim 512, with transform, modal_predict and a
+   checkpoint round trip.
+14. corr_method='jamie' (F): com_corr on the t-SNE fit's distances.
+15. Metrics (G): every device metric on the RNA block against float64,
+   every host-fallback metric at 300 x 200 with no sklearn.
+16. t-SNE iteration time (H): project_tsne alone on the fit's P (1047
+   cells) and at scGLUE's 9190 cells, against its bytes bound.
+17. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -87,6 +101,13 @@ PEAKS = {
 # output's largest entry (tests/test_torch_sparse_data.py holds the same
 # routes at 300 cells to 5%), and its FOSCTTM to the fit's within 0.01.
 TRANSFORM_REL = 0.15
+
+# Phase D's FOSCTTM limit: jamie_tpu's own value on this generator on the
+# CPU (0.5336, JAMIE(project_mode='tsne') with every default) + 0.05. The
+# projection aligns the Hungarian pairs of the unsupervised F, and on this
+# data almost none of them is the true cell, so neither package integrates
+# it better than chance.
+TSNE_FOSCTTM_LIMIT = 0.5836
 
 
 def fail(msg):
@@ -831,6 +852,311 @@ def atlas_phase(torch, JAMIE, ops, kp, dev, n=100_000, dims=(20000, 40000),
                     nnz_per_s=nnz / (ms[0] * 1e-3))
 
 
+# Device metrics of phase G: each is float32 on the card. Angular and rank
+# metrics take two f-term float32 reductions (a norm and a dot product),
+# each within f 2^-24 of its scale; wminkowski's sum of f squares is within
+# f 2^-24 of its value; the boolean metrics' counts are exact in float32
+# (TF32 is off), leaving one division.
+DEVICE_METRICS = ('cosine', 'correlation', 'spearman', 'pearson',
+                  'kulsinski', 'sokalmichener', 'wminkowski')
+
+
+def metric_reference64(x, mode, rows):
+    """The first `rows` rows of a device metric's matrix, in float64 numpy
+    on the host."""
+    from scipy.stats import rankdata
+    x = x.astype(np.float64)
+    if mode in ('cosine', 'correlation', 'spearman', 'pearson'):
+        if mode == 'spearman':
+            x = rankdata(x, axis=1)
+        if mode != 'cosine':
+            x = x - x.mean(1, keepdims=True)
+        xn = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+        sim = xn[:rows] @ xn.T
+        return (np.clip(1.0 - sim, 0.0, 2.0) if mode in ('cosine',
+                                                         'correlation')
+                else (1.0 - sim) / 2.0)
+    if mode == 'wminkowski':
+        sq = (x * x).sum(1)
+        return np.sqrt(np.maximum(sq[:rows, None] + sq[None, :]
+                                  - 2.0 * x[:rows] @ x.T, 0.0))
+    b = (x != 0).astype(np.float64)
+    n, s = float(x.shape[1]), b.sum(1)
+    ctt = b[:rows] @ b.T
+    r = s[:rows, None] + s[None, :] - 2.0 * ctt
+    if mode == 'kulsinski':
+        return (r - ctt + n) / (r + n)
+    return np.where(r > 0, 2.0 * r / ((n - r) + 2.0 * r), 0.0)
+
+
+def metrics_phase(torch, dev, x, rows=128, host_shape=(300, 200)):
+    """G. Every device metric on the card on x (the 1047 x 3000 RNA block),
+    its first `rows` rows held to a float64 build (tolerances above),
+    timed; then every host-fallback metric, and the two sklearn-only ones
+    written in torch, on a host_shape slice (haversine on random latitude
+    and longitude), which must run with no sklearn loaded."""
+    from jamie_tpu_torch.ops import distances as D
+    f = x.shape[1]
+    xt = torch.as_tensor(x, device=dev)
+    for mode in DEVICE_METRICS:
+        d = D.dataset_distance_matrix(xt, mode, device=dev)
+        got = d[:rows].double().cpu().numpy()
+        ref = metric_reference64(x, mode, rows)
+        err = float(np.abs(got - ref).max())
+        tol = (1e-6 if mode in ('kulsinski', 'sokalmichener') else
+               f * 2.0 ** -24 * float(np.abs(ref).max()) if mode == 'wminkowski'
+               else 2 * f * 2.0 ** -24)
+        ms = time_ms(torch, lambda: D.dataset_distance_matrix(xt, mode,
+                                                              device=dev))
+        print(f'metric {mode}: {x.shape[0]}x{f} on the card {ms[0]:.4f} ms '
+              f'(call {ms[1]:.4f}); first {rows} rows vs float64 max |d| '
+              f'{err:.3g} (limit {tol:.3g})', flush=True)
+        if not (d.shape == (x.shape[0], x.shape[0]) and err <= tol):
+            fail(f'metric {mode} on the card is off the float64 build')
+    n, m = host_shape
+    xs = np.ascontiguousarray(x[:n, :m])
+    latlon = np.random.RandomState(0).uniform(-1.5, 1.5, (n, 2)).astype(
+        np.float32)
+    for mode in (*D._HOST_FALLBACK_METRICS, 'nan_euclidean', 'haversine'):
+        t = time.perf_counter()
+        d = D.pairwise_distance(latlon if mode == 'haversine' else xs, mode,
+                                device=dev)
+        sec = time.perf_counter() - t
+        finite = float(torch.isfinite(d).float().mean())
+        print(f'metric {mode}: {n}x{2 if mode == "haversine" else m} '
+              f'{sec * 1e3:.1f} ms, finite share {finite:.4f}', flush=True)
+        if d.shape != (n, n) or d.device.type != dev.type:
+            fail(f'host metric {mode} returned {tuple(d.shape)} on {d.device}')
+    if any(k == 'sklearn' or k.startswith('sklearn.') for k in sys.modules):
+        fail('a metric loaded sklearn')
+
+
+def tsne_fit_phase(torch, JAMIE, ops, data, foscttm_limit, **kw):
+    """D. JAMIE(project_mode='tsne').fit_transform with every default
+    (geodesic, epoch_pd 2000, output_dim 32, perplexity 30, tsne_iters
+    1000) and the counts at 0 just before it: K1 epoch_pd launches, K3 2 for
+    the geodesic base matrices + 2 per t-SNE iteration; the Hungarian pairs
+    permutations; matched pairs closer than a random permutation; FOSCTTM
+    within `foscttm_limit`. Returns the fitted estimator."""
+    n = data[0].shape[0]
+    jm = JAMIE(project_mode='tsne', **kw)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = jm.fit_transform(dataset=data)
+    fit_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    cfg = jm.config
+    foscttm = jm.test_closer(out)
+    px, py = jm.pairs_x[0], jm.pairs_y[0]
+    d_match = float(np.linalg.norm(out[0][px] - out[1][py], axis=1).mean())
+    d_rand = float(np.linalg.norm(
+        out[0][px] - out[1][np.random.RandomState(0).permutation(py)],
+        axis=1).mean())
+    print(f'tsne fit: {n} cells, {fit_s:.3f} s (phases in the table above); '
+          f'FOSCTTM {foscttm} (limit {foscttm_limit}); matched-pair distance '
+          f'{d_match:.4f} vs random {d_rand:.4f}; pairs on the true cell '
+          f'{float(np.mean(px == py)):.4f}', flush=True)
+    print('tsne_launches ' + json.dumps(counts), flush=True)
+    k3 = 2 + 2 * cfg.tsne_iters
+    if counts['fused_pd_grad_update'] != cfg.epoch_pd:
+        fail(f'K1 launched {counts["fused_pd_grad_update"]} times in the tsne '
+             f'fit, expected epoch_pd={cfg.epoch_pd}')
+    if counts['pairwise_euclidean'] != k3:
+        fail(f'K3 launched {counts["pairwise_euclidean"]} times in the tsne '
+             f'fit, expected {k3}')
+    for i, e in enumerate(out):
+        if e.shape != (n, cfg.output_dim) or not np.isfinite(e).all():
+            fail(f'tsne embedding {i}: shape {e.shape}')
+    if not all(np.array_equal(np.sort(p), np.arange(n)) for p in (px, py)):
+        fail('the Hungarian pairs are not permutations')
+    if not (d_match < d_rand and foscttm <= foscttm_limit):
+        fail(f'tsne fit: matched pairs {d_match} vs random {d_rand}, '
+             f'FOSCTTM {foscttm} (limit {foscttm_limit})')
+    return jm
+
+
+def tsne_reference_phase(torch, dev, n=600, iters=200,
+                         states=(0, 50, 100, 200)):
+    """D'. The t-SNE on the card against the CPU on n SNARE-shaped cells:
+    joint_probabilities within 1e-5 of the largest entry; project_tsne
+    (output_dim 32, identity pairs, the same injected init, the CPU's P)
+    for `iters` iterations on both, whose drift is printed (t-SNE amplifies
+    float32 rounding: a mere change of summation order moves a 200-step
+    trajectory by ~1e-2 of its largest coordinate on the CPU), with the
+    two embeddings' FOSCTTM within 0.05; and the step itself, the KL
+    gradient (K3 distances) on the CPU trajectory's states at `states`
+    iterations, for both exaggerations, within 1e-3 of its largest entry
+    (a 3xTF32 model on the CPU: at most 1.1e-4)."""
+    from jamie_tpu_torch import evaluation
+    from jamie_tpu_torch.ops.distances import pairwise_distance
+    from jamie_tpu_torch.solvers import tsne as T
+    data, _ = make_snare_like(n=n)
+    P_cpu = [T.joint_probabilities(pairwise_distance(x, device='cpu'), 30,
+                                   device='cpu') for x in data]
+    P_err = 0.0
+    for x, p in zip(data, P_cpu):
+        p_dev = T.joint_probabilities(pairwise_distance(x, device='cpu'), 30,
+                                      device=dev).cpu()
+        P_err = max(P_err, float((p_dev - p).abs().max() / p.abs().max()))
+    rng = np.random.RandomState(1)
+    init = [(1e-4 * rng.randn(n, 32)).astype(np.float32) for _ in range(2)]
+    pairs = np.arange(n)
+    t = time.perf_counter()
+    traj = {k: T.project_tsne(None, P_cpu, pairs, pairs, output_dim=32,
+                              n_iters=k, init=init, device='cpu')
+            for k in states if k}
+    traj[0] = init
+    cpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    Y_dev = T.project_tsne(None, P_cpu, pairs, pairs, output_dim=32,
+                           n_iters=iters, init=init, device=dev)
+    dev_s = time.perf_counter() - t
+    Y_cpu = traj[iters]
+    drift = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(Y_dev, Y_cpu))
+    f_dev = evaluation.test_closer(Y_dev, device=dev)
+    f_cpu = evaluation.test_closer(Y_cpu, device='cpu')
+    P_dev = [p.to(dev) for p in P_cpu]
+    g_err = 0.0
+    for k in states:
+        for i in range(2):
+            y = torch.as_tensor(traj[k][i])
+            for exag in (12.0, 1.0):
+                g_cpu = T._kl_grad(P_cpu[i], y, exag)
+                g_dev = T._kl_grad(P_dev[i], y.to(dev), exag).cpu()
+                g_err = max(g_err, float((g_dev - g_cpu).abs().max()
+                                         / g_cpu.abs().max()))
+    print(f'reference: t-SNE {n} cells x 32: joint_probabilities card vs CPU '
+          f'max |dP| / max P {P_err:.3g} (limit 1e-5); project_tsne {iters} '
+          f'iterations card {dev_s:.3f} s, CPU {cpu_s:.3f} s for '
+          f'{sum(states)} iterations; trajectory drift max |dY| / max |Y| '
+          f'{drift:.3g} (not held: see the docstring); FOSCTTM card {f_dev} '
+          f'CPU {f_cpu} (limit 0.05 apart); KL gradient on the CPU states at '
+          f'{states} max |dg| / max |g| {g_err:.3g} (limit 1e-3)', flush=True)
+    if not (P_err <= 1e-5 and g_err <= 1e-3 and abs(f_dev - f_cpu) <= 0.05):
+        fail('the t-SNE on the card disagrees with the CPU')
+
+
+def preclass_phase(torch, JAMIE, ops, data, dev, dim=512, epochs=20):
+    """E. JAMIE(model_pca='umap') and then JAMIE(model_pca='tsne') with
+    pca_dim=(dim, dim), epoch_DNN=epochs and no early stop; the second
+    reuses the first's F (match_result), so one prime-dual solve runs. Each
+    modality's embed timed on its own first; with the counts at 0 for each
+    fit: K1 epoch_pd for the first and 0 for the second; K3 2 geodesic + 2
+    UMAP distance matrices for the first, 2 + 2 x 750 t-SNE iterations for
+    the second. Then transform and modal_predict through the kNN
+    interpolation, and save_model -> JAMIE().load_model -> identical
+    modal_predict."""
+    from jamie_tpu_torch.preprocess import NonlinearEmbedding
+    match_result = None
+    for method, k1, k3 in (('umap', 2000, 4), ('tsne', 0, 2 + 2 * 750)):
+        embed_s = []
+        for x in data:
+            t = time.perf_counter()
+            NonlinearEmbedding(dim, method, device=dev).fit_transform(x)
+            embed_s.append(round(time.perf_counter() - t, 3))
+        jm = JAMIE(model_pca=method, pca_dim=(dim, dim), epoch_DNN=epochs,
+                   min_epochs=min(epochs, 10), use_early_stop=False,
+                   match_result=match_result)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out = jm.fit_transform(dataset=data)
+        fit_s = time.perf_counter() - t
+        counts = ops.launch_counts()
+        match_result = jm.match_result
+        t = time.perf_counter()
+        again = jm.transform(data)
+        imputed = jm.modal_predict(data[0], 0)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'model.npz')
+            jm.save_model(path)
+            imputed2 = JAMIE().load_model(path).modal_predict(data[0], 0)
+        serve_s = time.perf_counter() - t
+        rel = max(float(np.abs(a - o).max() / np.abs(o).max())
+                  for a, o in zip(again, out))
+        print(f'preclass {method}: embed {embed_s} s per modality; fit '
+              f'{fit_s:.3f} s, phases {jm.phase_timings}, mapping '
+              f'{ {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
+              f'launches {counts}; serve {serve_s:.3f} s, max |transform - '
+              f'fit| / max |fit| {rel:.3g}', flush=True)
+        if (counts['fused_pd_grad_update'] != k1
+                or counts['pairwise_euclidean'] != k3):
+            fail(f'preclass {method}: launches {counts}, expected K1 {k1}, '
+                 f'K3 {k3}')
+        if not all(e.shape == (x.shape[0], 32) and np.isfinite(e).all()
+                   for e, x in zip(out + again, data + data)):
+            fail(f'preclass {method}: embeddings are off')
+        if not (imputed.shape == data[1].shape and np.isfinite(imputed).all()
+                and np.array_equal(imputed, imputed2)):
+            fail(f'preclass {method}: modal_predict is off or differs after '
+                 'save/load')
+
+
+def lowrank_phase(torch, jm):
+    """F. corr_method='jamie': com_corr on the fitted estimator's distance
+    matrices with its defaults (10,001 steps per phase, top 5 per row)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    F = jm.com_corr(jm.dist)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    ones = F.sum(1)
+    print(f'lowrank corr: {tuple(F.shape)} in {sec:.3f} s (2 x 10,001 '
+          f'autograd steps); ones per row min {float(ones.min())} max '
+          f'{float(ones.max())}', flush=True)
+    if not (bool(((F == 0) | (F == 1)).all()) and bool((ones == 5).all())):
+        fail('the binarized low-rank F does not have 5 ones in every row')
+
+
+def tsne_scale_phase(torch, ops, kp, dev, P_joint, iters, label):
+    """H. project_tsne alone on the given joint probabilities (identity
+    pairs, output_dim 32) with the counts at 0: seconds per iteration, K3
+    launches (2 per iteration) and the iteration's bytes bound, the (N, N)
+    float32 passes the code makes (2 x tsne.NN_PASSES_PER_KL_GRAD) at the
+    card's memory rate."""
+    from jamie_tpu_torch.solvers import tsne as T
+    n = P_joint[0].shape[0]
+    pairs = np.arange(n)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    Y = T.project_tsne(None, P_joint, pairs, pairs, output_dim=32,
+                       n_iters=iters, device=dev)
+    sec = time.perf_counter() - t
+    counts = ops.launch_counts()
+    bound_ms = 2 * T.NN_PASSES_PER_KL_GRAD * n * n * 4 / kp.bw * 1e3
+    per = sec / iters * 1e3
+    print(f'tsne scale {label}: {n} cells x 32, {iters} iterations in '
+          f'{sec:.3f} s = {per:.4f} ms per iteration; bytes bound '
+          f'{bound_ms:.4f} ms ({2 * T.NN_PASSES_PER_KL_GRAD} passes of '
+          f'{n}^2 f32), {bound_ms / per:.3f} of it; launches {counts}',
+          flush=True)
+    if counts['pairwise_euclidean'] != 2 * iters:
+        fail(f'tsne scale {label}: K3 launched {counts["pairwise_euclidean"]}'
+             f' times, expected {2 * iters}')
+    if not all(np.isfinite(y).all() for y in Y):
+        fail(f'tsne scale {label}: non-finite embedding')
+
+
+def scglue_cells_probabilities(torch, dev, n=9190, f=50, seed=2):
+    """Joint probabilities of two 9190 x 50 views generated on the card (an
+    8-dimensional latent around 6 centres, each view z W + noise), through
+    K3 euclidean distances."""
+    from jamie_tpu_torch.ops.distances import pairwise_distance
+    from jamie_tpu_torch.solvers import tsne as T
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(n, 8, generator=g, device=dev)
+    z += 3.0 * torch.randn(6, 8, generator=g, device=dev)[
+        torch.randint(0, 6, (n,), generator=g, device=dev)]
+    out = []
+    for _ in range(2):
+        x = z @ torch.randn(8, f, generator=g, device=dev)
+        x += 0.5 * torch.randn(x.shape, generator=g, device=dev)
+        out.append(T.joint_probabilities(pairwise_distance(x, device=dev), 30,
+                                         device=dev))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -936,6 +1262,7 @@ def main():
             fail(f'one K3 call issued {len(names)} device kernels, stated '
                  f'{stated}')
     kp.pairwise(emb[0], emb[1], squared=True)        # FOSCTTM / kNN
+    kp.pairwise(emb[0], None, squared=True)          # t-SNE step, 1047 cells
     kp.pairwise(x_atac, None, squared=True)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=False)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=True)
@@ -949,6 +1276,8 @@ def main():
         for sq in (True, False):
             kp.pairwise(big, y, squared=sq)
     del big, big2, xr, yr
+    kp.pairwise(torch.randn(9190, 32, device=dev, generator=g), None,
+                squared=True)                        # t-SNE step, 9190 cells
     torch.cuda.empty_cache()
     # The landmark path's shapes on 19,000 cells: K1 on the 2048x2048
     # landmark solve; K3 self sqrt on the landmark subsets (geodesic base),
@@ -1076,6 +1405,20 @@ def main():
     sparse_reference_phase(torch, dev)
     wide_phase(torch, kp, dev)
     atlas_phase(torch, JAMIE, ops, kp, dev)
+    # D-H. The nonlinear and legacy modes
+    jt = tsne_fit_phase(torch, JAMIE, ops, data, TSNE_FOSCTTM_LIMIT)
+    tsne_reference_phase(torch, dev)
+    preclass_phase(torch, JAMIE, ops, data, dev)
+    lowrank_phase(torch, jt)
+    metrics_phase(torch, dev, data[0])
+    from jamie_tpu_torch.solvers.tsne import joint_probabilities
+    tsne_scale_phase(torch, ops, kp, dev,
+                     [joint_probabilities(d, 30, device=dev) for d in jt.dist],
+                     200, "1047 cells, the fit's P")
+    del jt
+    tsne_scale_phase(torch, ops, kp, dev,
+                     scglue_cells_probabilities(torch, dev), 1000,
+                     "scGLUE's 9190 cells")
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

@@ -8,8 +8,7 @@ Fields that only steer the TPU build are accepted and inert here:
 `prng_impl`, `mesh_shape`, `mesh_axis_names`, `dispatch_lookahead`,
 `epoch_chunk` and `tp_wide_threshold` (PyTorch runs eagerly on one card,
 with its own generators). Fields whose feature this port does not have yet
-(`checkpoint_dir`, `metrics_path`, `project_mode='tsne'`, `model_pca` other
-than 'pca', `corr_method='jamie'`, `compute_dtype='bfloat16'`) make `JAMIE`
+(`checkpoint_dir`, `metrics_path`, `compute_dtype='bfloat16'`) make `JAMIE`
 raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
@@ -47,7 +46,7 @@ class JamieConfig:
     # --- Model / projection (jamie/jamie.py:38-62) ---
     output_dim: int = 32
     pca_dim: Optional[Tuple[Optional[int], ...]] = (512, 512)
-    model_pca: str = 'pca'            # only 'pca' is ported
+    model_pca: str = 'pca'            # 'pca' | 'umap' | 'tsne'
     pca_power_iters: int = 1          # row-streamed PCA route
     dropout: Optional[float] = None   # None -> 0.6 if max(dim) > 64 else 0
     dist_method: str = 'euclidean'    # similarity used in the cosine loss term
@@ -70,7 +69,7 @@ class JamieConfig:
 
     # --- Correspondence solver (UnionCom-inherited; jamie/jamie.py:314-414) ---
     use_f_tilde: bool = True
-    corr_method: str = 'unioncom'     # 'unioncom' | 'jamie' (not ported)
+    corr_method: str = 'unioncom'     # 'unioncom' | 'jamie' (experimental)
     epoch_pd: int = 2000              # the pinned unioncom 0.4.0 default
     epsilon: float = 0.001            # prime-dual step size
     rho: float = 10.0                 # augmented-lagrangian penalty

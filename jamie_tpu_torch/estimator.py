@@ -2,7 +2,7 @@
 
 Reference parity: `jamie_tpu/estimator.py` (class `JAMIE`, itself
 jamie/jamie.py:29-972). Same surface: `fit_transform(dataset, P)`,
-`compute_distances`, `match`, `Prime_Dual`, `project_jamie`,
+`compute_distances`, `match`, `Prime_Dual`, `com_corr`, `project_jamie`,
 `modal_predict`, `transform`, `transform_one`, `test_closer`,
 `test_LabelTA`, `test_label_dist`, `save_model`, `load_model`.
 
@@ -15,13 +15,17 @@ large-dataset route: landmark F (`corr_landmarks`, or automatically past
 may be dense arrays or scipy-sparse matrices (normalized to CSR once): the
 distance, PCA and landmark phases take jamie_tpu's sparse and bf16
 residency routes (`core/residency.py`), whose device copies are released
-after preprocessing, before training claims device memory. What is not
-ported raises NotImplementedError naming the ROADMAP.md item that ports
-it.
+after preprocessing, before training claims device memory. The legacy
+modes run as in jamie_tpu: `project_mode='tsne'` (Hungarian pairs from F,
+then the pair-aligned t-SNE, `solvers/tsne.py`), the t-SNE/UMAP preclass
+(`model_pca`, `preprocess.NonlinearEmbedding`) and `corr_method='jamie'`
+(`solvers/lowrank.py`). What is not ported raises NotImplementedError
+naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
+import warnings
 from itertools import product
 from typing import Optional, Sequence
 
@@ -31,17 +35,21 @@ import torch
 from ._meta import __version__
 from .config import config_from_kwargs
 from .core.dtypes import resolve_device
-from .core.hostmat import ensure_row_major, is_scipy_sparse
+from .core.hostmat import densify, ensure_row_major, is_scipy_sparse
 from .core.residency import clear_residency_cache
 from .core.timing import TimeLogger
 from .models.convert import load_flax_variables, to_flax_variables
 from .models.coupled_vae import CoupledVAE
 from .ops.distances import dataset_distance_matrix
-from .persistence import load_checkpoint, save_checkpoint
-from .preprocess import Preprocessor
+from .ops.lowrank import LowRankF
 from .ops.sparse import SparseRows, is_sparse_input
+from .persistence import load_checkpoint, save_checkpoint
+from .preprocess import PCA, Preprocessor
+from .solvers.assignment import hungarian_pairs
 from .solvers.landmark import landmark_correspondence
+from .solvers.lowrank import lowrank_corr
 from .solvers.prime_dual import prime_dual
+from .solvers.tsne import joint_probabilities, project_tsne
 from .train.trainer import JamieTrainer
 
 # jamie_tpu's thresholds (estimator.py:41-59), set there for a 16 GB TPU
@@ -65,12 +73,6 @@ def _unported(what: str, item: int) -> NotImplementedError:
 
 def _check_config(cfg) -> None:
     """Refuse, up front, every config feature this port does not have."""
-    if cfg.project_mode == 'tsne':
-        raise _unported("project_mode='tsne'", 12)
-    if cfg.model_pca != 'pca':
-        raise _unported(f'model_pca={cfg.model_pca!r}', 12)
-    if cfg.corr_method != 'unioncom':
-        raise _unported(f'corr_method={cfg.corr_method!r}', 12)
     if cfg.compute_dtype != 'float32':
         raise _unported(f'compute_dtype={cfg.compute_dtype!r}', 13)
     if cfg.checkpoint_dir is not None:
@@ -141,9 +143,11 @@ class JAMIE:
             cfg.use_f_tilde and self.match_result is None
             and (cfg.corr_landmarks is not None
                  or entries > LANDMARK_AUTO_ENTRIES))
+        # the t-SNE projection reads the distances whatever F's route
         self.compute_distances(save_dist=(
-            self.match_result is None and cfg.use_f_tilde
-            and not self._use_landmarks))
+            cfg.project_mode == 'tsne'
+            or (self.match_result is None and cfg.use_f_tilde
+                and not self._use_landmarks)))
         time.log('Distance')
 
         if not cfg.use_f_tilde:
@@ -153,6 +157,8 @@ class JAMIE:
                 [np.zeros([d.shape[0] for d in self.dataset], np.float32)])
         if self.match_result is None:
             self.match_result = self.match()
+        if cfg.project_mode == 'tsne':
+            return self._project_tsne(time)
         time.log('Correspondence')
 
         match_matrix = [[None for _ in range(self.dataset_num)]
@@ -172,6 +178,52 @@ class JAMIE:
                               for k, v in time.totals().items()}
         time.stop()
         print()
+        return integrated_data
+
+    def _project_tsne(self, time):
+        """The legacy UnionCom route (jamie_tpu/estimator.py:168-223,
+        jamie/jamie.py:175-195): Hungarian pairs of each F, PCA-50 of
+        each modality wider than 50 columns, the joint probabilities of
+        each distance matrix and the pair-aligned t-SNE. Returns [Y1, Y2];
+        phase_timings is not set, as in jamie_tpu."""
+        cfg = self.config
+        self.pairs_x, self.pairs_y = [], []
+        for i in range(self.dataset_num - 1):
+            mat = self.match_result[i]
+            if isinstance(mat, str):
+                # the all-zeros sentinel: the assignment of a zero cost
+                # matrix is the leading diagonal, never materialized
+                k = min(self.row[i], self.row[i + 1])
+                self.pairs_x.append(np.arange(k))
+                self.pairs_y.append(np.arange(k))
+                continue
+            if isinstance(mat, (SparseRows, LowRankF)):
+                mat = mat.to_dense()   # the assignment needs the dense cost
+            row_ind, col_ind = hungarian_pairs(mat)
+            self.pairs_x.append(row_ind)
+            self.pairs_y.append(col_ind)
+        time.log('Correspondence')
+
+        P_joint = [joint_probabilities(self.dist[i], cfg.perplexity,
+                                       device=self.device)
+                   for i in range(self.dataset_num)]
+        for i in range(self.dataset_num):
+            if self.col[i] > 50:
+                self.dataset[i] = PCA(n_components=50, device=self.device
+                                      ).fit_transform(self.dataset[i])
+                self.col[i] = 50
+            elif is_scipy_sparse(self.dataset[i]):
+                self.dataset[i] = densify(self.dataset[i])
+        integrated_data = project_tsne(
+            self.dataset, P_joint, self.pairs_x[0], self.pairs_y[0],
+            output_dim=cfg.output_dim, n_iters=cfg.tsne_iters,
+            align_weight=cfg.tsne_align_weight, lr=cfg.tsne_lr,
+            exaggeration=cfg.tsne_exaggeration, device=self.device)
+        time.log('Mapping')
+        print('-' * 33)
+        print('JAMIE Done!')
+        time.aggregate()
+        time.stop()
         return integrated_data
 
     # ------------------------------------------------------------ distances
@@ -201,10 +253,16 @@ class JAMIE:
                       f'and Dataset {j + 1}')
                 if self._use_landmarks:
                     cor_pairs.append(self._landmark_correspondence(i, j))
-                else:
+                elif self.config.corr_method == 'unioncom':
                     cor_pairs.append(self.Prime_Dual(
                         [self.dist[i], self.dist[j]],
                         dx=self.col[i], dy=self.col[j]))
+                else:
+                    warnings.warn(
+                        'Correlation method `jamie` is currently a WIP, and '
+                        'does not produce reliable results')
+                    cor_pairs.append(self.com_corr(
+                        [self.dist[i], self.dist[j]]))
         print('Finished Matching!')
         return cor_pairs
 
@@ -247,6 +305,11 @@ class JAMIE:
                        else 'default'),
             state_dtype=self._resolved_state_dtype(entries),
             device=self.device)
+
+    def com_corr(self, dist):
+        """Experimental low-rank correspondence (jamie/jamie.py:252-312),
+        kept for API parity; the reference warns it is unreliable."""
+        return lowrank_corr(dist[0], dist[1], device=self.device)
 
     # ------------------------------------------------------------- training
     def project_jamie(self, W):

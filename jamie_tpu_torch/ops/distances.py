@@ -1,11 +1,12 @@
 """Sample-sample distance matrices.
 
 Reference parity: `jamie_tpu/ops/distances.py` (`_pairwise_euclidean_impl`
-:190-253, `dataset_distance_matrix` :463-497, `geodesic_distances`
-:429-460). The euclidean family goes through the K3 kernel
-(`ops/pairwise.py`) on the card; geodesic computes its euclidean base
-matrix there, fetches it, and grows the kNN graph, bridges components and
-runs Dijkstra on the host with scipy, as `jamie_tpu` does.
+:190-253, the other metrics :256-369, `pairwise_distance` :372-413,
+`geodesic_distances` :429-460, `dataset_distance_matrix` :463-497). The
+euclidean family goes through the K3 kernel (`ops/pairwise.py`) on the
+card; geodesic computes its euclidean base matrix there, fetches it, and
+grows the kNN graph, bridges components and runs Dijkstra on the host with
+scipy, as `jamie_tpu` does.
 
 Host sources past `_FEATURE_CHUNK_THRESHOLD` elements (compared with `>`,
 as jamie_tpu does) take jamie_tpu's large-matrix routes, which round the
@@ -22,7 +23,14 @@ so here they are `torch.mm` with bf16 operands and an f32 result
 (`core/dtypes.bf16_matmul`). A scipy-sparse source under the threshold is
 densified and goes through K3 as a dense one does.
 
-Not ported (NotImplementedError): the other metrics (ROADMAP.md item 12).
+The other metrics run where jamie_tpu runs them. cosine, correlation,
+spearman, pearson, kulsinski, sokalmichener and wminkowski are Gram
+products or row-blocked broadcasts in torch on the device. The rest are
+host fallbacks: jamie_tpu calls sklearn's `pairwise_distances`, which the
+card's machine does not have, so here they are scipy's
+`squareform(pdist(X))` with sklearn's conventions (X taken as bool for
+sklearn's boolean metrics, `l1`/`manhattan` as `cityblock`), and
+`nan_euclidean` and `haversine` are sklearn's formulas in torch.
 """
 
 from __future__ import annotations
@@ -36,7 +44,19 @@ from ..core.hostmat import as_f32_ndarray, densify, ensure_col_major, \
     is_scipy_sparse
 from .pairwise import pairwise_euclidean
 
-PORTED_MODES = ('euclidean', 'l2', 'sqeuclidean', 'geodesic')
+# scipy's pdist on the host (jamie_tpu's sklearn fallbacks, :29-34, less
+# the two sklearn-only metrics written below in torch)
+_HOST_FALLBACK_METRICS = (
+    'l1', 'manhattan', 'cityblock', 'braycurtis', 'canberra', 'chebyshev',
+    'dice', 'hamming', 'jaccard', 'mahalanobis', 'matching',
+    'minkowski', 'rogerstanimoto', 'russellrao', 'seuclidean',
+    'sokalsneath', 'yule',
+)
+# sklearn's PAIRWISE_BOOLEAN_FUNCTIONS: it converts X to bool for these
+_BOOLEAN_METRICS = ('dice', 'jaccard', 'rogerstanimoto', 'russellrao',
+                    'sokalsneath', 'yule')
+# sklearn's own names for scipy's metrics
+_SCIPY_NAMES = {'l1': 'cityblock', 'manhattan': 'cityblock'}
 
 # Past this many elements a host matrix goes through the shared bf16
 # residency, or past its budget through feature chunks
@@ -148,16 +168,163 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
     return pairwise_euclidean(xt, yt, squared=squared)
 
 
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
+                           min=1e-12)
+
+
+def _cosine_dist(x: torch.Tensor) -> torch.Tensor:
+    """1 - cos, clipped to [0, 2] (distances.py:256-261)."""
+    xn = _unit_rows(x)
+    return torch.clamp(1.0 - xn @ xn.T, 0.0, 2.0)
+
+
+def _correlation_dist(x: torch.Tensor) -> torch.Tensor:
+    """1 - Pearson r of the rows, clipped to [0, 2] (:264-271)."""
+    return _cosine_dist(x - x.mean(1, keepdim=True))
+
+
+def _corrcoef_similarity(x: torch.Tensor) -> torch.Tensor:
+    """Row-row Pearson correlation matrix, np.corrcoef semantics
+    (:288-294)."""
+    xn = _unit_rows(x - x.mean(1, keepdim=True))
+    return xn @ xn.T
+
+
+def _rank_rows(x: torch.Tensor) -> torch.Tensor:
+    """Average ranks per row (scipy.stats.rankdata method='average'),
+    exact on ties: a tie group's rank is (first + last + 2) / 2 of its
+    span in the sorted row (:297-312). The spans come from running
+    max/min of the group edges rather than searchsorted, whose binary
+    search torch does not define on NaN; NaNs sort last and tie with each
+    other, as in jamie_tpu's searchsorted."""
+    s, order = torch.sort(x, dim=1)
+    n = s.shape[1]
+    same = (s[:, 1:] == s[:, :-1]) | (torch.isnan(s[:, 1:])
+                                      & torch.isnan(s[:, :-1]))
+    edge = torch.zeros_like(same[:, :1])
+    pos = torch.arange(n, device=x.device).expand_as(s)
+    first = torch.where(torch.cat([edge, same], 1), 0, pos).cummax(1).values
+    last = torch.where(torch.cat([same, edge], 1), n, pos).flip(1).cummin(
+        1).values.flip(1)
+    avg = (first + last + 2).to(torch.float32) / 2.0
+    return torch.empty_like(avg).scatter_(1, order, avg)
+
+
+def _bool_counts(x: torch.Tensor):
+    """(n features, c_TF + c_FT, c_TT) of the rows taken as (x != 0), from
+    one Gram of the 0/1 matrix (counts are exact in f32)."""
+    b = (x != 0).to(torch.float32)
+    s = b.sum(1)
+    ctt = b @ b.T
+    return float(x.shape[1]), s[:, None] + s[None, :] - 2.0 * ctt, ctt
+
+
+def _kulsinski_dist(x: torch.Tensor) -> torch.Tensor:
+    """scipy<=1.10 kulsinski: (c_TF + c_FT - c_TT + n) / (c_FT + c_TF + n)
+    (:327-336)."""
+    n, r, ctt = _bool_counts(x)
+    return (r - ctt + n) / (r + n)
+
+
+def _sokalmichener_dist(x: torch.Tensor) -> torch.Tensor:
+    """scipy<=1.16 sokalmichener: 2R / (S + 2R), R = c_TF + c_FT, S = c_FF
+    + c_TT (:339-349)."""
+    n, r, _ = _bool_counts(x)
+    return torch.where(r > 0, 2.0 * r / ((n - r) + 2.0 * r), 0.0)
+
+
+def _wminkowski_dist(x: torch.Tensor, p: float = 2.0, w=None,
+                     block: int = 256) -> torch.Tensor:
+    """scipy<1.8 wminkowski, (sum_i |w_i (u_i - v_i)|^p)^(1/p), w ones by
+    default (:352-369). Row blocks of `block` bound the (B, N, F)
+    broadcast, which is reduced in place."""
+    w = (torch.ones(x.shape[1], dtype=torch.float32, device=x.device)
+         if w is None else torch.as_tensor(w, dtype=torch.float32,
+                                           device=x.device))
+    parts = []
+    for s in range(0, x.shape[0], block):
+        d = x[s:s + block, None, :] - x[None, :, :]
+        parts.append(d.mul_(w).abs_().pow_(p).sum(-1).pow_(1.0 / p))
+    return torch.cat(parts)
+
+
+def _nan_euclidean_dist(x: torch.Tensor) -> torch.Tensor:
+    """sklearn's nan_euclidean_distances(X): the squared distance over the
+    coordinates present in both rows, scaled by n_features / n_present,
+    NaN where no coordinate is shared; in float64, as sklearn upcasts."""
+    x = x.double()
+    missing = torch.isnan(x)
+    x0 = torch.where(missing, 0.0, x)
+    present = (~missing).double()
+    x0sq = x0 * x0
+    sq = x0sq.sum(1)
+    d = sq[:, None] + sq[None, :] - 2.0 * (x0 @ x0.T)
+    d -= x0sq @ missing.double().T
+    d -= missing.double() @ x0sq.T
+    d.clamp_(min=0.0).fill_diagonal_(0.0)
+    count = present @ present.T
+    d[count == 0] = float('nan')
+    d *= x.shape[1] / torch.clamp(count, min=1.0)
+    return d.sqrt_().float()
+
+
+def _haversine_dist(x: torch.Tensor) -> torch.Tensor:
+    """sklearn's haversine_distances(X) on (latitude, longitude) rows in
+    radians, in float64."""
+    if x.shape[1] != 2:
+        raise ValueError('Haversine distance only valid in 2 dimensions')
+    lat, lon = x.double().unbind(1)
+    h = (torch.sin((lat[:, None] - lat[None, :]) / 2) ** 2
+         + torch.cos(lat)[:, None] * torch.cos(lat)[None, :]
+         * torch.sin((lon[:, None] - lon[None, :]) / 2) ** 2)
+    return (2.0 * torch.arcsin(torch.sqrt(h))).float()
+
+
+# The metrics computed in torch on the device
+_TORCH_METRICS = {'cosine': _cosine_dist, 'correlation': _correlation_dist,
+                  'kulsinski': _kulsinski_dist,
+                  'sokalmichener': _sokalmichener_dist,
+                  'wminkowski': _wminkowski_dist,
+                  'nan_euclidean': _nan_euclidean_dist,
+                  'haversine': _haversine_dist}
+
+
+def _host_metric(x: np.ndarray, metric: str) -> np.ndarray:
+    """sklearn's pairwise_distances(X, metric) for a scipy metric, as
+    sklearn computes it for Y=None: squareform(pdist(X)) (pdist estimates
+    seuclidean's V and mahalanobis's VI from X alone, as sklearn does),
+    with X as bool for sklearn's boolean metrics."""
+    from scipy.spatial.distance import pdist, squareform
+    if metric in _BOOLEAN_METRICS:
+        x = x.astype(bool)
+    return squareform(pdist(x, _SCIPY_NAMES.get(metric, metric)))
+
+
 def pairwise_distance(x, metric: str = 'euclidean',
                       device=None) -> torch.Tensor:
     """N x N distance matrix of one dataset, on `device` (the card unless
-    the caller asks for another)."""
-    if metric not in ('euclidean', 'l2', 'sqeuclidean'):
-        raise NotImplementedError(
-            f'metric {metric!r} is ROADMAP.md item 12; ported metrics: '
-            'euclidean, l2, sqeuclidean')
-    return _pairwise_euclidean_impl(x, squared=(metric == 'sqeuclidean'),
-                                    device=device)
+    the caller asks for another); the dispatch of distances.py:372-413."""
+    if metric in ('euclidean', 'l2', 'sqeuclidean'):
+        return _pairwise_euclidean_impl(
+            x, squared=(metric == 'sqeuclidean'), device=device)
+    device = resolve_device(device)
+    if is_scipy_sparse(x):
+        x = densify(x)     # only the euclidean family streams sparse blocks
+    if metric in _TORCH_METRICS:
+        return _TORCH_METRICS[metric](_as_device_f32(x, device))
+    if metric in _HOST_FALLBACK_METRICS:
+        host = (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x, np.float32))
+        try:
+            d = _host_metric(host, metric)
+        except (ValueError, TypeError) as e:
+            raise ValueError(
+                f'metric {metric!r} is advertised for parity with the '
+                f'reference (jamie/jamie.py:117-127) but the installed scipy '
+                f'no longer implements it: {e}') from e
+        return torch.as_tensor(d, dtype=torch.float32, device=device)
+    raise ValueError(f'Unknown metric {metric!r}')
 
 
 def _knn_graph(dist: np.ndarray, k: int) -> np.ndarray:
@@ -205,15 +372,29 @@ def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
 
 def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
                             kmax: int = 40, device=None):
-    """Distance matrix dispatch (jamie/jamie.py:851-885): a device tensor
-    for the euclidean family, a host ndarray for geodesic (as jamie_tpu).
-    scipy-sparse data passes through to the sparse-aware routes."""
-    if distance_mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f'distance_mode {distance_mode!r} is ROADMAP.md item 12; ported '
-            f'modes: {", ".join(PORTED_MODES)}')
-    if not (is_scipy_sparse(data) or isinstance(data, torch.Tensor)):
+    """Distance matrix dispatch (jamie/jamie.py:851-885): a host ndarray
+    for geodesic (as jamie_tpu), a device tensor for every other mode.
+    scipy-sparse data passes through to the sparse-aware euclidean routes;
+    spearman and pearson densify it."""
+    if is_scipy_sparse(data):
+        if distance_mode in ('spearman', 'pearson'):
+            data = densify(data)
+    elif not isinstance(data, torch.Tensor):
         data = as_f32_ndarray(data)   # keeps the identity the caches key on
     if distance_mode == 'geodesic':
         return geodesic_distances(data, kmax=kmax, device=device)
+    if distance_mode in ('spearman', 'pearson'):
+        if data.shape[0] == 1:
+            return np.zeros((1, 1), np.float32)
+        x = _as_device_f32(data, resolve_device(device))
+        if distance_mode == 'pearson':
+            return (1.0 - _corrcoef_similarity(x)) / 2.0
+        sim = _corrcoef_similarity(_rank_rows(x))
+        # as jamie_tpu checks (:484-488); ranks are finite, so this guards
+        # the similarity's own arithmetic
+        if bool(torch.isnan(sim).any()):
+            raise ValueError(
+                'Data is not well conditioned for spearman method '
+                '(rank correlation returned nan)')
+        return (1.0 - sim) / 2.0
     return pairwise_distance(data, metric=distance_mode, device=device)

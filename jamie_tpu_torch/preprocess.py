@@ -26,7 +26,9 @@ another): the products are plain large GEMMs or library SpMMs that
 jamie_tpu leaves to XLA. Omega comes from a `torch.Generator`, so a sketch
 differs from jamie_tpu's (a jax key) while the subspace it finds agrees.
 
-Not ported: the t-SNE/UMAP preclass (ROADMAP.md item 12).
+`NonlinearEmbedding` is the t-SNE/UMAP preclass (`jamie_tpu/preprocess.py:
+444-503`), with jamie_tpu's kNN out-of-sample extension in both directions
+through K3 cross distances.
 """
 
 from __future__ import annotations
@@ -341,6 +343,63 @@ class PCA:
         return (Yt @ self.components_ + self.mean_).cpu().numpy()
 
 
+class NonlinearEmbedding:
+    """t-SNE / UMAP preclass front end (model_pca='tsne'/'umap',
+    jamie/jamie.py:444-451) with jamie_tpu's kNN out-of-sample extension:
+    transform maps new rows through their k nearest fit rows in input
+    space, inverse_transform through the nearest rows in embedding space,
+    each an inverse-squared-distance weighted average, so modal_predict
+    works under a nonlinear preclass. The fit data and embedding are host
+    arrays (the checkpoint keys `nle_fit_data`, `nle_embedding`)."""
+
+    K_NEIGHBORS = 10
+
+    def __init__(self, n_components: int, method: str = 'tsne', device=None):
+        self.n_components = int(n_components)
+        self.method = method
+        self.device = resolve_device(device)
+        self.fit_data_: Optional[np.ndarray] = None
+        self.embedding_: Optional[np.ndarray] = None
+
+    def fit_transform(self, X) -> np.ndarray:
+        X = np.asarray(X, np.float32)
+        if self.method == 'umap':
+            from .solvers.umap import umap_embed
+            emb = umap_embed(X, self.n_components, device=self.device)
+        else:
+            from .solvers.tsne import tsne_embed
+            perplexity = float(min(30.0, max(2.0, (X.shape[0] - 1) / 3)))
+            emb = tsne_embed(X, self.n_components, perplexity=perplexity,
+                             device=self.device)
+        self.fit_data_ = X
+        self.embedding_ = np.asarray(emb, np.float32)
+        return self.embedding_
+
+    def _knn_interpolate(self, queries, keys, values) -> np.ndarray:
+        """Inverse-squared-distance weighted average of `values` over each
+        query's k nearest rows of `keys` (an exact match returns its value,
+        up to the 1e-12 floor); the squared distances are K3's."""
+        from .ops.pairwise import pairwise_euclidean
+        dev = self.device
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+        kt = torch.as_tensor(np.asarray(keys, np.float32), device=dev)
+        vt = torch.as_tensor(np.asarray(values, np.float32), device=dev)
+        d2 = pairwise_euclidean(q.contiguous(), kt.contiguous(), squared=True)
+        neg_d2, idx = torch.topk(-d2, min(self.K_NEIGHBORS, kt.shape[0]),
+                                 dim=1)
+        w = 1.0 / torch.clamp(-neg_d2, min=1e-12)
+        w /= w.sum(1, keepdim=True)
+        return torch.einsum('nk,nkd->nd', w, vt[idx]).cpu().numpy()
+
+    def transform(self, X) -> np.ndarray:
+        assert self.fit_data_ is not None, 'embedding not fit yet'
+        return self._knn_interpolate(X, self.fit_data_, self.embedding_)
+
+    def inverse_transform(self, Y) -> np.ndarray:
+        assert self.fit_data_ is not None, 'embedding not fit yet'
+        return self._knn_interpolate(Y, self.embedding_, self.fit_data_)
+
+
 class Preprocessor:
     """preclass-equivalent: [PCA ->] standardize by fit-sample stats.
 
@@ -373,15 +432,12 @@ class Preprocessor:
     def fit(cls, data, pca_dim: Optional[int] = None, method: str = 'pca',
             device=None, power_iters: int = 1) -> 'Preprocessor':
         """Build the per-modality preprocessor as project_jamie does
-        (jamie/jamie.py:436-465): PCA to pca_dim (clamped, with a warning)
-        then scalar standardization; or per-feature standardization.
-        scipy-sparse data streams through the PCA routes; without pca_dim
-        it is densified (per-feature standardization destroys sparsity),
-        with a warning past 1e9 elements."""
-        if method != 'pca':
-            raise NotImplementedError(
-                f"model_pca={method!r} is ROADMAP.md item 12; only 'pca' is "
-                'ported')
+        (jamie/jamie.py:436-465): PCA (or, for method 'umap'/'tsne', a
+        NonlinearEmbedding) to pca_dim (clamped, with a warning) then
+        scalar standardization; or per-feature standardization.
+        scipy-sparse data streams through the PCA routes; without pca_dim,
+        or into a nonlinear embedding, it is densified, with a warning past
+        1e9 elements in the first case."""
         if is_scipy_sparse(data):
             if pca_dim is None:
                 if data.shape[0] * data.shape[1] > 1_000_000_000:
@@ -399,8 +455,12 @@ class Preprocessor:
                     f'PCA dim must be lower than {min(*data.shape)}, found '
                     f'{dim}, adjusting to compensate.')
                 dim = min(*data.shape)
-            pca = PCA(n_components=dim, device=device,
-                      power_iters=power_iters)
+            if method in ('umap', 'tsne'):
+                pca = NonlinearEmbedding(dim, method=method, device=device)
+                data = densify(data) if is_scipy_sparse(data) else data
+            else:
+                pca = PCA(n_components=dim, device=device,
+                          power_iters=power_iters)
             sample = pca.fit_transform(data)
             pre = cls(sample, pca=pca, axis=None)
             pre._fit_sample = sample
@@ -446,7 +506,7 @@ class Preprocessor:
     def transform(self, X) -> np.ndarray:
         if is_scipy_sparse(X):
             # PCA.transform streams sparse rows itself
-            out = X if self.pca is not None else densify(X)
+            out = X if isinstance(self.pca, PCA) else densify(X)
         else:
             out = as_f32_ndarray(X)
         if self.pca is not None:
@@ -468,22 +528,31 @@ class Preprocessor:
             'sample_mean': self.sample_mean,
             'sample_std': self.sample_std,
         }
-        if self.pca is not None:
+        if isinstance(self.pca, NonlinearEmbedding):
+            d['nle_fit_data'] = self.pca.fit_data_
+            d['nle_embedding'] = self.pca.embedding_
+            d['nle_method'] = np.array(self.pca.method)
+        elif self.pca is not None:
             d['pca_mean'] = self.pca.mean_.cpu().numpy()
             d['pca_components'] = self.pca.components_.cpu().numpy()
         return d
 
     @classmethod
     def from_dict(cls, d: dict, device=None) -> 'Preprocessor':
-        if 'nle_embedding' in d:
-            raise NotImplementedError(
-                'a t-SNE/UMAP preclass is ROADMAP.md item 12')
         self = cls.__new__(cls)
         axis = int(d['axis'])
         self.axis = None if axis == -1 else axis
         self.sample_mean = np.asarray(d['sample_mean'])
         self.sample_std = np.asarray(d['sample_std'])
-        if 'pca_components' in d:
+        if 'nle_embedding' in d:
+            emb = np.asarray(d['nle_embedding'], np.float32)
+            nle = NonlinearEmbedding(emb.shape[1],
+                                     method=str(np.asarray(d['nle_method'])),
+                                     device=device)
+            nle.fit_data_ = np.asarray(d['nle_fit_data'], np.float32)
+            nle.embedding_ = emb
+            self.pca = nle
+        elif 'pca_components' in d:
             comps = np.asarray(d['pca_components'], np.float32)
             pca = PCA(n_components=comps.shape[0], device=device)
             pca.mean_ = torch.tensor(np.asarray(d['pca_mean'], np.float32),

@@ -1,0 +1,85 @@
+"""Experimental low-rank correspondence (corr_method='jamie').
+
+Reference parity: `jamie_tpu/solvers/lowrank.py`, itself `JAMIE.com_corr`
+(jamie/jamie.py:252-312), a work-in-progress factorization the reference
+warns "does not produce reliable results" (jamie.py:242-246); kept for API
+parity. Two phases of `epochs` steps each, every step one
+`torch.autograd.grad` through three small matmul chains and an update with
+optax's RMSprop (decay 0.9, g / sqrt(nu + 1e-8), nu from 0), then a top-k
+binarization of each row. The initial factors and the dropout-style masks
+come from a `torch.Generator` seeded with `seed` (jamie_tpu draws them
+from a jax key).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.dtypes import resolve_device
+
+_DECAY, _EPS = 0.9, 1e-8
+
+
+def _cluster_loss(Tx, Ty, Kx, Ky, mx, my) -> torch.Tensor:
+    """|| tx Kx tx^T - ty Ky ty^T ||^2 with the columns of Tx, Ty masked
+    (lowrank.py:31-36)."""
+    tx, ty = Tx * mx[None, :], Ty * my[None, :]
+    return torch.sum(torch.square(tx @ Kx @ tx.T - ty @ Ky @ ty.T))
+
+
+def _cast_loss(a, F, Tx, Ty, Kx, Ky) -> torch.Tensor:
+    """|| a Kx - Fc Ky Fc^T ||^2 with Fc = Tx^T F Ty (lowrank.py:60-63)."""
+    Fc = Tx.T @ F @ Ty
+    return torch.sum(torch.square(a * Kx - Fc @ Ky @ Fc.T))
+
+
+def _rmsprop(params, grads, nus, lr: float) -> None:
+    """One optax.rmsprop(lr) step in place: nu = 0.9 nu + 0.1 g^2, p -= lr
+    g / sqrt(nu + 1e-8)."""
+    with torch.no_grad():
+        for p, g, nu in zip(params, grads, nus):
+            nu.mul_(_DECAY).addcmul_(g, g, value=1 - _DECAY)
+            p.sub_(lr * g * torch.rsqrt(nu + _EPS))
+
+
+def _optimize(loss_fn, params, epochs: int, lr: float) -> None:
+    nus = [torch.zeros_like(p) for p in params]
+    for _ in range(epochs):
+        loss = loss_fn(*params)
+        _rmsprop(params, torch.autograd.grad(loss, params), nus, lr)
+
+
+def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
+                 epochs: int = 10001, topk: int = 5, seed: int = 0,
+                 device=None) -> torch.Tensor:
+    """The (n, m) binarized correspondence on `device`: 1 at the `topk`
+    largest entries of each row of Tx^T F Ty (lowrank.py:75-93)."""
+    device = resolve_device(device)
+    Kx = torch.as_tensor(Kx, dtype=torch.float32, device=device)
+    Ky = torch.as_tensor(Ky, dtype=torch.float32, device=device)
+    n, m = Kx.shape[0], Ky.shape[0]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    print('Clustering')
+    Tx = uniform(dim, n).requires_grad_()
+    Ty = uniform(dim, m).requires_grad_()
+
+    def cluster(Tx, Ty):
+        mx = (uniform(n) > (1 - keep_prob)).float()
+        my = (uniform(m) > (1 - keep_prob)).float()
+        return _cluster_loss(Tx, Ty, Kx, Ky, mx, my)
+    _optimize(cluster, [Tx, Ty], epochs, 0.01)
+    Tx, Ty = Tx.detach(), Ty.detach()
+
+    print('Casting')
+    a = uniform(1).requires_grad_()
+    F = uniform(dim, dim).requires_grad_()
+    _optimize(lambda a, F: _cast_loss(a, F, Tx, Ty, Kx, Ky), [a, F],
+              epochs, 0.1)
+    with torch.no_grad():
+        corr = Tx.T @ F @ Ty
+        idx = torch.topk(corr, min(topk, m), dim=1).indices
+        return torch.zeros_like(corr).scatter_(1, idx, 1.0)

@@ -67,6 +67,20 @@ def _ell_device(sp: SparseRows, device):
             torch.as_tensor(sp.vals, device=device))
 
 
+def adam_update(flat: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                nu: torch.Tensor, count: int, lr: float, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8) -> None:
+    """One optax.adam(lr, b1, b2, eps) step of `flat`, in place, with its
+    moments mu and nu and the step number `count` (from 1); the bias
+    corrections 1 - b^t are float32, as optax computes them."""
+    mu.mul_(b1).add_(g, alpha=1 - b1)
+    nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+    t = np.float32(count)
+    c1 = float(np.float32(1) - np.float32(b1) ** t)
+    c2 = float(np.float32(1) - np.float32(b2) ** t)
+    flat.sub_(lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)))
+
+
 class FlatClipAdam:
     """optax.flatten(optax.chain(clip_by_global_norm(1.0),
     adam(lr, 0.9, 0.999, eps=1e-8))) with optax's formulas, over one flat
@@ -106,13 +120,8 @@ class FlatClipAdam:
         norm = torch.linalg.vector_norm(g)
         g = torch.where(norm < self.MAX_NORM, g, g / norm * self.MAX_NORM)
         self.count += 1
-        self.mu.mul_(self.B1).add_(g, alpha=1 - self.B1)
-        self.nu.mul_(self.B2).addcmul_(g, g, value=1 - self.B2)
-        t = np.float32(self.count)
-        c1 = float(np.float32(1) - np.float32(self.B1) ** t)
-        c2 = float(np.float32(1) - np.float32(self.B2) ** t)
-        upd = (self.mu / c1) / (torch.sqrt(self.nu / c2) + self.EPS)
-        self.flat.sub_(self.lr * upd)
+        adam_update(self.flat, g, self.mu, self.nu, self.count, self.lr,
+                    self.B1, self.B2, self.EPS)
         self.zero_grad()
 
 

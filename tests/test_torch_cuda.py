@@ -280,3 +280,41 @@ def test_large_distance_routes_card_match_cpu(cuda, route, monkeypatch):
         a = residency.build_resident_bf16(x, cuda).cpu()
         b = residency.build_resident_bf16(sp.csr_matrix(x), 'cpu')
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize('mode', ['cosine', 'correlation', 'spearman',
+                                  'pearson', 'kulsinski', 'sokalmichener',
+                                  'wminkowski', 'nan_euclidean', 'haversine'])
+def test_device_metrics_card_match_cpu(cuda, mode):
+    """The metrics computed in torch on the card against the CPU: within
+    f32 summation order (1e-5 of the matrix's largest entry)."""
+    rng = np.random.RandomState(6)
+    x = (rng.rand(300, 2 if mode == 'haversine' else 400)
+         * (rng.rand(300, 1) > 0.3)).astype(np.float32)
+    d = [distances.dataset_distance_matrix(x, mode, device=dev).cpu()
+         for dev in (cuda, 'cpu')]
+    assert float((d[0] - d[1]).abs().max()) <= 1e-5 * float(d[1].abs().max())
+
+
+def test_tsne_gradient_card_matches_cpu(cuda):
+    """The t-SNE step's KL gradient with K3's distances against the plain
+    version on the CPU, on a state 30 iterations in: within 1e-3 of its
+    largest entry (3xTF32 against exact float32, through 1 / (1 + d^2))."""
+    from jamie_tpu_torch.ops.distances import pairwise_distance
+    from jamie_tpu_torch.solvers import tsne
+    rng = np.random.RandomState(7)
+    x = rng.randn(400, 20).astype(np.float32)
+    P = tsne.joint_probabilities(pairwise_distance(x, device='cpu'), 30,
+                                 device='cpu')
+    P_dev = tsne.joint_probabilities(pairwise_distance(x, device='cpu'), 30,
+                                     device=cuda)
+    assert float((P_dev.cpu() - P).abs().max()) <= 1e-5 * float(P.max())
+    init = [(1e-4 * rng.randn(400, 32)).astype(np.float32)] * 2
+    Y, _ = tsne.project_tsne(None, [P, P], np.arange(400), np.arange(400),
+                             output_dim=32, n_iters=30, init=init,
+                             device='cpu')
+    Y = torch.as_tensor(Y)
+    for exag in (12.0, 1.0):
+        g = tsne._kl_grad(P, Y, exag)
+        g_dev = tsne._kl_grad(P.to(cuda), Y.to(cuda), exag).cpu()
+        assert float((g_dev - g).abs().max()) <= 1e-3 * float(g.abs().max())

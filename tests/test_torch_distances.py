@@ -60,25 +60,30 @@ def test_connect_graph_matches_reference():
 
 @pytest.mark.parametrize('mode', ['cosine', 'spearman', 'l1'])
 def test_unported_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md item 12'):
-        td.dataset_distance_matrix(np.ones((4, 3), np.float32), mode,
-                                   device='cpu')
+    """These modes, once refused, are ported (item 12): a device metric, a
+    rank metric and a host fallback give jamie_tpu's matrix
+    (tests/test_torch_metrics.py holds every mode)."""
+    x = np.random.RandomState(0).rand(4, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(td.dataset_distance_matrix(x, mode, device='cpu')),
+        np.asarray(jd.dataset_distance_matrix(x, mode)), rtol=0, atol=1e-6)
 
 
 def test_sparse_and_oversized_inputs_raise(monkeypatch):
     """Sparse inputs and inputs past _FEATURE_CHUNK_THRESHOLD no longer
     raise (ROADMAP.md item 11 is ported): a CSR source gives its dense
     copy's matrix, and past the threshold the bf16-resident route runs
-    (exact here: small integers are exact in bf16). Unported metrics still
-    raise for either source."""
+    (exact here: small integers are exact in bf16). The other metrics take
+    a CSR source too (item 12), as its dense copy."""
     eye = np.eye(4, dtype=np.float32)
     np.testing.assert_array_equal(
         td.dataset_distance_matrix(scipy.sparse.csr_matrix(eye), 'euclidean',
                                    device='cpu').numpy(),
         td.dataset_distance_matrix(eye, 'euclidean', device='cpu').numpy())
-    with pytest.raises(NotImplementedError, match='item 12'):
+    np.testing.assert_array_equal(
         td.dataset_distance_matrix(scipy.sparse.csr_matrix(eye), 'cosine',
-                                   device='cpu')
+                                   device='cpu').numpy(),
+        td.dataset_distance_matrix(eye, 'cosine', device='cpu').numpy())
     monkeypatch.setattr(td, '_FEATURE_CHUNK_THRESHOLD', 10)
     x = np.arange(12, dtype=np.float32).reshape(4, 3)
     ref = jd.dataset_distance_matrix(x, 'geodesic')

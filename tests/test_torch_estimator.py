@@ -88,6 +88,12 @@ def test_checkpoints_cross_load(fitted, tmp_path, direction):
     ({'mesh': object()}, 14),
 ])
 def test_unported_options_raise(kwargs, item):
+    """Options of items 13 and 14 still raise, naming their item; those of
+    item 12 (the t-SNE projection, the UMAP preclass, corr_method='jamie')
+    are ported and build."""
+    if item == 12:
+        assert JAMIE(device='cpu', **kwargs).config.nondefault_kwargs() == kwargs
+        return
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md item {item}'):
         JAMIE(device='cpu', **kwargs)
 
@@ -245,12 +251,50 @@ def test_partial_priors(synthetic_pair, prior):
 
 
 def test_unported_inputs_raise(synthetic_pair):
-    """Scipy-sparse modalities are ported (item 11): they reach the
-    distance phase, where an unported metric raises as for dense data."""
+    """Scipy-sparse modalities (item 11) and every distance mode (item 12)
+    are ported: the cosine distance phase of a CSR pair gives its dense
+    copy's matrices, which are jamie_tpu's within 1e-5."""
+    import jamie_tpu.ops.distances as jd
     data, _ = synthetic_pair
-    with pytest.raises(NotImplementedError, match='item 12'):
-        JAMIE(device='cpu', distance_mode='cosine', epoch_pd=1).fit_transform(
-            [scipy.sparse.csr_matrix(d) for d in data])
-    with pytest.raises(NotImplementedError, match='item 12'):
-        JAMIE(device='cpu', distance_mode='cosine', epoch_pd=1).fit_transform(
-            data)
+    dists = []
+    for d in ([scipy.sparse.csr_matrix(x) for x in data], data):
+        jm = JAMIE(device='cpu', distance_mode='cosine')
+        jm.dataset, jm.dataset_num = d, 2
+        jm.compute_distances()
+        dists.append([m.numpy() for m in jm.dist])
+    for sparse_d, dense_d, x in zip(*dists, data):
+        np.testing.assert_array_equal(sparse_d, dense_d)
+        np.testing.assert_allclose(dense_d, np.asarray(
+            jd.dataset_distance_matrix(x, 'cosine')), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------ the nonlinear preclass
+NLE = dict(epoch_DNN=20, min_epochs=5, batch_size=40, pca_dim=(6, 5),
+           use_early_stop=False, dropout=0.0, log_DNN=10_000,
+           distance_mode='euclidean', epoch_pd=50)
+
+
+@pytest.mark.parametrize('method', ['umap', 'tsne'])
+@pytest.mark.parametrize('direction', ['jax_to_torch', 'torch_to_jax'])
+def test_nonlinear_preclass_checkpoints_cross_load(synthetic_pair, tmp_path,
+                                                   method, direction):
+    """A model_pca='umap'/'tsne' checkpoint saved by one package loads in
+    the other (the nle_* keys): transform_one and modal_predict through the
+    kNN interpolation agree within 1e-5."""
+    data = [d[:60] for d in synthetic_pair[0]]
+    kw = dict(NLE, model_pca=method)
+    src = (JaxJAMIE(use_mesh=False, **kw) if direction == 'jax_to_torch'
+           else JAMIE(device='cpu', **kw))
+    src.fit_transform(dataset=data)
+    path = os.path.join(tmp_path, 'model.npz')
+    src.save_model(path)
+    dst = (JAMIE(device='cpu') if direction == 'jax_to_torch'
+           else JaxJAMIE(use_mesh=False))
+    dst.load_model(path)
+    for m in (0, 1):
+        np.testing.assert_allclose(dst.transform_one(data[m], m),
+                                   src.transform_one(data[m], m),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(dst.modal_predict(data[m], m),
+                                   src.modal_predict(data[m], m),
+                                   rtol=1e-5, atol=1e-5)

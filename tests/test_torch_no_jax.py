@@ -1,5 +1,6 @@
-"""jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax or
-jamie_tpu, and the port runs on the CPU only when asked to."""
+"""jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax,
+jamie_tpu, sklearn or umap (the card's machine has none of them), and the
+port runs on the CPU only when asked to."""
 
 import ast
 import pathlib
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'jamie_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'jamie_tpu', 'sklearn', 'umap')
 
 
 def _blocked(name: str) -> bool:
@@ -22,6 +23,8 @@ def test_blocker_rule():
     assert _blocked('jamie_tpu') and _blocked('jamie_tpu.ops')
     assert _blocked('jax.numpy') and not _blocked('jaxtyping')
     assert not _blocked('jamie_tpu_torch')
+    assert _blocked('sklearn.metrics') and not _blocked('umap_learn_extra')
+    assert not _blocked('jamie_tpu_torch.solvers.umap')
 
 
 def test_import_with_jax_blocked():
@@ -33,18 +36,29 @@ class Block:
         if any(name == b or name.startswith(b + '.') for b in BLOCKED):
             raise ImportError('blocked ' + name)
 sys.meta_path.insert(0, Block())
+import importlib, pkgutil
 import jamie_tpu_torch
+for m in pkgutil.walk_packages(jamie_tpu_torch.__path__, 'jamie_tpu_torch.'):
+    importlib.import_module(m.name)
 from jamie_tpu_torch import JAMIE, ops, evaluation, persistence
 from jamie_tpu_torch.models import convert
-from jamie_tpu_torch.solvers import prime_dual
+from jamie_tpu_torch.ops import distances
+from jamie_tpu_torch.solvers import lowrank, prime_dual, tsne, umap
 from jamie_tpu_torch.core import residency
+from jamie_tpu_torch.config import DISTANCE_MODES
 import numpy as np
 import scipy.sparse
-x = np.random.RandomState(0).randn(12, 5).astype('float32')
+x = np.random.RandomState(0).rand(12, 5).astype('float32')
 F = prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
                           device='cpu')
 residency.DeviceCSR(scipy.sparse.csr_matrix(x), 'cpu').tmatmul(x)
 residency.device_bf16(x, device='cpu')
+for mode in DISTANCE_MODES:
+    distances.dataset_distance_matrix(x[:, :2] if mode == 'haversine' else x,
+                                      mode, device='cpu')
+tsne.tsne_embed(x, 2, perplexity=3, n_iters=5, device='cpu')
+umap.umap_embed(x, 2, n_epochs=5, device='cpu')
+lowrank.lowrank_corr(x @ x.T, x @ x.T, dim=3, epochs=3, device='cpu')
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED))
 print('leaked', leaked, tuple(F.shape))

@@ -101,11 +101,15 @@ def test_pca_dim_clamped_with_warning():
 
 
 def test_unported_preprocessing_raises():
-    """The t-SNE/UMAP preclass raises (item 12); a scipy-sparse input,
-    ported with item 11, fits as its dense copy does."""
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tp.Preprocessor.fit(_data(20, 10), pca_dim=5, method='umap',
-                            device='cpu')
+    """The t-SNE/UMAP preclass is ported (item 12): it fits a
+    NonlinearEmbedding with jamie_tpu's checkpoint keys; a scipy-sparse
+    input, ported with item 11, fits as its dense copy does."""
+    pre = tp.Preprocessor.fit(_data(20, 10), pca_dim=5, method='umap',
+                              device='cpu')
+    assert isinstance(pre.pca, tp.NonlinearEmbedding)
+    assert pre.transform_fit().shape == (20, 5)
+    assert sorted(pre.to_dict()) == sorted(jp.Preprocessor.fit(
+        _data(20, 10), pca_dim=5, method='umap').to_dict())
     x = _data(20, 10)
     pre = tp.Preprocessor.fit(scipy.sparse.csr_matrix(x), pca_dim=5,
                               device='cpu')
@@ -113,3 +117,42 @@ def test_unported_preprocessing_raises():
         pre.transform_fit(),
         tp.Preprocessor.fit(x, pca_dim=5, device='cpu').transform_fit(),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('direction', ['forward', 'inverse'])
+def test_knn_interpolate_matches_reference(direction):
+    """NonlinearEmbedding's transform / inverse_transform with an injected
+    fit_data_ and embedding_: the same 10 neighbours (tie-free data) and
+    weights, within 1e-5 of the largest value; an exact fit row returns
+    its own value."""
+    rng = np.random.RandomState(5)
+    fit, emb = _data(50, 12, seed=6), rng.randn(50, 3).astype(np.float32)
+    ref, ours = jp.NonlinearEmbedding(3), tp.NonlinearEmbedding(3,
+                                                                device='cpu')
+    for nle in (ref, ours):
+        nle.fit_data_, nle.embedding_ = fit, emb
+    if direction == 'forward':
+        q = np.vstack([fit[:3], _data(17, 12, seed=7)])
+        r, o = np.asarray(ref.transform(q)), ours.transform(q)
+        np.testing.assert_allclose(o[:3], emb[:3], atol=1e-5)
+    else:
+        q = rng.randn(20, 3).astype(np.float32)
+        r, o = np.asarray(ref.inverse_transform(q)), ours.inverse_transform(q)
+    np.testing.assert_allclose(o, r, rtol=0, atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.parametrize('method', ['umap', 'tsne'])
+def test_nonlinear_preclass_round_trips_through_dict(method):
+    """to_dict -> from_dict keeps the fit data, embedding and method, so
+    transform is unchanged; a jamie_tpu dict loads the same way."""
+    x = _data(40, 10, seed=8)
+    pre = tp.Preprocessor.fit(x, pca_dim=3, method=method, device='cpu')
+    back = tp.Preprocessor.from_dict(
+        {k: np.asarray(v) for k, v in pre.to_dict().items()}, device='cpu')
+    assert back.pca.method == method
+    np.testing.assert_array_equal(back.transform(x), pre.transform(x))
+    jpre = jp.Preprocessor.fit(x, pca_dim=3, method=method)
+    tpre = tp.Preprocessor.from_dict(
+        {k: np.asarray(v) for k, v in jpre.to_dict().items()}, device='cpu')
+    np.testing.assert_allclose(tpre.transform(x), np.asarray(jpre.transform(x)),
+                               rtol=1e-5, atol=1e-5)
