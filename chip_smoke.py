@@ -66,7 +66,13 @@
    every host-fallback metric at 300 x 200 with no sklearn.
 16. t-SNE iteration time (H): project_tsne alone on the fit's P (1047
    cells) and at scGLUE's 9190 cells, against its bytes bound.
-17. A `kernels` JSON line, the nvidia-smi line, and as the last line
+17. Raw-file workflow (I): the 1047-cell data as gzipped 10x triplets,
+   read and normalized, a bf16-compute fit with snapshots and a metrics
+   log (counts at 0: K1 2000, K3 >= 2), a float32 twin on its F, a resume
+   from the epoch-10 snapshot bit-equal to the fit, the bf16 checkpoint
+   served, occlusion over all 3000 genes, native SHAP and test_partial;
+   one `workflow:` line (see workflow_phase).
+18. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -1157,6 +1163,232 @@ def scglue_cells_probabilities(torch, dev, n=9190, f=50, seed=2):
     return out
 
 
+def write_10x_triplet(directory, counts, prefix):
+    """Write an integer cells x features matrix as a gzipped 10x v3 mtx
+    triplet: matrix.mtx.gz (features x cells), features.tsv.gz and
+    barcodes.tsv.gz. gzip level 1: level 9 takes 16x as long on the
+    17.8 MB RNA matrix and the format does not depend on it."""
+    import gzip
+
+    import scipy.io as sio
+    import scipy.sparse as sp
+    os.makedirs(directory)
+    with gzip.open(os.path.join(directory, 'matrix.mtx.gz'), 'wb',
+                   compresslevel=1) as fh:
+        sio.mmwrite(fh, sp.coo_matrix(counts.T))
+    with gzip.open(os.path.join(directory, 'features.tsv.gz'), 'wt') as fh:
+        fh.writelines(f'{prefix}{j}\t{prefix}{j}\tGene Expression\n'
+                      for j in range(counts.shape[1]))
+    with gzip.open(os.path.join(directory, 'barcodes.tsv.gz'), 'wt') as fh:
+        fh.writelines(f'CELL{i}-1\n' for i in range(counts.shape[0]))
+
+
+def workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line, epochs=20,
+                   pca_dim=512, batch_features=32, shap_rows=16,
+                   shap_genes=64, shap_coalitions=256):
+    """I. The raw-file workflow (README's path from 10x files): the RNA
+    block as integer counts (np.rint of 4x the generator's values) and the
+    0/1 ATAC block written as gzipped 10x v3 triplets, read back with
+    io.read_10x_mtx (equal to the source exactly), RNA normalized with
+    normalize.normalize_log_cpm (within 1e-6 of float64 numpy), both kept
+    CSR. Fit W: JAMIE(compute_dtype='bfloat16', pca_dim, epoch_chunk=5,
+    snapshots every 10 epochs, a metrics log), epoch_DNN the only cut, the
+    counts at 0 just before it: K1 epoch_pd launches, K3 at least 2, one
+    metrics record per 5 epochs with jamie_tpu's keys and device memory,
+    snapshots epoch_10 and epoch_20. A float32 twin on W's F (no solve):
+    its FOSCTTM within 0.05 of W's. A fresh trainer restored from epoch_10
+    and fitted to the end: its embeddings bit-equal to W's. Serve: W's
+    checkpoint keeps compute_bf16 and modal_predict is identical after the
+    reload. Explain, on the twin: occlusion over every RNA gene (three
+    held to re-transforming the occluded raw matrix within 2e-5), native
+    SHAP on `shap_rows` cells and `shap_genes` genes (efficiency within
+    1e-4 of max |f(x) - base|), and test_partial at fractions 0, 0.5, 1 on
+    W's F."""
+    import scipy.sparse as sp
+
+    from jamie_tpu_torch import io, normalize
+    from jamie_tpu_torch.evaluation import (ShapValues, occlusion_impact_device,
+                                            shap_explain, test_partial)
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    secs = {}
+    n = data[0].shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # Files: write, read back, normalize
+        t = time.perf_counter()
+        counts = [np.rint(4 * data[0]).astype(np.int64),
+                  data[1].astype(np.int64)]
+        for name, c in zip(('rna', 'atac'), counts):
+            write_10x_triplet(os.path.join(tmp, name), c, name.upper())
+        secs['write'] = time.perf_counter() - t
+        t = time.perf_counter()
+        mats = []
+        for name, c in zip(('rna', 'atac'), counts):
+            X, barcodes, names = io.read_10x_mtx(os.path.join(tmp, name))
+            if not (X.format == 'csr' and X.shape == c.shape
+                    and (X != sp.csr_matrix(c)).nnz == 0
+                    and len(barcodes) == n and len(names) == c.shape[1]
+                    and names[1] == f'{name.upper()}1'):
+                fail(f'read_10x_mtx({name}) differs from the source')
+            mats.append(X)
+        secs['read'] = time.perf_counter() - t
+        t = time.perf_counter()
+        rna64 = normalize.normalize_log_cpm(mats[0])
+        secs['normalize'] = time.perf_counter() - t
+        c0 = counts[0].astype(np.float64)
+        ref = np.log1p(c0 / np.maximum(c0.sum(1, keepdims=True), 1.0) * 1e4)
+        norm_err = float(np.abs(rna64.toarray() - ref).max())
+        if not (sp.issparse(rna64) and norm_err <= 1e-6):
+            fail(f'normalize_log_cpm is off float64 numpy by {norm_err}')
+        rna, atac = rna64.astype(np.float32), mats[1].astype(np.float32)
+        dataset = [rna, atac]
+
+        # Fit W: bf16 compute, snapshots, the metrics log
+        ck, mpath = os.path.join(tmp, 'snapshots'), os.path.join(tmp, 'm.jsonl')
+        fit_kw = dict(pca_dim=(pca_dim, pca_dim), epoch_DNN=epochs,
+                      min_epochs=min(10, epochs), use_early_stop=False)
+        W = JAMIE(compute_dtype='bfloat16', epoch_chunk=5, checkpoint_dir=ck,
+                  checkpoint_every=10, metrics_path=mpath, **fit_kw)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out_w = W.fit_transform(dataset=dataset)
+        secs['fit_bf16'] = time.perf_counter() - t
+        w_counts = ops.launch_counts()
+        records = [json.loads(line) for line in open(mpath)]
+        snaps = sorted(os.listdir(ck))
+        keys = {'epoch_start', 'epoch_end', 'epoch_loss_mean', 'losses',
+                'seconds', 'memory'}
+        if w_counts['fused_pd_grad_update'] != W.config.epoch_pd:
+            fail(f'K1 launched {w_counts["fused_pd_grad_update"]} times in '
+                 f'the workflow fit, expected epoch_pd={W.config.epoch_pd}')
+        if w_counts['pairwise_euclidean'] < 2:
+            fail('K3 launched fewer than 2 times in the workflow fit')
+        if not (len(records) == epochs // 5
+                and all(set(r) == keys and r['memory'] for r in records)
+                and [r['epoch_end'] for r in records]
+                == list(range(5, epochs + 1, 5))):
+            fail(f'metrics log: {records}')
+        if snaps != [f'epoch_{e}' for e in range(10, epochs + 1, 10)]:
+            fail(f'snapshots {snaps}')
+        for e in out_w:
+            if e.shape != (n, 32) or not np.isfinite(e).all():
+                fail(f'workflow embedding shape {e.shape}')
+
+        # The float32 twin on W's F
+        T = JAMIE(match_result=W.match_result, **fit_kw)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out_t = T.fit_transform(dataset=dataset)
+        secs['fit_f32_twin'] = time.perf_counter() - t
+        t_counts = ops.launch_counts()
+        f_w, f_t = W.test_closer(out_w), T.test_closer(out_t)
+        lta_w = W.test_LabelTA(out_w, [labels, labels])
+        lta_t = T.test_LabelTA(out_t, [labels, labels])
+        if not abs(f_w - f_t) <= 0.05:
+            fail(f'bf16 fit FOSCTTM {f_w} vs float32 twin {f_t}')
+
+        # Resume: a fresh trainer from epoch_10, fitted to the end
+        def resume():
+            tr = JamieTrainer(W.config, CoupledVAE(
+                tuple(W.col), W.config.output_dim, dropout=W.config.dropout,
+                compute_dtype=torch.bfloat16), W.trainer.data, W.P, W.F,
+                device=dev)
+            tr.fit(state=tr.restore_fit_state(os.path.join(ck, 'epoch_10')))
+            return tr.final_embed()
+        t = time.perf_counter()
+        emb_r = resume()
+        secs['resume'] = time.perf_counter() - t
+        resume_diff = max(float(np.abs(a - b).max())
+                          for a, b in zip(emb_r, out_w))
+        if resume_diff:
+            # equal only if every op is deterministic: a second resume from
+            # the same snapshot shows whether the card's training step is
+            again = max(float(np.abs(a - b).max())
+                        for a, b in zip(resume(), emb_r))
+            limit = 1e-5 * max(float(np.abs(e).max()) for e in out_w)
+            print(f'workflow resume: max |resumed - W| {resume_diff}, two '
+                  f'resumes differ by {again} (limit {limit})', flush=True)
+            if not (again and resume_diff <= limit):
+                fail('the resumed fit differs from the uninterrupted one')
+
+        # Serve: the checkpoint keeps compute_bf16
+        t = time.perf_counter()
+        path = os.path.join(tmp, 'model.npz')
+        W.save_model(path)
+        with np.load(path) as z:
+            header = json.loads(bytes(z['__header__'].tolist()).decode())
+        W2 = JAMIE().load_model(path)
+        imputed = W.modal_predict(rna, 0)
+        same = np.array_equal(imputed, W2.modal_predict(rna, 0))
+        secs['serve'] = time.perf_counter() - t
+        if not (header['compute_bf16'] is True
+                and W2.model.compute_dtype == torch.bfloat16 and same
+                and imputed.shape == atac.shape
+                and np.isfinite(imputed).all()):
+            fail(f'bf16 serve: header compute_bf16 '
+                 f'{header["compute_bf16"]}, identical after reload {same}')
+
+        # Explain, on the float32 twin
+        rna_d, atac_d = rna.toarray(), atac.toarray()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        base_r, impact, idx = occlusion_impact_device(
+            T, rna_d, atac_d, modality=0, batch_features=batch_features)
+        secs['occlusion'] = time.perf_counter() - t
+        pre_in, pre_out = T.preprocessors
+        tc = torch.as_tensor(pre_out.transform(atac_d), device=dev)
+        tc = tc - tc.mean(0)
+        occl_err = 0.0
+        for fid in (0, rna_d.shape[1] // 2, rna_d.shape[1] - 1):
+            occ = rna_d.copy()
+            occ[:, fid] = occ[:, fid].mean()
+            with torch.no_grad():
+                pred = T.model.impute(torch.as_tensor(
+                    pre_in.transform(occ), device=dev), 0, 1)
+            pc = pred - pred.mean(0)
+            r = float(((pc * tc).sum(0) / torch.clamp(
+                torch.linalg.vector_norm(pc, dim=0)
+                * torch.linalg.vector_norm(tc, dim=0), min=1e-12)).mean())
+            occl_err = max(occl_err, abs(float(impact[fid]) - (base_r - r)))
+        if not (impact.shape == (rna_d.shape[1],) and np.isfinite(impact).all()
+                and occl_err <= 2e-5):
+            fail(f'occlusion: off the brute force by {occl_err}')
+        t = time.perf_counter()
+        res = shap_explain(T, rna_d[:shap_rows], modality=0,
+                           max_evals=shap_coalitions,
+                           features=np.arange(shap_genes))
+        secs['shap'] = time.perf_counter() - t
+        total = T.modal_predict(rna_d[:shap_rows], 0) - res.base_values
+        eff = float(np.abs(res.values.sum(1) - total).max())
+        eff_lim = 1e-4 * float(np.abs(total).max())
+        if not (isinstance(res, ShapValues) and np.isfinite(res.values).all()
+                and res.values.shape == (shap_rows, shap_genes, atac.shape[1])
+                and eff <= eff_lim):
+            fail(f'SHAP: {type(res).__name__}, efficiency off by {eff} '
+                 f'(limit {eff_lim})')
+        np.random.seed(0)
+        t = time.perf_counter()
+        acc, _ = test_partial([rna_d, atac_d], [labels, labels],
+                              fraction_range=(0, 0.5, 1), plot=False,
+                              match_result=W.match_result, **fit_kw)
+        secs['test_partial'] = time.perf_counter() - t
+        if not (len(acc['lta']) == len(acc['foscttm']) == 3
+                and np.isfinite(acc['lta'] + acc['foscttm']).all()):
+            fail(f'test_partial: {acc}')
+    print(f'workflow: {smi_line} | files {counts[0].shape}+{counts[1].shape} '
+          f'normalize max |d| {norm_err:.3g}; bf16 fit FOSCTTM {f_w} LTA '
+          f'{lta_w}, phases {W.phase_timings}, train {W.fit_seconds:.3f} s '
+          f'{W.epochs_run} epochs, launches {w_counts}; float32 twin FOSCTTM '
+          f'{f_t} LTA {lta_t}, phases {T.phase_timings}, train '
+          f'{T.fit_seconds:.3f} s, launches {t_counts}; metrics records '
+          f'{len(records)} (last {records[-1]}); snapshots {snaps}; resume '
+          f'max |d| {resume_diff}; occlusion {len(idx)} genes, brute-force '
+          f'max |d| {occl_err:.3g}, top {int(idx[np.argmax(impact)])}; SHAP '
+          f'{res.values.shape} efficiency max |d| {eff:.3g}; test_partial '
+          f'{acc}; seconds { {k: round(v, 3) for k, v in secs.items()} }',
+          flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1419,6 +1651,8 @@ def main():
     tsne_scale_phase(torch, ops, kp, dev,
                      scglue_cells_probabilities(torch, dev), 1000,
                      "scGLUE's 9190 cells")
+    # I. The raw-file workflow around the fit
+    workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

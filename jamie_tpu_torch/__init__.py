@@ -9,6 +9,9 @@ Triton (`ops/pd_update.py`) and the pairwise euclidean distance in CUDA C++
     jm = JAMIE()                        # the CUDA card; JAMIE(device='cpu')
     integrated = jm.fit_transform(dataset=[rna, atac])
     imputed_atac = jm.modal_predict(rna, 0)
+
+`io` reads raw 10x / .h5ad / mtx files, `normalize` holds the count
+transforms, `evaluation` the metrics and the occlusion/SHAP explanations.
 """
 
 from .core.dtypes import pin_fp32_matmuls
@@ -20,9 +23,11 @@ from .config import JamieConfig, config_from_kwargs  # noqa: E402
 from .estimator import JAMIE  # noqa: E402
 from .models import CoupledVAE  # noqa: E402
 from .preprocess import PCA, Preprocessor  # noqa: E402
+from . import evaluation, io, normalize  # noqa: E402
 
 __all__ = [
     '__version__', '__reference_version__',
     'JAMIE', 'JamieConfig', 'config_from_kwargs',
     'CoupledVAE', 'PCA', 'Preprocessor',
+    'evaluation', 'io', 'normalize',
 ]

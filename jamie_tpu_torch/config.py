@@ -6,10 +6,9 @@ thing in both packages.
 
 Fields that only steer the TPU build are accepted and inert here:
 `prng_impl`, `mesh_shape`, `mesh_axis_names`, `dispatch_lookahead`,
-`epoch_chunk` and `tp_wide_threshold` (PyTorch runs eagerly on one card,
-with its own generators). Fields whose feature this port does not have yet
-(`checkpoint_dir`, `metrics_path`, `compute_dtype='bfloat16'`) make `JAMIE`
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+and `tp_wide_threshold` (PyTorch runs eagerly on one card, with its own
+generators). `epoch_chunk` sets how many epochs one `metrics_path` record
+and one `checkpoint_every` step cover, as in jamie_tpu.
 """
 
 from __future__ import annotations
@@ -97,7 +96,7 @@ class JamieConfig:
     enable_memory_logging: bool = False
 
     # --- Numerics and device knobs ---
-    compute_dtype: str = 'float32'        # only 'float32' is ported
+    compute_dtype: str = 'float32'        # 'float32' | 'bfloat16' activations
     # Model matmuls only in bf16 operands with an f32 result
     model_matmul_dtype: str = 'float32'   # 'float32' | 'bfloat16'
     # Prime-dual matmuls: 'bfloat16' = bf16 operands, f32 result;
@@ -107,7 +106,7 @@ class JamieConfig:
     # and the K operands in bf16 (F and M2 stay f32); 'auto' = f32 up to
     # estimator.DENSE_F32_STATE_ENTRIES
     solver_state_dtype: str = 'auto'
-    epoch_chunk: int = 100            # inert (TPU scan chunk)
+    epoch_chunk: int = 100            # epochs per metrics record / snapshot step
     dispatch_lookahead: int = 3       # inert (TPU dispatch pipelining)
     mesh_shape: Optional[Tuple[int, ...]] = None   # inert: one card
     mesh_axis_names: Tuple[str, ...] = ('data',)   # inert: one card
@@ -115,9 +114,9 @@ class JamieConfig:
     f_top_k: Optional[int] = None     # SparseRows top-k F
     tp_wide_threshold: int = 1024     # inert (TPU tensor parallelism)
     prng_impl: Optional[str] = None   # inert (jax PRNG implementation)
-    checkpoint_dir: Optional[str] = None   # mid-fit snapshots (not ported)
+    checkpoint_dir: Optional[str] = None   # mid-fit snapshots
     checkpoint_every: int = 0
-    metrics_path: Optional[str] = None     # per-chunk JSONL (not ported)
+    metrics_path: Optional[str] = None     # per-chunk JSONL
 
     def __post_init__(self):
         if self.integration_type != 'MultiOmics':

@@ -40,11 +40,12 @@ def ensure_col_major(x):
     return x
 
 
-def densify(x) -> np.ndarray:
-    """Whole matrix as a C-contiguous dense f32 ndarray."""
+def densify(x, dtype=np.float32) -> np.ndarray:
+    """Whole matrix as a C-contiguous dense ndarray of `dtype` (None keeps
+    the stored dtype)."""
     if is_scipy_sparse(x):
         x = x.toarray()
-    return np.ascontiguousarray(x, dtype=np.float32)
+    return np.ascontiguousarray(x, dtype=dtype)
 
 
 def dense_rows(x, start: int, stop: int) -> np.ndarray:

@@ -4,11 +4,14 @@ Reference parity: `time_logger` (jamie/utilities.py:61-132) — named-section
 wall-clock accumulation with a per-key mean report and optional tracemalloc
 capture. `block=True` waits for queued CUDA work before stamping (kernel
 launches return before the card finishes, so a bare host clock would time
-the enqueue).
+the enqueue). `device_memory_stats` and `trace` are the device-side
+counterparts of `jamie_tpu/core/timing.py:100-127`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import tracemalloc
 from time import perf_counter
 
@@ -85,3 +88,37 @@ class TimeLogger:
         if self.memory_usage:
             tracemalloc.stop()
 
+
+
+def device_memory_stats(device=None) -> dict:
+    """Device memory of one CUDA device under jamie_tpu's keys
+    (`bytes_in_use`, `peak_bytes_in_use`, `bytes_limit`), from
+    `torch.cuda.memory_stats` and `torch.cuda.mem_get_info`. Only the keys
+    the backend reports: {} for the CPU, as jamie_tpu's CPU backend gives."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return {}
+        device = torch.device('cuda', torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    out = {'bytes_in_use': stats.get('allocated_bytes.all.current'),
+           'peak_bytes_in_use': stats.get('allocated_bytes.all.peak'),
+           'bytes_limit': torch.cuda.mem_get_info(device)[1]}
+    return {k: int(v) for k, v in out.items() if v is not None}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the enclosed work with torch.profiler (CPU and, when a card
+    is visible, CUDA activity) and write a Chrome trace,
+    `{log_dir}/trace.json`, for chrome://tracing or Perfetto."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))

@@ -19,8 +19,16 @@ after preprocessing, before training claims device memory. The legacy
 modes run as in jamie_tpu: `project_mode='tsne'` (Hungarian pairs from F,
 then the pair-aligned t-SNE, `solvers/tsne.py`), the t-SNE/UMAP preclass
 (`model_pca`, `preprocess.NonlinearEmbedding`) and `corr_method='jamie'`
-(`solvers/lowrank.py`). What is not ported raises NotImplementedError
-naming the ROADMAP.md item that ports it.
+(`solvers/lowrank.py`). The fit takes `compute_dtype='bfloat16'`
+(bf16 activations, f32 parameters), mid-fit snapshots (`checkpoint_dir`,
+`checkpoint_every`; resume through `trainer.restore_fit_state` and
+`trainer.fit(state=...)`) and a per-chunk `metrics_path` log. A device mesh
+is not ported and raises NotImplementedError naming ROADMAP.md item 14.
+
+A second `fit_transform` on one estimator reuses the first fit's P and F
+(`self.P`, `self.match_result`), as jamie_tpu does; on data with other row
+counts the trainer raises ValueError where jamie_tpu would train on the top
+left block of the stale P and F (a deliberate deviation).
 """
 
 from __future__ import annotations
@@ -71,14 +79,8 @@ def _unported(what: str, item: int) -> NotImplementedError:
         f'{what} is not ported to jamie_tpu_torch yet: ROADMAP.md item {item}')
 
 
-def _check_config(cfg) -> None:
-    """Refuse, up front, every config feature this port does not have."""
-    if cfg.compute_dtype != 'float32':
-        raise _unported(f'compute_dtype={cfg.compute_dtype!r}', 13)
-    if cfg.checkpoint_dir is not None:
-        raise _unported('checkpoint_dir (mid-fit snapshots)', 13)
-    if cfg.metrics_path is not None:
-        raise _unported('metrics_path (per-chunk JSONL)', 13)
+def _compute_dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
 
 
 def _unwrap_anndata(dataset):
@@ -101,7 +103,6 @@ class JAMIE:
         self.device = resolve_device(device)
         self.P = kwargs.pop('P', None)
         self.config = config_from_kwargs(**kwargs)
-        _check_config(self.config)
         self.match_result = match_result
         self.model: Optional[CoupledVAE] = None
         self.preprocessors: Optional[Sequence[Preprocessor]] = None
@@ -362,11 +363,15 @@ class JAMIE:
             input_dim=tuple(self.col), output_dim=cfg.output_dim,
             dropout=cfg.dropout,
             matmul_bf16=cfg.model_matmul_dtype == 'bfloat16',
-            seed=cfg.manual_seed)
+            seed=cfg.manual_seed,
+            compute_dtype=_compute_dtype(cfg.compute_dtype == 'bfloat16'))
         self.trainer = JamieTrainer(cfg, self.model, transformed, self.P,
                                     self.F, device=self.device)
         timer.log('Trainer setup')
-        self.trainer.fit()
+        self.train_state = self.trainer.fit(
+            checkpoint_dir=cfg.checkpoint_dir,
+            checkpoint_every=cfg.checkpoint_every,
+            metrics_path=cfg.metrics_path)
         timer.log('Training')
         self.loss_history = self.trainer.loss_history
         self.epochs_run = self.trainer.epochs_run
@@ -402,7 +407,7 @@ class JAMIE:
         decoded = self.model.impute(self._to_device(data), modality,
                                     to_modality)
         return np.asarray(self.preprocessors[to_modality].inverse_transform(
-            decoded.cpu().numpy()))
+            decoded.float().cpu().numpy()))
 
     def transform(self, dataset, corr=None, pre_transformed: bool = False):
         """Re-embed both modalities with a trained model
@@ -419,7 +424,8 @@ class JAMIE:
         self._require_model()
         if not pre_transformed:
             data = self.preprocessors[i].transform(data)
-        return self.model.embed_one(self._to_device(data), i).cpu().numpy()
+        return self.model.embed_one(self._to_device(data),
+                                    i).float().cpu().numpy()
 
     # -------------------------------------------------------------- metrics
     def test_closer(self, integrated_data, distance_metric=None):
@@ -456,7 +462,7 @@ class JAMIE:
             'dropout': self.model.dropout,
             'num_modalities': self.dataset_num,
             'matmul_bf16': bool(self.model.matmul_bf16),
-            'compute_bf16': False,
+            'compute_bf16': self.model.compute_dtype == torch.bfloat16,
         }
         params, batch_stats = to_flax_variables(self.model)
         save_checkpoint(f, params, batch_stats, self.preprocessors, header)
@@ -465,15 +471,14 @@ class JAMIE:
         """Restore a checkpoint written by either package."""
         params, batch_stats, pres, header = load_checkpoint(
             f, device=self.device)
-        if header.get('compute_bf16'):
-            raise _unported('a checkpoint with bf16 model compute', 13)
         self.preprocessors = pres
         self.dataset_num = int(header['num_modalities'])
         self.model = CoupledVAE(
             input_dim=tuple(header['input_dim']),
             output_dim=int(header['output_dim']),
             dropout=header['dropout'],
-            matmul_bf16=bool(header.get('matmul_bf16', False)))
+            matmul_bf16=bool(header.get('matmul_bf16', False)),
+            compute_dtype=_compute_dtype(header.get('compute_bf16', False)))
         load_flax_variables(self.model, params, batch_stats)
         self.model.to(self.device).eval()
         return self

@@ -14,6 +14,15 @@ Reference parity: `jamie_tpu/models/coupled_vae.py`, itself the reference
 - `impute` = encode(from) -> refactor -> decode(to); `embed_one` = mu head;
 - default dropout 0.6 if `max(input_dim) > 64` else 0.
 
+`compute_dtype` (jamie_tpu/models/coupled_vae.py:51-73, 86-91, 166, 196):
+parameters stay float32; `encode_one` and `decode_one` cast the activations
+to the compute dtype, and every layer computes in its input's dtype. A
+bfloat16 dense layer is `x @ W.bf16 + b.bf16`; a bfloat16 BatchNorm takes
+its statistics and `(x - mean) rsqrt(var + eps) scale + bias` in float32
+and casts the result back (flax 0.12's `force_float32_reductions`), its
+running stats float32. `combine_latents` promotes a bfloat16 latent with
+the float32 `sigma` to float32, as jax's type promotion does.
+
 Layers live in one `nn.ModuleDict` under jamie_tpu's flax names
 (`enc{i}_b{j}`, `fc_mu{i}`, `fc_var{i}`, `dec{i}_b{j}`, `dec{i}_out`), so
 `models/convert.py` maps variables across by name. BatchNorm follows flax,
@@ -37,8 +46,9 @@ from ..core.dtypes import bf16_matmul
 
 class TorchDense(nn.Module):
     """Linear layer with torch.nn.Linear's default init U(-1/sqrt(in),
-    1/sqrt(in)) for weight (out, in) and bias. matmul_bf16 runs only the
-    matmul on bf16 operands with an f32 result."""
+    1/sqrt(in)) for weight (out, in) and bias, computing in its input's
+    dtype. matmul_bf16 runs only the matmul on bf16 operands with an f32
+    result, rounded to the input's dtype before the bias."""
 
     def __init__(self, in_features: int, features: int,
                  matmul_bf16: bool = False,
@@ -54,14 +64,19 @@ class TorchDense(nn.Module):
 
     def forward(self, x):
         if self.matmul_bf16:
-            return bf16_matmul(x, self.weight.T) + self.bias
-        return Fn.linear(x, self.weight, self.bias)
+            return (bf16_matmul(x, self.weight.T).to(x.dtype)
+                    + self.bias.to(x.dtype))
+        if x.dtype == torch.float32:
+            return Fn.linear(x, self.weight, self.bias)
+        return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class FlaxBatchNorm(nn.Module):
     """BatchNorm with flax.linen.BatchNorm's semantics (momentum 0.9 on the
     running value, eps 1e-5, biased batch variance E[x^2] - E[x]^2 clipped
-    at 0 for both the normalization and the running update)."""
+    at 0 for both the normalization and the running update). Statistics and
+    the normalization are float32 whatever the input's dtype; the output
+    is cast back to it."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -74,9 +89,10 @@ class FlaxBatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
+        xf = x.float()
         if self.training:
-            mean = x.mean(0)
-            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            mean = xf.mean(0)
+            var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     (1 - self.momentum) * mean)
@@ -84,8 +100,8 @@ class FlaxBatchNorm(nn.Module):
                     (1 - self.momentum) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        return ((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+                + self.bias).to(x.dtype)
 
 
 class _Block(nn.Module):
@@ -112,13 +128,17 @@ def combine_latents(zs: Sequence[torch.Tensor], corr: torch.Tensor,
                     sigma: torch.Tensor) -> List[torch.Tensor]:
     """Sigma-weighted latent aggregation (jamie/model.py:245-259):
     combined[i] = (s_i z_i + s_j M_i z_j) / (s_i + s_j corr.sum(other)),
-    with M_0 = corr, M_1 = corr^T."""
+    with M_0 = corr, M_1 = corr^T. corr is cast to the latents' dtype; the
+    products with sigma take the promotion of sigma's and the latents'
+    dtypes (float32 for bfloat16 latents, as in jax)."""
     z0, z1 = zs
     s0, s1 = sigma[0], sigma[1]
-    num0 = s0 * z0 + s1 * (corr @ z1)
-    den0 = s0 + s1 * torch.sum(corr, dim=1)[:, None]
-    num1 = s1 * z1 + s0 * (corr.T @ z0)
-    den1 = s1 + s0 * torch.sum(corr, dim=0)[:, None]
+    dt = torch.promote_types(sigma.dtype, z0.dtype)
+    corr = corr.to(z0.dtype)
+    num0 = s0 * z0.to(dt) + s1 * (corr @ z1).to(dt)
+    den0 = s0 + s1 * torch.sum(corr, dim=1).to(dt)[:, None]
+    num1 = s1 * z1.to(dt) + s0 * (corr.T @ z0).to(dt)
+    den1 = s1 + s0 * torch.sum(corr, dim=0).to(dt)[:, None]
     return [num0 / den0, num1 / den1]
 
 
@@ -126,17 +146,19 @@ class CoupledVAE(nn.Module):
     """Two coupled per-modality VAEs with correspondence-mixed latents.
 
     forward(xs, corr) returns (zs, combined, reconstructed, mus, logvars),
-    like the reference forward (jamie/model.py:264-275).
+    like the reference forward (jamie/model.py:264-275). compute_dtype is
+    the activations' dtype (torch.float32 or torch.bfloat16).
     """
 
     def __init__(self, input_dim: Tuple[int, ...], output_dim: int,
                  dropout: Optional[float] = None, matmul_bf16: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_dim = tuple(int(d) for d in input_dim)
         self.output_dim = int(output_dim)
         self.dropout = dropout
         self.matmul_bf16 = bool(matmul_bf16)
+        self.compute_dtype = compute_dtype
         p = self.dropout_rate
         gen = torch.Generator().manual_seed(seed)
         layers = {}
@@ -166,7 +188,7 @@ class CoupledVAE(nn.Module):
 
     # --- pieces -----------------------------------------------------------
     def encode_one(self, x, i: int, generator=None):
-        h = self.layers[f'enc{i}_b0'](x, generator)
+        h = self.layers[f'enc{i}_b0'](x.to(self.compute_dtype), generator)
         return self.layers[f'enc{i}_b1'](h, generator)
 
     def refactor_one(self, h, i: int, generator=None, noise=None):
@@ -174,15 +196,16 @@ class CoupledVAE(nn.Module):
         logvar = self.layers[f'fc_var{i}'](h)
         if not self.training:
             return mu, mu, logvar
-        # std + 1e-7 rounding protection (jamie/model.py:236-239)
+        # std + 1e-7 rounding protection (jamie/model.py:236-239), in
+        # mu's dtype as jamie_tpu draws and adds it
         std = torch.exp(logvar / 2) + 1e-7
         if noise is None:
             noise = torch.randn(mu.shape, generator=generator,
-                                device=mu.device)
-        return mu + std * noise, mu, logvar
+                                device=mu.device, dtype=mu.dtype)
+        return mu + std * noise.to(mu.dtype), mu, logvar
 
     def decode_one(self, z, i: int, generator=None):
-        h = self.layers[f'dec{i}_b0'](z, generator)
+        h = self.layers[f'dec{i}_b0'](z.to(self.compute_dtype), generator)
         h = self.layers[f'dec{i}_b1'](h, generator)
         return self.layers[f'dec{i}_out'](h)
 

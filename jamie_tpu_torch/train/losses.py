@@ -9,6 +9,9 @@ Reference parity: `jamie_tpu/train/losses.py` (jamie/jamie.py:614-728):
         dim-normalized (the diagonal of the reference's BxB matrix,
         computed directly)
   (iv)  F reconstruction ||combined0 - F combined1||^2
+
+Dtypes promote as in jamie_tpu (losses.py:56, 90): the data is cast to the
+reconstruction's dtype, F to the combined latents'.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def reconstruction_loss(reconstructed: Sequence[torch.Tensor],
     """Sum over modalities of MSE (jamie.py:637-642)."""
     total = 0.0
     for rec, x in zip(reconstructed, data):
-        total = total + torch.mean(torch.mean((rec - x) ** 2, dim=1))
+        total = total + torch.mean(torch.mean((rec - x.to(rec.dtype)) ** 2,
+                                              dim=1))
     return total
 
 
@@ -73,7 +77,7 @@ def latent_consistency_loss(embedded: Sequence[torch.Tensor],
 def f_reconstruction_loss(combined0: torch.Tensor, combined1: torch.Tensor,
                           F: torch.Tensor):
     """||combined0 - F @ combined1||^2, mean-reduced (jamie.py:663-667)."""
-    diff = combined0 - F @ combined1
+    diff = combined0 - F.to(combined1.dtype) @ combined1
     return torch.mean(torch.mean(diff * diff, dim=1))
 
 

@@ -15,6 +15,14 @@ losses once per epoch, which is where logging and the early-stop decision
 happen; an early stop therefore leaves the state exactly where jamie_tpu's
 `lax.cond`-skipped epochs leave it.
 
+A fit's complete state is a `FitState` (jamie_tpu's `TrainState`,
+:64-73): the flat parameters and BatchNorm stats, the Adam moments and
+step count, the generator that draws the epoch sampler, dropout and noise,
+and the early-stop bookkeeping. `fit(state=...)` resumes from one and equals
+the uninterrupted fit; `fit(checkpoint_dir=..., checkpoint_every=...)`
+snapshots it with `torch.save` and `metrics_path` writes one JSONL record per
+`epoch_chunk` epochs (:573-708, 790-813).
+
 P and F come in every form jamie_tpu's trainer takes (:110-207), and no
 form but a dense one is ever built as an (N0, N1) matrix:
 - P: a dense matrix, the 'identity' sentinel, a 1-D diagonal prior mask, or
@@ -28,15 +36,19 @@ the indices (`_p_sub`, `_f_sub`), and the sampling regime follows the form
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import time
 import warnings
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import JamieConfig
 from ..core.dtypes import resolve_device
+from ..core.timing import device_memory_stats
 from ..ops.lowrank import LowRankF
 from ..ops.sparse import (SparseRows, as_sparse_rows, is_sparse_input,
                           sparse_gather_batch)
@@ -125,6 +137,24 @@ class FlatClipAdam:
         self.zero_grad()
 
 
+@dataclasses.dataclass
+class FitState:
+    """Everything a fit continues from (jamie_tpu's TrainState): the flat
+    parameter vector (`FlatClipAdam.flat`'s layout), the BatchNorm running
+    stats by buffer name, Adam's moments and step count, the generator's
+    state, the next epoch to run and the early-stop bookkeeping."""
+    params: torch.Tensor
+    batch_stats: Dict[str, torch.Tensor]
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int
+    rng: torch.Tensor
+    epoch: int = 0
+    best_running_loss: float = float('inf')
+    streak: int = 0
+    stopped: bool = False
+
+
 class JamieTrainer:
     """Owns the model, data, optimizer and generator of one fit."""
 
@@ -176,6 +206,11 @@ class JamieTrainer:
         self.optimizer = FlatClipAdam(self.model.parameters(), config.model_lr)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.manual_seed)
+        # the model's parameters and stats as given: what init_state starts
+        # every fresh fit from
+        self._init_params = self.optimizer.flat.detach().clone()
+        self._init_stats = {k: v.detach().clone()
+                            for k, v in self._stats().items()}
 
     # ------------------------------------------------------------ P/F forms
     def _init_p(self, P) -> None:
@@ -299,7 +334,8 @@ class JamieTrainer:
         rec = reconstruction_loss(x_hat, [x0, x1])
         cos = latent_consistency_loss(zs, combined, cfg.dist_method)
         fl = f_reconstruction_loss(combined[0], combined[1], Fn)
-        vec = torch.stack([kl, rec, cos, fl]) * self.loss_weights
+        vec = torch.stack([t.float() for t in (kl, rec, cos, fl)]) \
+            * self.loss_weights
         return torch.sum(vec), vec
 
     def train_step(self, idx0, idx1, epoch_idx: int, noise=None):
@@ -310,72 +346,202 @@ class JamieTrainer:
         self.optimizer.step()
         return loss.detach(), vec.detach()
 
+    # ------------------------------------------------------------ fit state
+    def _stats(self) -> Dict[str, torch.Tensor]:
+        """The model's BatchNorm running stats, by buffer name (live)."""
+        return dict(self.model.named_buffers())
+
+    def init_state(self, seed: Optional[int] = None) -> FitState:
+        """The state a fresh fit starts from: the parameters and stats the
+        model had when this trainer was built, zero Adam moments, and the
+        generator seeded with `seed` (default `config.manual_seed`). The
+        model's own seed (CoupledVAE(seed=...)) draws its initialization."""
+        seed = self.config.manual_seed if seed is None else seed
+        opt = self.optimizer
+        return FitState(
+            params=self._init_params.clone(),
+            batch_stats={k: v.clone() for k, v in self._init_stats.items()},
+            mu=torch.zeros_like(opt.flat), nu=torch.zeros_like(opt.flat),
+            count=0,
+            rng=torch.Generator(device=self.device).manual_seed(
+                seed).get_state())
+
+    def _capture(self, epoch: int, best, streak: int,
+                 stopped: bool) -> FitState:
+        """A copy of the live state: later steps do not change it."""
+        opt = self.optimizer
+        return FitState(
+            params=opt.flat.detach().clone(),
+            batch_stats={k: v.detach().clone()
+                         for k, v in self._stats().items()},
+            mu=opt.mu.clone(), nu=opt.nu.clone(), count=opt.count,
+            rng=self.generator.get_state(), epoch=int(epoch),
+            best_running_loss=float(best), streak=int(streak),
+            stopped=bool(stopped))
+
+    @torch.no_grad()
+    def _load_params(self, params, batch_stats) -> None:
+        """Copy parameters and stats into the live buffers IN PLACE: the
+        model's parameters are views of FlatClipAdam.flat, which a new
+        tensor would silently detach."""
+        live = self._stats()
+        if (params.numel() != self.optimizer.flat.numel()
+                or set(batch_stats) != set(live)):
+            raise ValueError(f'a state of {params.numel()} parameters and '
+                             f'stats {sorted(batch_stats)[:2]}... does not '
+                             f'fit this model ({self.optimizer.flat.numel()} '
+                             'parameters)')
+        self.optimizer.flat.copy_(params)
+        for k, v in batch_stats.items():
+            live[k].copy_(v)
+
+    @torch.no_grad()
+    def _load(self, state: FitState) -> None:
+        """Make `state` the live state (in place; `state` is not changed)."""
+        self._load_params(state.params, state.batch_stats)
+        opt = self.optimizer
+        opt.mu.copy_(state.mu)
+        opt.nu.copy_(state.nu)
+        opt.count = int(state.count)
+        self.generator.set_state(state.rng.cpu())
+
+    def save_fit_state(self, path: str, state: FitState) -> None:
+        """torch.save the state at `path`, resolved to an absolute path
+        (jamie_tpu/train/trainer.py:796-804)."""
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({f.name: getattr(state, f.name)
+                    for f in dataclasses.fields(state)}, path)
+
+    def restore_fit_state(self, path: str) -> FitState:
+        """The state a save_fit_state file holds (tensors on the CPU; fit
+        and final_embed copy them into the live buffers, and raise
+        ValueError for a state of another model)."""
+        return FitState(**torch.load(os.path.abspath(path),
+                                     map_location='cpu', weights_only=True))
+
     # ------------------------------------------------------------------ fit
-    def fit(self):
-        """Run the training loop; returns the trained model."""
+    def _epoch(self, epoch: int):
+        """Train one epoch; (its L batch losses, the last batch's loss
+        vector) on the host, the epoch's one read."""
         cfg = self.config
         L = self.len_dataloader
+        idx0_all, idx1_all = self.epoch_sampler(self.generator)
+        losses, vec = [], None
+        for b in range(L):
+            if cfg.batch_step:
+                loss, vec = self.train_step(idx0_all[b], idx1_all[b], epoch)
+            else:   # gradients accumulate; one step per epoch
+                loss, vec = self.batch_loss(idx0_all[b], idx1_all[b], epoch)
+                loss.backward()
+                loss, vec = loss.detach(), vec.detach()
+            losses.append(loss)
+        if not cfg.batch_step:
+            self.optimizer.step()
+        host = torch.cat([torch.stack(losses), vec]).cpu().numpy()
+        return host[:L], host[L:]
+
+    def fit(self, state: Optional[FitState] = None, seed: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            metrics_path: Optional[str] = None) -> FitState:
+        """Run the training loop from `state` (a fresh `init_state(seed)`
+        when None) up to `config.epoch_DNN` epochs; returns the final
+        state, which the model also holds. `state` itself is copied in and
+        stays valid.
+
+        Every `config.epoch_chunk` epochs (counted from the state's epoch)
+        closes a chunk: with `metrics_path`, one JSONL record of jamie_tpu's
+        keys (epoch range, loss means, seconds, device memory; an early
+        stop ends the last range at the epochs that ran); with
+        `checkpoint_dir` and `checkpoint_every`, a snapshot
+        `{checkpoint_dir}/epoch_{chunk end}` once `checkpoint_every` epochs
+        have passed since the last one. `config.dispatch_lookahead`, which
+        pipelines jamie_tpu's jitted chunks, has no meaning in this eager
+        loop and is ignored."""
+        cfg = self.config
         self.loss_history: Dict[str, List[float]] = {n: [] for n in LOSS_NAMES}
         self.epoch_losses: List[float] = []
         self.epochs_run = 0
-        best = np.float32(np.inf)
-        streak = 0
-        t0 = time.perf_counter()
+        state = self.init_state(seed) if state is None else state
+        self._load(state)
+        epoch, streak, stopped = state.epoch, state.streak, state.stopped
+        best = np.float32(state.best_running_loss)
+        last_ckpt = epoch
+        metrics_f = open(metrics_path, 'a') if metrics_path else None
+        t0 = chunk_t0 = time.perf_counter()
         self.model.train()
         self.optimizer.zero_grad()
-        for epoch in range(cfg.epoch_DNN):
-            idx0_all, idx1_all = self.epoch_sampler(self.generator)
-            losses, vec = [], None
-            for b in range(L):
-                if cfg.batch_step:
-                    loss, vec = self.train_step(idx0_all[b], idx1_all[b],
-                                                epoch)
-                else:   # gradients accumulate; one step per epoch
-                    loss, vec = self.batch_loss(idx0_all[b], idx1_all[b],
-                                                epoch)
-                    loss.backward()
-                    loss, vec = loss.detach(), vec.detach()
-                losses.append(loss)
-            if not cfg.batch_step:
-                self.optimizer.step()
-            # the one host read of the epoch: L batch losses + the last vec
-            host = torch.cat([torch.stack(losses), vec]).cpu().numpy()
-            batch_losses, last_vec = host[:L], host[L:]
-            epoch_loss = np.float32(np.sum(batch_losses) / np.float32(L))
-            active = np.min(batch_losses) if cfg.batch_step else epoch_loss
-
-            # Early stopping bookkeeping (jamie.py:777-792), in float32
-            past_min = epoch > cfg.min_epochs
-            improved = (best - active) > np.float32(cfg.min_increment)
-            if past_min:
-                if improved:
-                    best, streak = active, 0
-                else:
-                    streak += 1
-            stop = (past_min and streak >= cfg.max_steps_without_increment
-                    and bool(cfg.use_early_stop))
-
-            if cfg.record_loss:
-                for j, name in enumerate(LOSS_NAMES):
-                    self.loss_history[name].append(float(last_vec[j]))
-            self.epoch_losses.append(float(epoch_loss))
-            self.epochs_run += 1
-            if not np.isfinite(epoch_loss):
-                warnings.warn(
-                    'Non-finite training loss encountered; if this persists '
-                    'your lr is likely too high (reference guidance, '
-                    'jamie/model.py:236-238).')
-            if (epoch + 1) % cfg.log_debug == 0 and cfg.debug:
-                print(f'Epoch: {epoch + 1:d} - ' + '  '.join(
-                    f'{LOSS_NAMES[j]}: {last_vec[j]:.4f}'
-                    for j in range(len(LOSS_NAMES))))
-            if (epoch + 1) % cfg.log_DNN == 0:
-                print(f'epoch:[{epoch + 1:d}/{cfg.epoch_DNN}]: '
-                      f'loss:{epoch_loss:4f}')
-            if stop:
-                break
+        try:
+            while epoch < cfg.epoch_DNN and not stopped:
+                start = epoch
+                chunk_end = min(start + cfg.epoch_chunk, cfg.epoch_DNN)
+                ep_losses, vecs = [], []
+                while epoch < chunk_end and not stopped:
+                    batch_losses, last_vec = self._epoch(epoch)
+                    epoch_loss = np.float32(np.sum(batch_losses)
+                                            / np.float32(self.len_dataloader))
+                    active = (np.min(batch_losses) if cfg.batch_step
+                              else epoch_loss)
+                    # Early stopping bookkeeping (jamie.py:777-792), in f32
+                    past_min = epoch > cfg.min_epochs
+                    improved = (best - active) > np.float32(cfg.min_increment)
+                    if past_min:
+                        if improved:
+                            best, streak = active, 0
+                        else:
+                            streak += 1
+                    stopped = (past_min
+                               and streak >= cfg.max_steps_without_increment
+                               and bool(cfg.use_early_stop))
+                    self._log_epoch(epoch, epoch_loss, last_vec)
+                    ep_losses.append(epoch_loss)
+                    vecs.append(last_vec)
+                    epoch += 1
+                if metrics_f is not None:
+                    now = time.perf_counter()
+                    metrics_f.write(json.dumps({
+                        'epoch_start': start,
+                        'epoch_end': epoch,
+                        'epoch_loss_mean': float(np.mean(ep_losses)),
+                        'losses': {name: float(np.mean(np.stack(vecs)[:, j]))
+                                   for j, name in enumerate(LOSS_NAMES)},
+                        'seconds': round(now - chunk_t0, 4),
+                        'memory': device_memory_stats(self.device),
+                    }) + '\n')
+                    metrics_f.flush()
+                    chunk_t0 = now
+                if (checkpoint_dir and checkpoint_every
+                        and chunk_end - last_ckpt >= checkpoint_every):
+                    self.save_fit_state(
+                        f'{checkpoint_dir}/epoch_{chunk_end}',
+                        self._capture(epoch, best, streak, stopped))
+                    last_ckpt = chunk_end
+        finally:
+            if metrics_f is not None:
+                metrics_f.close()
         self.fit_seconds = time.perf_counter() - t0
-        return self.model
+        return self._capture(epoch, best, streak, stopped)
+
+    def _log_epoch(self, epoch: int, epoch_loss, last_vec) -> None:
+        """History and prints for one epoch (jamie.py:752-775)."""
+        cfg = self.config
+        if cfg.record_loss:
+            for j, name in enumerate(LOSS_NAMES):
+                self.loss_history[name].append(float(last_vec[j]))
+        self.epoch_losses.append(float(epoch_loss))
+        self.epochs_run += 1
+        if not np.isfinite(epoch_loss):
+            warnings.warn(
+                'Non-finite training loss encountered; if this persists '
+                'your lr is likely too high (reference guidance, '
+                'jamie/model.py:236-238).')
+        if (epoch + 1) % cfg.log_debug == 0 and cfg.debug:
+            print(f'Epoch: {epoch + 1:d} - ' + '  '.join(
+                f'{LOSS_NAMES[j]}: {last_vec[j]:.4f}'
+                for j in range(len(LOSS_NAMES))))
+        if (epoch + 1) % cfg.log_DNN == 0:
+            print(f'epoch:[{epoch + 1:d}/{cfg.epoch_DNN}]: '
+                  f'loss:{epoch_loss:4f}')
 
     # ----------------------------------------------------------- inference
     def _p_sparse_form(self):
@@ -442,10 +608,20 @@ class JamieTrainer:
                 + (1 - self.pf_ratio) * col_normalize(F))
 
     @torch.no_grad()
-    def final_embed(self) -> List[np.ndarray]:
+    def final_embed(self, state: Optional[FitState] = None) -> List[np.ndarray]:
         """Eval-mode full-dataset mu-head embeddings per modality
         (jamie.py:794-799: the reference keeps the pre-combine latents,
-        which in eval mode are the mu heads and do not depend on corr)."""
-        self.model.eval()
-        return [self.model.embed_one(x, i).cpu().numpy().astype(np.float32)
-                for i, x in enumerate(self.data)]
+        which in eval mode are the mu heads and do not depend on corr), with
+        the live parameters or, given `state`, with its parameters (the
+        live ones are put back afterwards)."""
+        if state is not None:
+            live = (self.optimizer.flat.clone(),
+                    {k: v.clone() for k, v in self._stats().items()})
+            self._load_params(state.params, state.batch_stats)
+        try:
+            self.model.eval()
+            return [self.model.embed_one(x, i).float().cpu().numpy()
+                    for i, x in enumerate(self.data)]
+        finally:
+            if state is not None:
+                self._load_params(*live)

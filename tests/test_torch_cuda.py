@@ -318,3 +318,98 @@ def test_tsne_gradient_card_matches_cpu(cuda):
         g = tsne._kl_grad(P, Y, exag)
         g_dev = tsne._kl_grad(P.to(cuda), Y.to(cuda), exag).cpu()
         assert float((g_dev - g).abs().max()) <= 1e-3 * float(g.abs().max())
+
+
+@pytest.mark.parametrize('train', [False, True])
+def test_bf16_forward_card_matches_cpu(cuda, train):
+    """compute_dtype bfloat16 on the card (cuBLAS bf16 GEMMs) against the
+    same model on the CPU, the same noise injected in train mode: every
+    output within 1e-2 of its largest entry (bf16 rounding orders, as
+    between the port and jamie_tpu on the CPU), dtypes as on the CPU."""
+    from jamie_tpu_torch.models import CoupledVAE
+    rng = np.random.RandomState(9)
+    xs = [rng.randn(64, d).astype(np.float32) for d in (40, 24)]
+    corr = rng.rand(64, 64).astype(np.float32)
+    noise = [torch.as_tensor(rng.randn(64, 8).astype(np.float32))
+             for _ in xs]
+    outs = []
+    for dev in (cuda, torch.device('cpu')):
+        m = CoupledVAE((40, 24), 8, dropout=0.0, seed=3,
+                       compute_dtype=torch.bfloat16).to(dev).train(train)
+        with torch.no_grad():
+            out = m([torch.as_tensor(x, device=dev) for x in xs],
+                    torch.as_tensor(corr, device=dev),
+                    noise=[n.to(dev) for n in noise])
+        outs.append([[t.cpu() for t in group] for group in out])
+    for g_card, g_cpu in zip(*outs):
+        for a, b in zip(g_card, g_cpu):
+            assert a.dtype == b.dtype
+            a, b = a.float(), b.float()
+            assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+
+def test_occlusion_card_matches_cpu(cuda, tmp_path):
+    """occlusion_impact_device's batched forward on the card against the
+    CPU on one model (fitted on the CPU, loaded on both): the baseline and
+    every impact within 1e-5 (float32, TF32 off), for both spaces. Both
+    modalities carry noise, so no PCA column of the ground truth is
+    rounding noise (a correlation with one would hang on the last bits)."""
+    from jamie_tpu_torch import JAMIE
+    from jamie_tpu_torch.evaluation import occlusion_impact_device
+    rng = np.random.RandomState(10)
+    z = rng.randn(200, 5).astype(np.float32)
+    data = [np.maximum(z @ rng.randn(5, 60) + 0.3 * rng.randn(200, 60), 0),
+            z @ rng.randn(5, 30) + 0.3 * rng.randn(200, 30)]
+    data = [d.astype(np.float32) for d in data]
+    fit = JAMIE(device='cpu', epoch_DNN=30, min_epochs=5, batch_size=64,
+                pca_dim=(16, 12), use_f_tilde=False, use_early_stop=False,
+                dropout=0.0, log_DNN=10_000)
+    fit.fit_transform(dataset=data)
+    path = str(tmp_path / 'm.npz')
+    fit.save_model(path)
+    card = JAMIE(device=cuda).load_model(path)
+    for space in ('input', 'latent'):
+        got = occlusion_impact_device(card, data[0], data[1],
+                                      batch_features=16, space=space)
+        want = occlusion_impact_device(fit, data[0], data[1],
+                                       batch_features=16, space=space)
+        assert abs(got[0] - want[0]) <= 1e-5
+        assert np.abs(got[1] - want[1]).max() <= 1e-5
+
+
+def test_resume_is_bit_exact_on_card(cuda, tmp_path):
+    """On the card, 10 epochs + a snapshot + a resumed 10 equal the
+    uninterrupted 20 bit for bit (the generator's state, dropout and the
+    cuBLAS GEMMs included)."""
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    rng = np.random.RandomState(11)
+    x = [rng.randn(96, d).astype(np.float32) for d in (30, 20)]
+
+    def trainer(epochs):
+        cfg = JamieConfig(epoch_DNN=epochs, min_epochs=5, batch_size=32,
+                          use_early_stop=False, log_DNN=1000, epoch_chunk=5)
+        return JamieTrainer(cfg, CoupledVAE((30, 20), 8, dropout=0.3),
+                            x, np.eye(96, dtype=np.float32),
+                            np.zeros((96, 96), np.float32), device=cuda)
+    whole = trainer(20)
+    full = whole.fit()
+    trainer(10).fit(checkpoint_dir=str(tmp_path), checkpoint_every=10)
+    resumed = trainer(20)
+    final = resumed.fit(state=resumed.restore_fit_state(
+        str(tmp_path / 'epoch_10')))
+    assert torch.equal(final.params, full.params)
+    assert torch.equal(final.mu, full.mu) and torch.equal(final.nu, full.nu)
+    for a, b in zip(resumed.final_embed(), whole.final_embed()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_memory_stats_on_card(cuda):
+    """jamie_tpu's keys from torch.cuda.memory_stats / mem_get_info."""
+    from jamie_tpu_torch.core.timing import device_memory_stats
+    x = torch.ones(1 << 20, device=cuda)
+    stats = device_memory_stats(cuda)
+    assert set(stats) == {'bytes_in_use', 'peak_bytes_in_use', 'bytes_limit'}
+    assert stats['peak_bytes_in_use'] >= stats['bytes_in_use'] >= x.numel() * 4
+    assert stats['bytes_limit'] > stats['peak_bytes_in_use']

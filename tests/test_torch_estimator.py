@@ -88,10 +88,11 @@ def test_checkpoints_cross_load(fitted, tmp_path, direction):
     ({'mesh': object()}, 14),
 ])
 def test_unported_options_raise(kwargs, item):
-    """Options of items 13 and 14 still raise, naming their item; those of
-    item 12 (the t-SNE projection, the UMAP preclass, corr_method='jamie')
-    are ported and build."""
-    if item == 12:
+    """A device mesh (item 14) still raises, naming its item; the options
+    of items 12 (the t-SNE projection, the UMAP preclass,
+    corr_method='jamie') and 13 (bf16 compute, mid-fit snapshots, the
+    metrics log) are ported and build."""
+    if item in (12, 13):
         assert JAMIE(device='cpu', **kwargs).config.nondefault_kwargs() == kwargs
         return
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md item {item}'):
@@ -103,6 +104,36 @@ def test_large_dataset_options_build():
     for kw in ({'corr_landmarks': 64}, {'f_top_k': 8},
                {'corr_landmarks': 32, 'corr_factor_layout': 'sparse'}):
         assert JAMIE(device='cpu', **kw).config.nondefault_kwargs() == kw
+
+
+@pytest.mark.parametrize('rows', ['same', 'other'])
+def test_refit_reuses_p_and_f_or_raises(synthetic_pair, rows):
+    """A second fit_transform on one estimator keeps the first fit's P and
+    F (self.P, self.match_result), as jamie_tpu does: with the same row
+    counts it trains on them again (no new solve); with other row counts
+    the port raises ValueError where jamie_tpu trains on the top-left
+    block of the stale P and F (a deliberate deviation)."""
+    data, _ = synthetic_pair
+    kw = dict(SHORT, distance_mode='euclidean', epoch_pd=20)
+    tj = JAMIE(device='cpu', **kw)
+    first = tj.fit_transform(dataset=data)
+    F, P = tj.match_result[0], tj.P
+    jj = JaxJAMIE(use_mesh=False, **kw)
+    jj.fit_transform(dataset=data)
+    jF = jj.match_result[0]
+    if rows == 'same':
+        other = [d[::-1].copy() for d in data]
+        again = tj.fit_transform(dataset=other)
+        jj.fit_transform(dataset=other)
+        assert tj.match_result[0] is F and tj.P is P
+        assert jj.match_result[0] is jF
+        assert again[0].shape == first[0].shape and np.isfinite(again[0]).all()
+        return
+    fewer = [d[:100] for d in data]
+    with pytest.raises(ValueError, match='rows'):
+        tj.fit_transform(dataset=fewer)
+    out = jj.fit_transform(dataset=fewer)
+    assert out[0].shape == (100, 32)
 
 
 # ------------------------------------------------ the large-dataset route

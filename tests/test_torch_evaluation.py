@@ -105,3 +105,107 @@ def test_blocked_foscttm_uses_the_exact_diagonal(monkeypatch):
     monkeypatch.setattr(jev, '_FOSCTTM_BLOCK_ENTRIES', 1000)
     ours = tev.test_closer([a, b], device='cpu')
     assert ours == pytest.approx(jev.test_closer([a, b]), abs=1e-12)
+
+
+# ------------------------------------------------------- occlusion, sweeps
+def _impact_problem(seed, n, w):
+    x = np.random.RandomState(seed).randn(n, len(w))
+    w = np.asarray(w, float)
+
+    def function(data, idx=None):
+        return data @ w
+
+    def perf(logits, true):
+        return np.corrcoef(logits, true)[0, 1]
+    return x, x @ w, function, perf
+
+
+def _impact_both(x, y, function, perf, **kw):
+    ours = tev.evaluate_impact(function, perf, x, y, **kw)
+    ref = jev.evaluate_impact(function, perf, x, y, **kw)
+    for o, r in zip(ours, ref):
+        np.testing.assert_array_equal(o, r)
+    return ours
+
+
+def test_evaluate_impact_host():
+    """tests/test_evaluation.py:172-190 in both packages: the dominant
+    feature hurts most when occluded; the outputs are equal."""
+    w = np.full(6, 0.1)
+    w[2] = 5.0
+    baseline, performance, _ = _impact_both(*_impact_problem(0, 50, w))
+    assert baseline > 0.99
+    assert np.argmin(performance) == 2
+
+
+def test_evaluate_impact_keep_sequential_restores():
+    """tests/test_evaluation.py:237-256: keep mode restores its occluded
+    columns even under sequential=True."""
+    problem = _impact_problem(1, 40, [4.0, 3.0, 2.0, 1.0])
+    _, seq, _ = _impact_both(*problem, mode='keep', sequential=True)
+    _, plain, _ = _impact_both(*problem, mode='keep', sequential=False)
+    np.testing.assert_allclose(seq, plain, atol=1e-12)
+
+
+@pytest.mark.parametrize('kw', [dict(sequential=True),
+                                dict(scan=2, scan_samples=20),
+                                dict(idx=[3, 0], mode='keep')])
+def test_evaluate_impact_options_match(kw):
+    """Sequential replace, the preliminary scan (same np.random draws) and
+    an explicit feature list give jamie_tpu's outputs exactly."""
+    _, _, idx = _impact_both(*_impact_problem(2, 40, [1.0, 3.0, 0.5, 2.0]),
+                             **kw)
+    if 'scan' in kw:
+        assert len(idx) == 2
+
+
+def test_partial_draws_the_same_masks(monkeypatch):
+    """test_partial's P masks come from np.random.choice, draw for draw as
+    in jamie_tpu: with the same seed both packages build the same priors
+    (the estimators are replaced by recorders, so nothing is fitted)."""
+    import jamie_tpu.estimator as jest
+    import jamie_tpu_torch.estimator as test_
+    seen = {}
+
+    def recorder(key):
+        class Recorder:
+            def __init__(self, P, **kwargs):
+                seen.setdefault(key, []).append(np.diag(P).copy())
+
+            def fit_transform(self, dataset):
+                return dataset
+
+            def test_LabelTA(self, data, types):
+                return float(len(types))
+
+            def test_closer(self, data):
+                return 0.5
+        return Recorder
+
+    monkeypatch.setattr(jest, 'JAMIE', recorder('jax'))
+    monkeypatch.setattr(test_, 'JAMIE', recorder('torch'))
+    data = [np.zeros((30, 3)), np.zeros((30, 2))]
+    types = [np.arange(30) % 3] * 2
+    out = {}
+    for key, mod in (('jax', jev), ('torch', tev)):
+        np.random.seed(4)
+        out[key] = mod.test_partial(data, types, fraction_range=(0, .3, 1),
+                                    plot=False)
+    assert out['jax'][0] == out['torch'][0]
+    assert [int(m.sum()) for m in seen['torch']] == [0, 9, 30]
+    for a, b in zip(seen['jax'], seen['torch']):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_partial_fits(synthetic_pair):
+    """A short real sweep on the CPU, reusing one F (match_result): one
+    finite LTA and FOSCTTM per fraction."""
+    data, labels = synthetic_pair
+    kw = dict(device='cpu', epoch_DNN=10, min_epochs=2, batch_size=64,
+              pca_dim=None, use_early_stop=False, dropout=0.0, log_DNN=10_000)
+    F = [np.full((120, 120), 1 / 120, np.float32)]
+    acc, fr = tev.test_partial(data, labels, fraction_range=(0, 0.5, 1),
+                               plot=False, match_result=F, **kw)
+    assert list(fr) == [0, 0.5, 1]
+    assert len(acc['lta']) == len(acc['foscttm']) == 3
+    assert np.isfinite(acc['lta']).all() and np.isfinite(acc['foscttm']).all()

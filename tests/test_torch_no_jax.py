@@ -1,6 +1,8 @@
 """jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax,
-jamie_tpu, sklearn or umap (the card's machine has none of them), and the
-port runs on the CPU only when asked to."""
+jamie_tpu, sklearn or umap (the card's machine has none of them), the port
+runs without h5py, pandas, matplotlib and shap (optional: only the readers,
+the plot and the shap route that need one import it), and the port runs
+on the CPU only when asked to."""
 
 import ast
 import pathlib
@@ -12,6 +14,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'jamie_tpu', 'sklearn', 'umap')
+# optional packages the card's machine lacks: never loaded by importing or
+# running the port's workflow (readers of other formats, plots and the shap
+# package's route import them inside the function that needs them)
+OPTIONAL = ('h5py', 'pandas', 'matplotlib', 'shap')
 
 
 def _blocked(name: str) -> bool:
@@ -30,7 +36,7 @@ def test_blocker_rule():
 def test_import_with_jax_blocked():
     code = f'''
 import sys
-BLOCKED = {BLOCKED!r}
+BLOCKED = {BLOCKED + OPTIONAL!r}
 class Block:
     def find_spec(self, name, path=None, target=None):
         if any(name == b or name.startswith(b + '.') for b in BLOCKED):
@@ -59,6 +65,38 @@ for mode in DISTANCE_MODES:
 tsne.tsne_embed(x, 2, perplexity=3, n_iters=5, device='cpu')
 umap.umap_embed(x, 2, n_epochs=5, device='cpu')
 lowrank.lowrank_corr(x @ x.T, x @ x.T, dim=3, epochs=3, device='cpu')
+# the raw-file workflow: read, normalize, fit, explain
+import os, tempfile
+from scipy import io as sio
+from jamie_tpu_torch import io, normalize, rdata
+from jamie_tpu_torch.evaluation import (ShapValues, evaluate_impact,
+    kernel_shap, occlusion_impact_device, shap_explain, test_partial)
+tmp = tempfile.mkdtemp()
+counts = np.random.RandomState(1).poisson(2.0, (24, 6))
+sio.mmwrite(os.path.join(tmp, 'matrix.mtx'), scipy.sparse.coo_matrix(counts.T))
+open(os.path.join(tmp, 'barcodes.tsv'), 'w').write('b\\n' * 24)
+open(os.path.join(tmp, 'features.tsv'), 'w').write('g\\tG\\n' * 6)
+X = normalize.normalize_log_cpm(io.read_10x_mtx(tmp)[0]).astype('float32')
+for fn, arg in ((io.read_h5ad, 'a.h5ad'), (io.load_labels, 'a.csv')):
+    try:
+        fn(os.path.join(tmp, arg))
+    except ImportError as e:
+        assert 'h5py' in str(e) or 'pandas' in str(e), e
+try:
+    rdata.load_rda(os.path.join(tmp, 'barcodes.tsv'))
+except ValueError:
+    pass
+data = [X.toarray(), np.random.RandomState(2).rand(24, 4).astype('float32')]
+kw = dict(device='cpu', epoch_DNN=2, pca_dim=None, use_f_tilde=False,
+          dropout=0.0, batch_size=12, log_DNN=100)
+jm = JAMIE(**kw)
+jm.fit_transform(dataset=data)
+occlusion_impact_device(jm, data[0], data[1], batch_features=4)
+assert isinstance(shap_explain(jm, data[0][:2], max_evals=16), ShapValues)
+evaluate_impact(lambda d, idx=None: d.sum(1), lambda a, b: float(a.mean()),
+                data[0], None)
+test_partial(data, [np.arange(24) % 2] * 2, fraction_range=(0, 1),
+             plot=False, **kw)
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED))
 print('leaked', leaked, tuple(F.shape))
