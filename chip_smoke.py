@@ -72,7 +72,14 @@
    from the epoch-10 snapshot bit-equal to the fit, the bf16 checkpoint
    served, occlusion over all 3000 genes, native SHAP and test_partial;
    one `workflow:` line (see workflow_phase).
-18. A `kernels` JSON line, the nvidia-smi line, and as the last line
+18. Analysis and baselines (J): compare_methods on the 1047-cell data
+   (NLMA, MMD-MA cut to 2001 iterations, UnionCom with every default on the
+   raw modalities; LMA and CCA on PCA-512 views), each against jamie_tpu's
+   CPU FOSCTTM where one exists; the singular raw LMA raising; predict_knn
+   and predict_nn; the silhouette, knn_dist and gw_loss through K3's
+   autograd Function, card against CPU or plain; MMD-MA card against CPU at
+   256 cells; one `compare:` and one `analysis:` line (see compare_phase).
+19. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -114,6 +121,14 @@ TRANSFORM_REL = 0.15
 # data almost none of them is the true cell, so neither package integrates
 # it better than chance.
 TSNE_FOSCTTM_LIMIT = 0.5836
+
+# Phase J's references: jamie_tpu's own FOSCTTM on this generator's 1047
+# cells on the CPU (jamie_tpu.compare, output_dim 32): NLMA on the raw
+# modalities, LMA and CCA on jamie_tpu's Preprocessor PCA-512 views (on the
+# raw 3000 + 5000 features their B = Z^T D Z is singular). The port must
+# land within COMPARE_FOSCTTM_TOL of each.
+COMPARE_FOSCTTM_REF = {'NLMA': 5.929526196268853e-06, 'LMA': 0.0, 'CCA': 0.0}
+COMPARE_FOSCTTM_TOL = 0.02
 
 
 def fail(msg):
@@ -1389,6 +1404,215 @@ def workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line, epochs=20,
           flush=True)
 
 
+def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
+                  knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
+                  nn_epochs=50, small_n=256, small_steps=200,
+                  foscttm_ref=COMPARE_FOSCTTM_REF):
+    """J. The analysis and baseline modules at full width, each through
+    the entry point a user calls, on the card (device=None).
+
+    compare_methods, one method at a time with the counts at 0 just before
+    it: NLMA, MMD-MA (`mmdma_iters`, the quick setting of
+    examples/comparison.py; the only cut) and UnionCom (every default unless
+    `unioncom_kw`: geodesic, epoch_pd 20000, tsne_iters 3000; K1 exactly
+    epoch_pd, K3 at least 2 + 2 tsne_iters) on the raw modalities; LMA and
+    CCA on Preprocessor PCA-`pca_dim` views. Every embedding (n, 32) and
+    finite; NLMA, LMA and CCA within COMPARE_FOSCTTM_TOL of `foscttm_ref`;
+    lma_embed on the raw modalities raises the singular-B ValueError.
+    Imputation: predict_knn(RNA, ATAC, k=5), K3 launched, 64 rows against
+    float64 neighbours on the host within 1e-5; predict_nn on the PCA
+    views for `nn_epochs` epochs, its mean per-feature Pearson r. Analysis:
+    the silhouette of the NLMA and UnionCom embeddings per modality, card
+    against CPU within 1e-5; knn_dist on the RNA PCA-`knn_pca_dim` view
+    (on the PCA-512 view exp(-d^2) underflows in float32 for most
+    neighbour pairs, in both packages) connected, symmetric, in (0, 1];
+    gw_loss and its gradient on seeded 1047 x 32 embeddings through K3's
+    autograd Function against autograd through pairwise_euclidean_plain
+    with a sqrt guarded at 0 (value within 1e-5 relative, gradient within
+    1e-4 of its largest entry, finite); imputation_feature_scores and
+    _sign_test_p; none of them imports matplotlib. Card against CPU:
+    _mmdma_opt from injected a1, a2 on the first `small_n` cells for
+    `small_steps` steps, bandwidths by mmdma_embed's median heuristic,
+    within 1e-4 of the embeddings' largest entry."""
+    from scipy.sparse.csgraph import connected_components
+
+    from jamie_tpu_torch import compare, figures, nn_funcs, utils
+    from jamie_tpu_torch.models.baselines import predict_nn
+    from jamie_tpu_torch.ops.pairwise import pairwise_euclidean_plain
+    from jamie_tpu_torch.preprocess import Preprocessor
+    n = data[0].shape[0]
+    lab2 = [labels, labels]
+    secs = {}
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    views = clock('pca_views', lambda: [
+        Preprocessor.fit(x, pca_dim=pca_dim).transform_fit() for x in data])
+
+    # The five baselines through compare_methods
+    unioncom_kw = dict(unioncom_kw or {})
+    runs = (('NLMA', data, {}), ('MMD-MA', data, {'n_iters': mmdma_iters}),
+            ('UnionCom', data, unioncom_kw), ('LMA', views, {}),
+            ('CCA', views, {}))
+    results, counts = {}, {}
+    for name, inputs, kw in runs:
+        ops.reset_launch_counts()
+        results[name] = clock(name, lambda: compare.compare_methods(
+            inputs, lab2, methods=(name,), method_kwargs={name: kw})[name])
+        counts[name] = ops.launch_counts()
+    for name, r in results.items():
+        if not all(e.shape == (n, 32) and np.isfinite(e).all()
+                   for e in r['embeddings']):
+            fail(f'{name}: embeddings {[e.shape for e in r["embeddings"]]} '
+                 f'or not finite')
+    off = {name: abs(results[name]['foscttm'] - ref)
+           for name, ref in foscttm_ref.items()}
+    epoch_pd = unioncom_kw.get('epoch_pd', 20000)
+    k3_min = 2 + 2 * unioncom_kw.get('tsne_iters', 3000)
+    uc = counts['UnionCom']
+    try:
+        compare.lma_embed(data)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    summary = {name: dict(seconds=round(secs[name], 3),
+                          foscttm=r['foscttm'], lta=r['lta'],
+                          launches=counts[name])
+               for name, r in results.items()}
+    print(f'compare: {smi_line} | ' + json.dumps(summary), flush=True)
+    print(f'compare: MMD-MA {mmdma_iters} iterations, '
+          f'{secs["MMD-MA"] / mmdma_iters * 1e3:.4f} ms per iteration '
+          f'(36 runs batched, setup and scoring included); FOSCTTM off '
+          f'jamie_tpu\'s {off} (limit {COMPARE_FOSCTTM_TOL}); UnionCom K1 '
+          f'{uc["fused_pd_grad_update"]} (expected {epoch_pd}), K3 '
+          f'{uc["pairwise_euclidean"]} (at least {k3_min}); raw LMA raised: '
+          f'{raised is not None}', flush=True)
+    if not all(v <= COMPARE_FOSCTTM_TOL for v in off.values()):
+        fail(f'FOSCTTM off jamie_tpu\'s by {off}')
+    if (uc['fused_pd_grad_update'] != epoch_pd
+            or uc['pairwise_euclidean'] < k3_min):
+        fail(f'UnionCom launches {uc}: K1 {epoch_pd}, K3 >= {k3_min} expected')
+    if raised is None or 'exceeds the rank' not in raised:
+        fail(f'lma_embed on the raw modalities did not raise the singular-B '
+             f'ValueError ({raised})')
+
+    # Imputation baselines
+    ops.reset_launch_counts()
+    knn = clock('predict_knn', lambda: utils.predict_knn(data[0], data[1],
+                                                         k=5))
+    knn_k3 = ops.launch_counts()['pairwise_euclidean']
+    rows = np.random.RandomState(0).choice(n, 64, replace=False)
+    x64 = data[0].astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    d64 = sq[rows, None] + sq[None] - 2 * x64[rows] @ x64.T
+    nearest = np.argsort(d64, axis=1, kind='stable')[:, :5]
+    knn_err = float(np.abs(knn[rows] - data[1].astype(np.float64)[nearest]
+                           .mean(1)).max())
+    nn_pred = clock('predict_nn', lambda: predict_nn(views[0], views[1],
+                                                     epochs=nn_epochs))
+    nn_r = float(np.nanmean(figures.imputation_feature_scores(
+        nn_pred, views[1], 'pearson', rng=np.random.RandomState(0))[0]))
+    if not (knn_k3 >= 1 and knn_err <= 1e-5 and np.isfinite(nn_pred).all()
+            and np.isfinite(nn_r)):
+        fail(f'imputation baselines: predict_knn K3 {knn_k3}, 64-row error '
+             f'{knn_err}; predict_nn r {nn_r}')
+
+    # Analysis
+    sil_err = 0.0
+    for name in ('NLMA', 'UnionCom'):
+        for e in results[name]['embeddings']:
+            card = clock('silhouette', lambda: figures.silhouette_samples(
+                e, labels))
+            sil_err = max(sil_err, float(np.abs(
+                card - figures.silhouette_samples(e, labels,
+                                                  device='cpu')).max()))
+    view16 = Preprocessor.fit(data[0], pca_dim=knn_pca_dim).transform_fit()
+    graph = clock('knn_dist', lambda: nn_funcs.knn_dist(view16))
+    edges = graph[graph > 0]
+    knn_ok = (connected_components(graph > 0)[0] == 1
+              and np.array_equal(graph, graph.T) and edges.size > 0
+              and float(edges.max()) <= 1.0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    embs = [torch.randn(n, 32, device=dev, generator=g) for _ in range(2)]
+
+    def gw(plain):
+        xs = [e.clone().requires_grad_(True) for e in embs]
+        if plain:
+            ds = []
+            for x in xs:
+                d2 = pairwise_euclidean_plain(x, squared=True)
+                live = d2 > 0
+                ds.append(torch.where(
+                    live, torch.sqrt(torch.where(live, d2, 1.0)), 0.0))
+            loss = torch.sum(torch.square(ds[0] - ds[1]))
+        else:
+            loss = nn_funcs.gw_loss(xs)
+        return float(loss.detach()), torch.autograd.grad(loss, xs)
+
+    ops.reset_launch_counts()
+    gw_k, grad_k = clock('gw_loss', lambda: gw(False))
+    gw_k3 = ops.launch_counts()['pairwise_euclidean']
+    gw_p, grad_p = gw(True)
+    gw_rel = abs(gw_k - gw_p) / abs(gw_p)
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grad_k, grad_p))
+    grad_finite = all(bool(torch.isfinite(a).all()) for a in grad_k)
+    auroc, _ = figures.imputation_feature_scores(
+        knn, data[1], 'auroc', rng=np.random.RandomState(0))
+    ok = auroc[np.isfinite(auroc)]
+    sign_p = figures._sign_test_p(int((ok > 0.5).sum()), int(ok.size))
+    plots_loaded = sorted(m for m in ('matplotlib', 'seaborn', 'pandas')
+                          if m in sys.modules)
+
+    # MMD-MA card against CPU on small_n cells, injected inits
+    rng = np.random.RandomState(1)
+    Ks = []
+    for x in data:
+        x = x[:small_n] / np.maximum(np.linalg.norm(
+            x[:small_n], axis=1, keepdims=True), 1e-12)
+        Ks.append(torch.as_tensor(x @ x.T))
+    a = [torch.as_tensor(rng.rand(4, small_n, 32).astype(np.float32) * 1e-2)
+         for _ in Ks]
+    E0 = torch.cat([Ks[0] @ a[0][0], Ks[1] @ a[1][0]]).numpy()
+    d2 = ((E0[:, None] - E0[None]) ** 2).sum(-1)
+    med = float(np.sqrt(np.median(d2[d2 > 0])))
+    hyper = [torch.tensor(v, dtype=torch.float32) for v in (
+        [.25 * med, med, 4 * med, med], [1e-2, 1e-2, 1e-3, 1e-3],
+        [1e-3, 1e-4, 1e-3, 1e-4])]
+    outs = []
+    for where in (dev, torch.device('cpu')):
+        E1, E2, _ = compare._mmdma_opt(*(t.to(where) for t in Ks + a + hyper),
+                                       32, small_steps)
+        outs.append((E1.cpu(), E2.cpu()))
+    mmd_err = max(float((c - w).abs().max() / w.abs().max())
+                  for c, w in zip(*outs))
+
+    print(f'analysis: predict_knn k=5 K3 {knn_k3}, 64 rows vs float64 max '
+          f'|d| {knn_err:.3g} (limit 1e-5); predict_nn {nn_epochs} epochs '
+          f'mean per-feature r {nn_r:.4f}; silhouette card vs CPU max |d| '
+          f'{sil_err:.3g} (limit 1e-5); knn_dist on the RNA PCA-{knn_pca_dim} '
+          f'view: {int((graph > 0).sum())} entries in '
+          f'[{float(edges.min()) if edges.size else None:.3g}, '
+          f'{float(edges.max()) if edges.size else None:.3g}], connected and '
+          f'symmetric {knn_ok}; gw_loss K3 {gw_k3}, value {gw_k:.6g} vs plain '
+          f'{gw_p:.6g} (rel {gw_rel:.3g}, limit 1e-5), gradient max |d| / max '
+          f'{grad_err:.3g} (limit 1e-4), finite {grad_finite}; AUROC sign test '
+          f'p {sign_p:.3g}; plotting modules loaded {plots_loaded}; MMD-MA '
+          f'{small_n} cells x {small_steps} steps card vs CPU max |dE| / max '
+          f'{mmd_err:.3g} (limit 1e-4); seconds '
+          f'{ {k: round(v, 3) for k, v in secs.items()} }', flush=True)
+    if not (sil_err <= 1e-5 and knn_ok and gw_k3 == 2 and gw_rel <= 1e-5
+            and grad_err <= 1e-4 and grad_finite and 0 <= sign_p <= 1
+            and not plots_loaded and mmd_err <= 1e-4):
+        fail('phase J analysis checks failed (see the analysis: line)')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1498,6 +1722,19 @@ def main():
     kp.pairwise(x_atac, None, squared=True)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=False)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=True)
+    # Phase J's cases: _binary_knn's self squared on the raw RNA (ATAC's is
+    # above) and on a PCA-512 view, predict_knn's cross squared of the RNA
+    # against itself, knn_dist's self squared on a PCA-16 view, gw_loss's
+    # self sqrt and the silhouette's cross sqrt (one row block against
+    # every row) on 32-dimensional embeddings
+    kp.pairwise(x_rna, None, squared=True)
+    kp.pairwise(torch.randn(1047, 512, device=dev, generator=g), None,
+                squared=True)
+    kp.pairwise(x_rna, x_rna, squared=True)
+    kp.pairwise(torch.randn(1047, 16, device=dev, generator=g), None,
+                squared=True)
+    kp.pairwise(emb[0], None, squared=False)
+    kp.pairwise(emb[0], emb[0], squared=False)
     xr = torch.randn(1000, 333, device=dev, generator=g)
     yr = torch.randn(1037, 333, device=dev, generator=g)
     kp.pairwise(xr, yr, squared=True)
@@ -1653,6 +1890,8 @@ def main():
                      "scGLUE's 9190 cells")
     # I. The raw-file workflow around the fit
     workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line)
+    # J. The analysis and baseline modules
+    compare_phase(torch, ops, data, labels, dev, smi_line)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

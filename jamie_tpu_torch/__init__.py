@@ -11,7 +11,10 @@ Triton (`ops/pd_update.py`) and the pairwise euclidean distance in CUDA C++
     imputed_atac = jm.modal_predict(rna, 0)
 
 `io` reads raw 10x / .h5ad / mtx files, `normalize` holds the count
-transforms, `evaluation` the metrics and the occlusion/SHAP explanations.
+transforms, `evaluation` the metrics and the occlusion/SHAP explanations,
+`compare` the five alignment baselines, `figures` the notebooks' plots,
+`utils` the triage helpers and the imputation baselines, `nn_funcs` the
+kNN graphs and legacy losses.
 """
 
 from .core.dtypes import pin_fp32_matmuls
@@ -21,13 +24,16 @@ pin_fp32_matmuls()
 from ._meta import __version__, __reference_version__  # noqa: E402
 from .config import JamieConfig, config_from_kwargs  # noqa: E402
 from .estimator import JAMIE  # noqa: E402
-from .models import CoupledVAE  # noqa: E402
+from .models import CoupledVAE, SimpleCoupledAE  # noqa: E402
+from .ops.sparse import SparseRows  # noqa: E402
 from .preprocess import PCA, Preprocessor  # noqa: E402
-from . import evaluation, io, normalize  # noqa: E402
+from . import (compare, evaluation, figures, io, nn_funcs,  # noqa: E402
+               normalize, utils)
 
 __all__ = [
     '__version__', '__reference_version__',
     'JAMIE', 'JamieConfig', 'config_from_kwargs',
-    'CoupledVAE', 'PCA', 'Preprocessor',
-    'evaluation', 'io', 'normalize',
+    'compare', 'evaluation', 'figures', 'io', 'nn_funcs', 'normalize',
+    'utils',
+    'PCA', 'Preprocessor', 'SparseRows', 'CoupledVAE', 'SimpleCoupledAE',
 ]

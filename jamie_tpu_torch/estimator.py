@@ -4,7 +4,8 @@ Reference parity: `jamie_tpu/estimator.py` (class `JAMIE`, itself
 jamie/jamie.py:29-972). Same surface: `fit_transform(dataset, P)`,
 `compute_distances`, `match`, `Prime_Dual`, `com_corr`, `project_jamie`,
 `modal_predict`, `transform`, `transform_one`, `test_closer`,
-`test_LabelTA`, `test_label_dist`, `save_model`, `load_model`.
+`test_LabelTA`, `test_label_dist`, `Visualize`, `save_model`,
+`load_model`.
 
 `JAMIE(device=...)` picks the device; with none given it runs on the CUDA
 card and raises when there is none (`device='cpu'` is the explicit CPU
@@ -451,6 +452,14 @@ class JAMIE:
         if return_k:
             return acc, k
         return acc
+
+    def Visualize(self, data, integrated_data, datatype=None, mode=None):
+        """In-class API for the visualization function
+        (jamie/jamie.py:963-965), its embeddings on this estimator's
+        device."""
+        from .utils import uc_visualize
+        uc_visualize(data, integrated_data, datatype=datatype, mode=mode,
+                     device=self.device)
 
     # ---------------------------------------------------------- persistence
     def save_model(self, f):

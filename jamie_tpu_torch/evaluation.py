@@ -13,8 +13,8 @@ Explanations: `evaluate_impact` (host occlusion around any function),
 forward on the estimator's device), the native `kernel_shap` (host
 coalitions from `np.random.RandomState(seed)`, as in jamie_tpu; one float32
 least-squares solve on the device) and `shap_explain`, which uses the
-`shap` package where it is installed. The figures are not ported
-(ROADMAP.md item 13c); `test_partial(plot=True)` imports matplotlib itself.
+`shap` package where it is installed. The figures are in `figures.py`;
+`test_partial(plot=True)` imports matplotlib itself.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Carry CoupledVAE variables between jamie_tpu (flax) and this package.
+"""Carry model variables between jamie_tpu (flax) and this package.
 
 flax names, as `CoupledVAE.init` creates them in jamie_tpu:
 
@@ -10,6 +10,12 @@ flax names, as `CoupledVAE.init` creates them in jamie_tpu:
     params/sigma
     batch_stats/{enc,dec}{i}_b{j}/BatchNorm_0/{mean,var}
 
+and for the small models (`models/simple.py`, `models/baselines.py`), whose
+layers are children named as flax names them:
+
+    params/{fc1,fc2,fc1_1,fc1_2,fc2_1,fc2_2,conv,enc{i},dec{i}}/{kernel,bias}
+    params/{enc,dec}{i}_bn/{scale,bias}, batch_stats/{enc,dec}{i}_bn/{mean,var}
+
 flax kernels are (in, out) and torch weights (out, in); both packages keep
 BatchNorm momentum 0.9 on the running value, so the stats carry as they are.
 Arrays cross as numpy dicts in flax's nesting.
@@ -17,34 +23,41 @@ Arrays cross as numpy dicts in flax's nesting.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .coupled_vae import CoupledVAE, FlaxBatchNorm, TorchDense
 
 
-def _dense_pair(dense: TorchDense):
-    return {'kernel': (dense.weight, True), 'bias': (dense.bias, False)}
-
-
-def _slots(model: CoupledVAE):
+def _slots(model: nn.Module):
     """(params slots, batch_stats slots): {flax path: (tensor, transpose)}."""
     params, stats = {}, {}
-    for name, layer in model.layers.items():
+
+    def dense(path, layer: TorchDense):
+        params[path + ('kernel',)] = (layer.weight, True)
+        params[path + ('bias',)] = (layer.bias, False)
+
+    def batch_norm(path, bn: FlaxBatchNorm):
+        params[path + ('scale',)] = (bn.weight, False)
+        params[path + ('bias',)] = (bn.bias, False)
+        stats[path + ('mean',)] = (bn.running_mean, False)
+        stats[path + ('var',)] = (bn.running_var, False)
+
+    is_vae = isinstance(model, CoupledVAE)
+    for name, layer in (model.layers.items() if is_vae
+                        else model.named_children()):
         if isinstance(layer, TorchDense):
-            for k, v in _dense_pair(layer).items():
-                params[(name, k)] = v
-            continue
-        for k, v in _dense_pair(layer.dense).items():
-            params[(name, 'TorchDense_0', k)] = v
-        bn: FlaxBatchNorm = layer.bn
-        params[(name, 'BatchNorm_0', 'scale')] = (bn.weight, False)
-        params[(name, 'BatchNorm_0', 'bias')] = (bn.bias, False)
-        stats[(name, 'BatchNorm_0', 'mean')] = (bn.running_mean, False)
-        stats[(name, 'BatchNorm_0', 'var')] = (bn.running_var, False)
-    params[('sigma',)] = (model.sigma, False)
+            dense((name,), layer)
+        elif isinstance(layer, FlaxBatchNorm):
+            batch_norm((name,), layer)
+        else:   # a CoupledVAE block: TorchDense_0 + BatchNorm_0
+            dense((name, 'TorchDense_0'), layer.dense)
+            batch_norm((name, 'BatchNorm_0'), layer.bn)
+    if is_vae:
+        params[('sigma',)] = (model.sigma, False)
     return params, stats
 
 
@@ -60,13 +73,14 @@ def _set(tree: dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def load_flax_variables(model: CoupledVAE, params: dict,
-                        batch_stats: dict) -> CoupledVAE:
+def load_flax_variables(model: nn.Module, params: dict,
+                        batch_stats: Optional[dict] = None) -> nn.Module:
     """Copy flax-nested numpy `params` / `batch_stats` into `model` in
-    place (shapes are checked); returns the model."""
+    place (shapes are checked); returns the model. `batch_stats` may be
+    omitted for a model without BatchNorm."""
     p_slots, s_slots = _slots(model)
     with torch.no_grad():
-        for tree, slots in ((params, p_slots), (batch_stats, s_slots)):
+        for tree, slots in ((params, p_slots), (batch_stats or {}, s_slots)):
             for path, (tensor, transpose) in slots.items():
                 arr = _get(tree, path)
                 arr = arr.T if transpose else arr
@@ -78,7 +92,7 @@ def load_flax_variables(model: CoupledVAE, params: dict,
     return model
 
 
-def to_flax_variables(model: CoupledVAE) -> Tuple[Dict, Dict]:
+def to_flax_variables(model: nn.Module) -> Tuple[Dict, Dict]:
     """(params, batch_stats) as flax-nested dicts of float32 numpy arrays."""
     p_slots, s_slots = _slots(model)
     out = ({}, {})

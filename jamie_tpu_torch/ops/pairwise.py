@@ -21,6 +21,9 @@ not 16-byte aligned (TMA needs both), and the split-K factor
 `pairwise_euclidean` runs the kernel for CUDA tensors and its plain
 PyTorch version `pairwise_euclidean_plain` for CPU tensors; any other input
 raises. `pairwise_euclidean.launches` counts kernel launches.
+`pairwise_euclidean_autograd` is the same function with an analytic
+backward (`_PairwiseEuclidean`), so a loss on the distances can be
+differentiated through the kernel.
 """
 
 from __future__ import annotations
@@ -183,3 +186,47 @@ def pairwise_euclidean(x: torch.Tensor, y: Optional[torch.Tensor] = None,
 
 
 pairwise_euclidean.launches = 0
+
+
+class _PairwiseEuclidean(torch.autograd.Function):
+    """`pairwise_euclidean` forward (K3 on the card, the plain version on
+    the CPU) with an analytic backward in torch matmuls.
+
+    For squared distances D and upstream G, D_ij = |x_i - y_j|^2 gives
+    dx = 2 (diag(G 1) x - G y) and dy = 2 (diag(G^T 1) y - G^T x); a
+    self-distance takes both roles, so G becomes G + G^T. The sqrt route
+    passes G / (2 d) through where d > 0. Entries with d = 0 (the clamp, the
+    zeroed diagonal, coincident rows) get a zero gradient: the sqrt has no
+    derivative there, and autograd through sqrt(max(d2, 0)) gives NaN."""
+
+    @staticmethod
+    def forward(ctx, x, y, squared):
+        d = pairwise_euclidean(x, y, squared=squared)
+        ctx.save_for_backward(x, y, d)
+        ctx.squared = squared
+        return d
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y, d = ctx.saved_tensors
+        live = d > 0
+        if ctx.squared:
+            g = torch.where(live, grad, 0.0)
+        else:
+            g = torch.where(live, grad / (2.0 * torch.where(live, d, 1.0)),
+                            0.0)
+        if y is None:
+            g = g + g.T
+            return 2.0 * (g.sum(1, keepdim=True) * x - g @ x), None, None
+        dx = 2.0 * (g.sum(1, keepdim=True) * x - g @ y)
+        dy = 2.0 * (g.sum(0)[:, None] * y - g.T @ x)
+        return dx, dy, None
+
+
+def pairwise_euclidean_autograd(x: torch.Tensor,
+                                y: Optional[torch.Tensor] = None,
+                                squared: bool = True) -> torch.Tensor:
+    """`pairwise_euclidean` that autograd can differentiate (see
+    `_PairwiseEuclidean`); the operands are made contiguous first."""
+    return _PairwiseEuclidean.apply(
+        x.contiguous(), None if y is None else y.contiguous(), squared)

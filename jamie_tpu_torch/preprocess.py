@@ -562,3 +562,8 @@ class Preprocessor:
         else:
             self.pca = None
         return self
+
+
+def identity(x):
+    """Identity preprocessing (jamie/utilities.py:48-50)."""
+    return x

@@ -413,3 +413,96 @@ def test_device_memory_stats_on_card(cuda):
     assert set(stats) == {'bytes_in_use', 'peak_bytes_in_use', 'bytes_limit'}
     assert stats['peak_bytes_in_use'] >= stats['bytes_in_use'] >= x.numel() * 4
     assert stats['bytes_limit'] > stats['peak_bytes_in_use']
+
+
+@pytest.mark.parametrize('squared', [True, False])
+@pytest.mark.parametrize('cross', [False, True])
+def test_pairwise_autograd_card_matches_plain_autograd(cuda, squared, cross):
+    """K3's autograd Function on the card (forward through the kernel)
+    against autograd through pairwise_euclidean_plain with a sqrt guarded
+    at 0: values within 1e-5 of the norm scale on the squares, gradients
+    within 1e-4 of their largest entry, and finite."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(700, 32, device=cuda, generator=g).requires_grad_(True)
+    y = (torch.randn(500, 32, device=cuda, generator=g).requires_grad_(True)
+         if cross else None)
+    up = torch.randn(700, 500 if cross else 700, device=cuda, generator=g)
+    ops.reset_launch_counts()
+    d = pairwise.pairwise_euclidean_autograd(x, y, squared)
+    assert pairwise.pairwise_euclidean.launches == 1
+    d2 = pairwise.pairwise_euclidean_plain(x, y, squared=True)
+    live = d2 > 0
+    ref = d2 if squared else torch.where(
+        live, torch.sqrt(torch.where(live, d2, 1.0)), 0.0)
+    scale = 2 * float((x.detach() ** 2).sum(1).max())
+    dd, rd = d.detach(), ref.detach()
+    assert float((dd * dd - rd * rd).abs().max()
+                 if not squared else (dd - rd).abs().max()) <= 1e-5 * scale
+    inputs = (x,) if y is None else (x, y)
+    got = torch.autograd.grad((d * up).sum(), inputs)
+    want = torch.autograd.grad((ref * up).sum(), inputs)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_predict_knn_card_matches_cpu(cuda):
+    """predict_knn through K3 on the card against the CPU route, on data
+    whose k-th and (k+1)-th neighbours are far apart against K3's error
+    (a column-major input, which the kernel takes only as a contiguous
+    copy): equal within 1e-5 of the targets' scale."""
+    from jamie_tpu_torch.utils import predict_knn
+    rng = np.random.RandomState(13)
+    x = np.asfortranarray(rng.randn(600, 300).astype(np.float32))
+    y = rng.randn(600, 40).astype(np.float32)
+    ops.reset_launch_counts()
+    got = predict_knn(x, y, k=5, device=cuda)
+    assert pairwise.pairwise_euclidean.launches >= 1
+    want = predict_knn(x, y, k=5, device='cpu')
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(y).max()
+
+
+def test_silhouette_card_matches_cpu(cuda):
+    """figures.silhouette_samples with K3 sqrt distances on the card
+    against the CPU route, on a column-major input: within 1e-5."""
+    from jamie_tpu_torch.figures import silhouette_samples
+    rng = np.random.RandomState(14)
+    labels = rng.randint(0, 4, 900)
+    x = np.asfortranarray((rng.randn(900, 32)
+                           + 3 * rng.randn(4, 32)[labels]).astype(np.float32))
+    ops.reset_launch_counts()
+    got = silhouette_samples(x, labels, device=cuda)
+    assert pairwise.pairwise_euclidean.launches >= 1
+    want = silhouette_samples(x, labels, device='cpu')
+    assert np.abs(got - want).max() <= 1e-5
+
+
+def test_mmdma_opt_card_matches_cpu(cuda):
+    """MMD-MA's batched Adam loop on the card against the CPU from the same
+    injected initial a1, a2, 200 steps, bandwidths from mmdma_embed's
+    median heuristic: embeddings within 1e-4 of their largest entry
+    (float32, TF32 off; the same runs in float64 on the CPU differ by
+    2.5e-6, while a bandwidth far below the median, 0.05 here, lets Adam
+    amplify rounding to 4e-3)."""
+    from jamie_tpu_torch.compare import _mmdma_opt
+    rng = np.random.RandomState(15)
+    z = rng.randn(256, 6)
+    Ks = []
+    for f in (50, 70):
+        d = z @ rng.randn(6, f) + 0.3 * rng.randn(256, f)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        Ks.append(torch.as_tensor((d @ d.T).astype(np.float32)))
+    a = [torch.as_tensor(rng.rand(4, 256, 16).astype(np.float32) * 1e-2)
+         for _ in Ks]
+    E0 = torch.cat([Ks[0] @ a[0][0], Ks[1] @ a[1][0]]).numpy()
+    d2 = ((E0[:, None] - E0[None]) ** 2).sum(-1)
+    med = float(np.sqrt(np.median(d2[d2 > 0])))
+    hyper = [torch.tensor(v, dtype=torch.float32) for v in (
+        [.25 * med, med, 4 * med, med], [1e-2, 1e-2, 1e-3, 1e-3],
+        [1e-3, 1e-4, 1e-3, 1e-4])]
+    outs = []
+    for dev in (cuda, torch.device('cpu')):
+        E1, E2, _ = _mmdma_opt(*(t.to(dev) for t in Ks + a + hyper), 16, 200)
+        outs.append((E1.cpu(), E2.cpu()))
+    for g, w in zip(*outs):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())

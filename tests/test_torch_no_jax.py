@@ -1,8 +1,8 @@
 """jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax,
 jamie_tpu, sklearn or umap (the card's machine has none of them), the port
-runs without h5py, pandas, matplotlib and shap (optional: only the readers,
-the plot and the shap route that need one import it), and the port runs
-on the CPU only when asked to."""
+runs without h5py, pandas, matplotlib, seaborn and shap (optional: only the
+readers, the plots and the shap route that need one import it), and the
+port runs on the CPU only when asked to."""
 
 import ast
 import pathlib
@@ -17,7 +17,7 @@ BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'jamie_tpu', 'sklearn', 'umap')
 # optional packages the card's machine lacks: never loaded by importing or
 # running the port's workflow (readers of other formats, plots and the shap
 # package's route import them inside the function that needs them)
-OPTIONAL = ('h5py', 'pandas', 'matplotlib', 'shap')
+OPTIONAL = ('h5py', 'pandas', 'matplotlib', 'seaborn', 'shap')
 
 
 def _blocked(name: str) -> bool:
@@ -97,6 +97,22 @@ evaluate_impact(lambda d, idx=None: d.sum(1), lambda a, b: float(a.mean()),
                 data[0], None)
 test_partial(data, [np.arange(24) % 2] * 2, fraction_range=(0, 1),
              plot=False, **kw)
+# the analysis and baseline modules: the numeric functions, no plotting
+import torch
+from jamie_tpu_torch import compare, figures, nn_funcs, utils
+from jamie_tpu_torch.models import baselines
+labels = [np.arange(24) % 2] * 2
+res = compare.compare_methods(data, labels, methods=('NLMA', 'CCA'),
+                              output_dim=2, device='cpu')
+assert all(np.isfinite(r['foscttm']) for r in res.values())
+utils.predict_knn(data[0], data[1], k=3, device='cpu')
+baselines.predict_nn(data[0], data[1], epochs=2, batch_size=8, device='cpu')
+figures.silhouette_samples(data[1], labels[0], device='cpu')
+figures.imputation_feature_scores(data[1], data[1])
+nn_funcs.knn_dist(data[1], device='cpu')
+e = torch.tensor(data[1], requires_grad=True)
+nn_funcs.gw_loss([e, torch.tensor(data[1][::-1].copy())]).backward()
+assert bool(torch.isfinite(e.grad).all())
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED))
 print('leaked', leaked, tuple(F.shape))
