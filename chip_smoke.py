@@ -79,7 +79,12 @@
    and predict_nn; the silhouette, knn_dist and gw_loss through K3's
    autograd Function, card against CPU or plain; MMD-MA card against CPU at
    256 cells; one `compare:` and one `analysis:` line (see compare_phase).
-19. A `kernels` JSON line, the nvidia-smi line, and as the last line
+19. The mesh path (K): a world-size-1 NCCL group through a FileStore,
+   the step-4 fit again through JAMIE(mesh=create_mesh((1,), ('data',)))
+   and through a (1, 1) data x model mesh, counts at 0 (K1 2000, K3 >= 2),
+   FOSCTTM and embeddings against step 4's; a 2048^2 mesh prime-dual solve
+   against the unsharded one; one `mesh:` line; the group destroyed.
+20. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -129,6 +134,13 @@ TSNE_FOSCTTM_LIMIT = 0.5836
 # land within COMPARE_FOSCTTM_TOL of each.
 COMPARE_FOSCTTM_REF = {'NLMA': 5.929526196268853e-06, 'LMA': 0.0, 'CCA': 0.0}
 COMPARE_FOSCTTM_TOL = 0.02
+
+# Phase K's limits: a mesh fit against the unsharded fit of the same run
+# (tests/test_torch_mesh.py's auto-mesh tolerances on the CPU) and the
+# 2048^2 mesh solve against the unsharded one, at 1e-4 of F's largest entry
+# (the card-vs-CPU solver tolerance of phase 5).
+MESH_EMBED_RTOL, MESH_EMBED_ATOL, MESH_FOSCTTM_TOL = 5e-2, 5e-3, 0.02
+MESH_PD_REL = 1e-4
 
 
 def fail(msg):
@@ -1404,6 +1416,86 @@ def workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line, epochs=20,
           flush=True)
 
 
+def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
+               phases, smi_line, kw, n_pd=2048, epoch_pd=2000):
+    """K. The mesh path at world size 1: a world-size-1 NCCL group started
+    through a FileStore (core.mesh.create_mesh), the 1047-cell fit of phase
+    4 (same data, same config) through JAMIE(mesh=...) on a ('data',) mesh
+    and on a (1, 1) ('data', 'model') mesh, each with the counts at 0: K1
+    epoch_pd and K3 >= 2 launches on the sharded path, FOSCTTM within
+    MESH_FOSCTTM_TOL of the unsharded fit's and the embeddings within
+    MESH_EMBED_RTOL / MESH_EMBED_ATOL of them; then an n_pd^2 prime-dual
+    solve on the mesh against the unsharded solve. One `mesh:` line. The
+    group is destroyed on the way out, so no later phase sees it."""
+    from jamie_tpu_torch.core import mesh as cm
+    from jamie_tpu_torch.ops.distances import pairwise_distance
+    from jamie_tpu_torch.solvers.prime_dual import prime_dual
+    line = {'unsharded': {'seconds': round(fit_s, 3), 'phases': phases,
+                          'foscttm': foscttm}}
+    bad = []
+    try:
+        for name, shape, axes in (('data', (1,), ('data',)),
+                                  ('data_model', (1, 1), ('data', 'model'))):
+            mesh = cm.create_mesh(shape, axes)
+            jm = JAMIE(mesh=mesh, **kw)
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            emb = jm.fit_transform(dataset=data)
+            secs = time.perf_counter() - t
+            counts = ops.launch_counts()
+            f = jm.test_closer(emb)
+            err = max(float(np.abs(a - b).max())
+                      for a, b in zip(emb, integrated))
+            close = all(np.allclose(a, b, rtol=MESH_EMBED_RTOL,
+                                    atol=MESH_EMBED_ATOL)
+                        for a, b in zip(emb, integrated))
+            line[name] = {'mesh': dict(zip(mesh.mesh_dim_names,
+                                           mesh.mesh.shape)),
+                          'backend': torch.distributed.get_backend(),
+                          'seconds': round(secs, 3),
+                          'phases': jm.phase_timings, 'launches': counts,
+                          'foscttm': f, 'max_abs_embed_diff': err}
+            if counts['fused_pd_grad_update'] != jm.config.epoch_pd:
+                bad.append(f'{name}: K1 launched '
+                           f'{counts["fused_pd_grad_update"]} times')
+            if counts['pairwise_euclidean'] < 2:
+                bad.append(f'{name}: K3 launched fewer than 2 times')
+            if not (abs(f - foscttm) <= MESH_FOSCTTM_TOL and close):
+                bad.append(f'{name}: FOSCTTM {f} vs {foscttm}, embeddings '
+                           f'max |diff| {err}')
+        # The prime-dual solve alone at the landmark solve's size
+        g = torch.Generator(device=dev).manual_seed(5)
+        xs = [torch.randn(n_pd, dim, device=dev, generator=g)
+              for dim in (64, 48)]
+        Kx, Ky = (pairwise_distance(x) for x in xs)
+        pd_kw = dict(dx=64, dy=48, epoch_pd=epoch_pd, verbose=False)
+        t = time.perf_counter()
+        F_plain = prime_dual(Kx, Ky, **pd_kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        F_mesh = prime_dual(Kx, Ky, mesh=mesh, **pd_kw)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t
+        k1 = ops.launch_counts()['fused_pd_grad_update']
+        d_f = float((F_mesh - F_plain).abs().max())
+        limit = MESH_PD_REL * float(F_plain.abs().max())
+        line['prime_dual'] = {'shape': [n_pd, n_pd], 'epoch_pd': epoch_pd,
+                              'max_abs_dF': d_f, 'limit': limit,
+                              'mesh_s': round(mesh_s, 3),
+                              'plain_s': round(plain_s, 3), 'K1': k1}
+        if not (d_f <= limit and k1 == epoch_pd):
+            bad.append(f'prime_dual {n_pd}^2: max |dF| {d_f} (limit '
+                       f'{limit}), K1 {k1}')
+    finally:
+        cm.destroy_group()
+    line['card'] = smi_line
+    print('mesh: ' + json.dumps(line, default=float), flush=True)
+    if bad:
+        fail('phase K (the mesh path) failed: ' + '; '.join(bad))
+
+
 def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                   knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
                   nn_epochs=50, small_n=256, small_steps=200,
@@ -1722,6 +1814,10 @@ def main():
     kp.pairwise(x_atac, None, squared=True)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=False)
     kp.pairwise(x_atac, x_atac.flip(0).contiguous(), squared=True)
+    # Phase K's geodesic bases: each rank's row block against the whole
+    # matrix (cross sqrt; at world size 1 the block is every row)
+    kp.pairwise(x_rna, x_rna, squared=False)
+    kp.pairwise(x_atac, x_atac, squared=False)
     # Phase J's cases: _binary_knn's self squared on the raw RNA (ATAC's is
     # above) and on a PCA-512 view, predict_knn's cross squared of the RNA
     # against itself, knn_dist's self squared on a PCA-16 view, gw_loss's
@@ -1892,6 +1988,10 @@ def main():
     workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line)
     # J. The analysis and baseline modules
     compare_phase(torch, ops, data, labels, dev, smi_line)
+    # K. The mesh path at world size 1, against the fit of step 4
+    mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
+               jm.phase_timings, smi_line,
+               dict(epoch_DNN=20, min_epochs=10, use_early_stop=False))
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

@@ -14,7 +14,9 @@ Triton (`ops/pd_update.py`) and the pairwise euclidean distance in CUDA C++
 transforms, `evaluation` the metrics and the occlusion/SHAP explanations,
 `compare` the five alignment baselines, `figures` the notebooks' plots,
 `utils` the triage helpers and the imputation baselines, `nn_funcs` the
-kNN graphs and legacy losses.
+kNN graphs and legacy losses. `core.mesh` is the device mesh on
+`torch.distributed` (`JAMIE(mesh=...)`, SPMD: every rank calls the same
+entry point), `multichip` its checks on local processes.
 """
 
 from .core.dtypes import pin_fp32_matmuls

@@ -4,11 +4,13 @@ The same frozen dataclass as `jamie_tpu.config` (same fields, defaults,
 validation and `cache_key`), so a config and its cache key mean the same
 thing in both packages.
 
-Fields that only steer the TPU build are accepted and inert here:
-`prng_impl`, `mesh_shape`, `mesh_axis_names`, `dispatch_lookahead`,
-and `tp_wide_threshold` (PyTorch runs eagerly on one card, with its own
-generators). `epoch_chunk` sets how many epochs one `metrics_path` record
-and one `checkpoint_every` step cover, as in jamie_tpu.
+Two fields that only steer the TPU build are accepted and inert here:
+`prng_impl` (the port draws from its own torch generators) and
+`dispatch_lookahead` (PyTorch runs eagerly). `mesh_shape`,
+`mesh_axis_names` and `tp_wide_threshold` shape the device mesh
+(`core/mesh.py`) as in jamie_tpu. `epoch_chunk` sets how many epochs one
+`metrics_path` record and one `checkpoint_every` step cover, as in
+jamie_tpu.
 """
 
 from __future__ import annotations
@@ -108,11 +110,13 @@ class JamieConfig:
     solver_state_dtype: str = 'auto'
     epoch_chunk: int = 100            # epochs per metrics record / snapshot step
     dispatch_lookahead: int = 3       # inert (TPU dispatch pipelining)
-    mesh_shape: Optional[Tuple[int, ...]] = None   # inert: one card
-    mesh_axis_names: Tuple[str, ...] = ('data',)   # inert: one card
+    mesh_shape: Optional[Tuple[int, ...]] = None   # None -> all ranks on 'data'
+    mesh_axis_names: Tuple[str, ...] = ('data',)
     true_ratio: float = 0.8           # hybrid-sampling corr fraction (jamie.py:529)
     f_top_k: Optional[int] = None     # SparseRows top-k F
-    tp_wide_threshold: int = 1024     # inert (TPU tensor parallelism)
+    # Tensor parallelism: parameter dims >= this (and divisible by the
+    # 'model' mesh axis) shard over it (core/mesh.py param_spec)
+    tp_wide_threshold: int = 1024
     prng_impl: Optional[str] = None   # inert (jax PRNG implementation)
     checkpoint_dir: Optional[str] = None   # mid-fit snapshots
     checkpoint_every: int = 0

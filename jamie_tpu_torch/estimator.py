@@ -23,8 +23,20 @@ then the pair-aligned t-SNE, `solvers/tsne.py`), the t-SNE/UMAP preclass
 (`solvers/lowrank.py`). The fit takes `compute_dtype='bfloat16'`
 (bf16 activations, f32 parameters), mid-fit snapshots (`checkpoint_dir`,
 `checkpoint_every`; resume through `trainer.restore_fit_state` and
-`trainer.fit(state=...)`) and a per-chunk `metrics_path` log. A device mesh
-is not ported and raises NotImplementedError naming ROADMAP.md item 14.
+`trainer.fit(state=...)`) and a per-chunk `metrics_path` log.
+
+A device mesh (`JAMIE(mesh=...)`, a `core.mesh` DeviceMesh; jamie_tpu's
+estimator.py:80-96) is SPMD: every rank builds the estimator and calls
+`fit_transform` with the same inputs, and every rank gets the same result.
+It engages by itself when `torch.distributed` is initialized with more than
+one rank (from `mesh_shape` / `mesh_axis_names`, all ranks on 'data' by
+default); `use_mesh=False` turns that off. The mesh reaches the phases
+jamie_tpu shards: the distances, the prime-dual and landmark solves and the
+trainer (data and tensor parallelism). The phases it does not shard (PCA,
+the host geodesic graph, serving) run on every rank, and rank 0 broadcasts
+what feeds a sharded phase (the distance matrices, the preprocessed
+inputs), so ranks cannot diverge. Rank 0 alone prints; `save_model` writes
+from rank 0 (every rank calls it) a checkpoint that loads on one device.
 
 A second `fit_transform` on one estimator reuses the first fit's P and F
 (`self.P`, `self.match_result`), as jamie_tpu does; on data with other row
@@ -43,6 +55,7 @@ import torch
 
 from ._meta import __version__
 from .config import config_from_kwargs
+from .core import mesh as cm
 from .core.dtypes import resolve_device
 from .core.hostmat import densify, ensure_row_major, is_scipy_sparse
 from .core.residency import clear_residency_cache
@@ -75,11 +88,6 @@ DENSE_F32_STATE_ENTRIES = 250_000_000
 LANDMARK_AUTO_ENTRIES = 520_000_000
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f'{what} is not ported to jamie_tpu_torch yet: ROADMAP.md item {item}')
-
-
 def _compute_dtype(bf16: bool) -> torch.dtype:
     return torch.bfloat16 if bf16 else torch.float32
 
@@ -98,13 +106,22 @@ class JAMIE:
 
     def __init__(self, match_result=None, mesh=None,
                  use_mesh: Optional[bool] = None, device=None, **kwargs):
-        if mesh is not None:
-            raise _unported('a device mesh', 14)
-        del use_mesh   # one card: nothing to shard over
+        cm.check_mesh(mesh)
         self.device = resolve_device(device)
         self.P = kwargs.pop('P', None)
         self.config = config_from_kwargs(**kwargs)
         self.match_result = match_result
+        # use_mesh=None (default) shards by itself whenever the process
+        # group has more than one rank; use_mesh=False runs unsharded
+        if (mesh is None and use_mesh is not False
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            mesh = cm.create_mesh(self.config.mesh_shape,
+                                  self.config.mesh_axis_names)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f'a {mesh.device_type} mesh cannot run on '
+                             f'{self.device}')
+        self.mesh = mesh
         self.model: Optional[CoupledVAE] = None
         self.preprocessors: Optional[Sequence[Preprocessor]] = None
         self.dataset_num = 2
@@ -117,6 +134,15 @@ class JAMIE:
     def fit_transform(self, dataset=None, P=None):
         """Full pipeline: distances -> correspondence F -> coupled-VAE
         training -> integrated embeddings (jamie/jamie.py:113-222)."""
+        with cm.rank0_stdout():
+            return self._fit_transform(dataset, P)
+
+    def _shared(self, x):
+        """Rank 0's x on every rank of the mesh (x itself without one)."""
+        return x if self.mesh is None else cm.broadcast_from_rank0(x,
+                                                                    self.mesh)
+
+    def _fit_transform(self, dataset, P):
         cfg = self.config
         if P is not None:
             self.P = P
@@ -238,9 +264,9 @@ class JAMIE:
         for i in range(self.dataset_num):
             print('Dataset {}:'.format(i), np.shape(self.dataset[i]))
             if save_dist:
-                self.dist.append(dataset_distance_matrix(
+                self.dist.append(self._shared(dataset_distance_matrix(
                     self.dataset[i], cfg.distance_mode, kmax=cfg.kmax,
-                    device=self.device))
+                    device=self.device, mesh=self.mesh)))
 
     # -------------------------------------------------------- correspondence
     def match(self):
@@ -279,7 +305,7 @@ class JAMIE:
             selection=cfg.corr_landmark_selection,
             factor_layout=cfg.corr_factor_layout,
             distance_mode=cfg.distance_mode, kmax=cfg.kmax,
-            seed=cfg.manual_seed, device=self.device,
+            seed=cfg.manual_seed, device=self.device, mesh=self.mesh,
             epoch_pd=cfg.epoch_pd, rho=cfg.rho, epsilon=cfg.epsilon,
             delay=cfg.delay, log_pd=cfg.log_pd,
             precision=('highest' if cfg.solver_dtype == 'float32'
@@ -306,7 +332,7 @@ class JAMIE:
             precision=('highest' if cfg.solver_dtype == 'float32'
                        else 'default'),
             state_dtype=self._resolved_state_dtype(entries),
-            device=self.device)
+            device=self.device, mesh=self.mesh)
 
     def com_corr(self, dist):
         """Experimental low-rank correspondence (jamie/jamie.py:252-312),
@@ -354,7 +380,8 @@ class JAMIE:
                              power_iters=cfg.pca_power_iters)
             for dim, data in zip(pca_dims, self.dataset))
         # the cached fit samples: no second projection of the raw matrices
-        transformed = [pre.transform_fit() for pre in self.preprocessors]
+        transformed = [self._shared(pre.transform_fit())
+                       for pre in self.preprocessors]
         # the distance/PCA residencies release their device memory
         clear_residency_cache()
         timer.log('Preprocessing')
@@ -367,7 +394,8 @@ class JAMIE:
             seed=cfg.manual_seed,
             compute_dtype=_compute_dtype(cfg.compute_dtype == 'bfloat16'))
         self.trainer = JamieTrainer(cfg, self.model, transformed, self.P,
-                                    self.F, device=self.device)
+                                    self.F, device=self.device,
+                                    mesh=self.mesh)
         timer.log('Trainer setup')
         self.train_state = self.trainer.fit(
             checkpoint_dir=cfg.checkpoint_dir,
@@ -463,7 +491,19 @@ class JAMIE:
 
     # ---------------------------------------------------------- persistence
     def save_model(self, f):
-        """Array-based checkpoint in jamie_tpu's npz layout."""
+        """Array-based checkpoint in jamie_tpu's npz layout. After a mesh
+        fit every rank calls it: a tensor-parallel model is gathered whole,
+        and rank 0 writes."""
+        model = self.model
+        if self.trainer is not None and self.trainer.tp_specs:
+            whole = self.trainer.whole_state_dict()
+            model = CoupledVAE(model.input_dim, model.output_dim,
+                               dropout=model.dropout,
+                               matmul_bf16=model.matmul_bf16,
+                               compute_dtype=model.compute_dtype)
+            model.load_state_dict(whole)
+        if not cm.is_rank0():
+            return
         header = {
             'version': __version__,
             'input_dim': list(self.model.input_dim),
@@ -473,7 +513,7 @@ class JAMIE:
             'matmul_bf16': bool(self.model.matmul_bf16),
             'compute_bf16': self.model.compute_dtype == torch.bfloat16,
         }
-        params, batch_stats = to_flax_variables(self.model)
+        params, batch_stats = to_flax_variables(model)
         save_checkpoint(f, params, batch_stats, self.preprocessors, header)
 
     def load_model(self, f):

@@ -30,18 +30,54 @@ not `nn.BatchNorm1d`: the running variance is updated with the *biased*
 batch variance (E[x^2] - E[x]^2), momentum 0.9 on the old value.
 Randomness (dropout masks, reparameterization noise) is drawn from the
 `torch.Generator` passed to `forward`, or the noise is passed in.
+
+On a device mesh (`shard_(mesh)`, jamie_tpu's GSPMD layout of
+trainer.py:345-356):
+
+- a batch split over the 'data' axis (`forward(..., rows=Split)`) draws
+  every dropout mask and noise at the whole batch's shape from the one
+  generator and takes its rows, so a sharded step follows the unsharded
+  random stream; BatchNorm takes the whole batch's statistics with one
+  all-reduce of (sum, sum of squares, count), on the CPU and the card
+  alike (`nn.SyncBatchNorm` runs on the card only); `combine_latents`
+  all-gathers the other modality's latents and reduce-scatters the
+  transposed product;
+- the 'model' axis shards parameters by `core.mesh.param_spec` (tensor
+  parallelism for wide modalities): a kernel sharded on its output dim is
+  a column-parallel Linear, whose BatchNorm, LeakyReLU and dropout stay
+  local to its features; one sharded on its input dim is a row-parallel
+  Linear, reduced (all-reduce, or reduce-scatter where the next features
+  are sharded too). The heads' and decoders' outputs are gathered whole.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ..core import mesh as cm
 from ..core.dtypes import bf16_matmul
+
+
+@dataclasses.dataclass(frozen=True)
+class _TPLayout:
+    """A TorchDense's place on the model axis (its process group): its
+    kernel sharded on 'out' (column-parallel), 'in' (row-parallel) or
+    None; whether its input arrives feature-sharded, whether its output
+    leaves so, and whether the output is gathered whole (the heads and the
+    decoder outputs)."""
+    group: object
+    kernel: Optional[str]
+    x_sharded: bool
+    out_sharded: bool
+    gather_out: bool
+    in_split: Optional[cm.Split]
+    out_split: Optional[cm.Split]
 
 
 class TorchDense(nn.Module):
@@ -61,8 +97,12 @@ class TorchDense(nn.Module):
         self.bias = nn.Parameter(
             torch.empty(features).uniform_(-bound, bound, generator=generator))
         self.matmul_bf16 = matmul_bf16
+        self.tp: Optional[_TPLayout] = None
 
     def forward(self, x):
+        return self._linear(x) if self.tp is None else self._forward_tp(x)
+
+    def _linear(self, x):
         if self.matmul_bf16:
             return (bf16_matmul(x, self.weight.T).to(x.dtype)
                     + self.bias.to(x.dtype))
@@ -70,13 +110,41 @@ class TorchDense(nn.Module):
             return Fn.linear(x, self.weight, self.bias)
         return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
 
+    def _forward_tp(self, x):
+        """The layer with its kernel sharded on the model axis (or
+        replicated, between sharded layers)."""
+        tp = self.tp
+        if tp.kernel == 'in':
+            if not tp.x_sharded:
+                x = cm.scatter_to(x, tp.in_split)
+            if self.matmul_bf16:
+                y = bf16_matmul(x, self.weight.T)
+            elif x.dtype == torch.float32:
+                y = Fn.linear(x, self.weight)
+            else:
+                y = x @ self.weight.T.to(x.dtype)
+            y = (cm.reduce_scatter(y, tp.out_split) if tp.out_sharded
+                 else cm.reduce_from(y, tp.group))
+            y = y.to(x.dtype) + self.bias.to(x.dtype)
+        else:
+            if tp.x_sharded:
+                x = cm.gather_from(x, tp.in_split)
+            if tp.kernel == 'out':
+                x = cm.copy_to(x, tp.group)
+            y = self._linear(x)
+        if tp.gather_out and tp.out_sharded:
+            y = cm.gather_from(y, tp.out_split)
+        return y
+
 
 class FlaxBatchNorm(nn.Module):
     """BatchNorm with flax.linen.BatchNorm's semantics (momentum 0.9 on the
     running value, eps 1e-5, biased batch variance E[x^2] - E[x]^2 clipped
     at 0 for both the normalization and the running update). Statistics and
     the normalization are float32 whatever the input's dtype; the output
-    is cast back to it."""
+    is cast back to it. With `data_group` set (a batch split over the
+    'data' axis), the statistics are the whole batch's: one all-reduce of
+    the local sums, squared sums and row count."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -87,12 +155,24 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
         self.momentum = momentum
         self.eps = eps
+        self.data_group = None
+
+    def _batch_stats(self, xf):
+        if self.data_group is None:
+            mean = xf.mean(0)
+            return mean, (xf * xf).mean(0)
+        f = xf.shape[1]
+        s = cm.all_reduce(torch.cat([xf.sum(0), (xf * xf).sum(0),
+                                     xf.new_full((1,), xf.shape[0])]),
+                          self.data_group)
+        count = s[2 * f].detach()
+        return s[:f] / count, s[f:2 * f] / count
 
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean(0)
-            var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+            mean, sq = self._batch_stats(xf)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     (1 - self.momentum) * mean)
@@ -114,31 +194,57 @@ class _Block(nn.Module):
         self.bn = FlaxBatchNorm(features)
         self.dropout = dropout
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows: Optional[cm.Split] = None):
         x = Fn.leaky_relu(self.bn(self.dense(x)), negative_slope=0.01)
         if self.training and self.dropout > 0:
+            # the mask of the whole batch (and of all features), then this
+            # rank's rows and features
+            tp = self.dense.tp
+            feats = tp is not None and tp.out_sharded
+            shape = (x.shape[0] if rows is None else rows.total,
+                     tp.out_split.total if feats else x.shape[1])
             keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator,
+            mask = torch.rand(shape, generator=generator,
                               device=x.device) < keep
+            if rows is not None:
+                mask = rows.local(mask)
+            if feats:
+                mask = tp.out_split.local(mask)
             x = torch.where(mask, x / keep, torch.zeros_like(x))
         return x
 
 
 def combine_latents(zs: Sequence[torch.Tensor], corr: torch.Tensor,
-                    sigma: torch.Tensor) -> List[torch.Tensor]:
+                    sigma: torch.Tensor,
+                    rows: Optional[cm.Split] = None) -> List[torch.Tensor]:
     """Sigma-weighted latent aggregation (jamie/model.py:245-259):
     combined[i] = (s_i z_i + s_j M_i z_j) / (s_i + s_j corr.sum(other)),
     with M_0 = corr, M_1 = corr^T. corr is cast to the latents' dtype; the
     products with sigma take the promotion of sigma's and the latents'
-    dtypes (float32 for bfloat16 latents, as in jax)."""
+    dtypes (float32 for bfloat16 latents, as in jax).
+
+    rows: a batch split over the 'data' axis. zs and corr are then this
+    rank's rows (corr (b, B)); the other modality's latents are
+    all-gathered, and corr^T z0 with corr's column sums are
+    reduce-scattered to this rank's rows in one collective."""
     z0, z1 = zs
     s0, s1 = sigma[0], sigma[1]
     dt = torch.promote_types(sigma.dtype, z0.dtype)
     corr = corr.to(z0.dtype)
-    num0 = s0 * z0.to(dt) + s1 * (corr @ z1).to(dt)
+    if rows is None:
+        num0 = s0 * z0.to(dt) + s1 * (corr @ z1).to(dt)
+        den0 = s0 + s1 * torch.sum(corr, dim=1).to(dt)[:, None]
+        num1 = s1 * z1.to(dt) + s0 * (corr.T @ z0).to(dt)
+        den1 = s1 + s0 * torch.sum(corr, dim=0).to(dt)[:, None]
+        return [num0 / den0, num1 / den1]
+    num0 = s0 * z0.to(dt) + s1 * (corr @ cm.all_gather(z1, rows)).to(dt)
     den0 = s0 + s1 * torch.sum(corr, dim=1).to(dt)[:, None]
-    num1 = s1 * z1.to(dt) + s0 * (corr.T @ z0).to(dt)
-    den1 = s1 + s0 * torch.sum(corr, dim=0).to(dt)[:, None]
+    t = cm.reduce_scatter(torch.cat([corr.T @ z0,
+                                     torch.sum(corr, dim=0)[:, None]], 1),
+                          rows)
+    num1 = s1 * z1.to(dt) + s0 * t[:, :-1].to(dt)
+    den1 = s1 + s0 * t[:, -1:].to(dt)
     return [num0 / den0, num1 / den1]
 
 
@@ -186,12 +292,61 @@ class CoupledVAE(nn.Module):
             return self.dropout
         return 0.6 if max(self.input_dim) > 64 else 0.0
 
-    # --- pieces -----------------------------------------------------------
-    def encode_one(self, x, i: int, generator=None):
-        h = self.layers[f'enc{i}_b0'](x.to(self.compute_dtype), generator)
-        return self.layers[f'enc{i}_b1'](h, generator)
+    # --- mesh ---------------------------------------------------------------
+    def shard_(self, mesh, wide_threshold: int = 1024
+               ) -> Dict[str, Optional[int]]:
+        """Place this model on a `core.mesh` DeviceMesh, in place:
+        BatchNorm statistics over the 'data' axis, and on a 'model' axis
+        of size > 1 every parameter and buffer sliced to this rank's shard
+        by `core.mesh.param_spec` (tp_wide_threshold), with each layer's
+        column- or row-parallel layout. Returns the specs ({name: sharded
+        torch dim or None}; {} without tensor parallelism). Build the
+        optimizer afterwards."""
+        group = cm.axis_group(mesh, cm.DATA)
+        for m in self.modules():
+            if isinstance(m, FlaxBatchNorm):
+                m.data_group = group
+        n = cm.model_axis_size(mesh)
+        if n <= 1:
+            return {}
+        dims = {m: (m.weight.shape[1], m.weight.shape[0])
+                for m in self.modules() if isinstance(m, TorchDense)}
+        specs = cm.shard_params_tree(self, mesh, wide_threshold)
+        prefix = {m: name for name, m in self.named_modules()}
+        k, mgroup = cm.axis_index(mesh, cm.MODEL), cm.axis_group(mesh,
+                                                                cm.MODEL)
 
-    def refactor_one(self, h, i: int, generator=None, noise=None):
+        def split(f):
+            return cm.Split(mgroup, (f // n,) * n, k, -1) if f % n == 0 \
+                else None
+
+        def layout(name, x_sharded, gather_out=False):
+            layer = self.layers[name]
+            d = layer.dense if isinstance(layer, _Block) else layer
+            w, b = (specs[f'{prefix[d]}.{p}'] for p in ('weight', 'bias'))
+            d.tp = _TPLayout(mgroup, {0: 'out', 1: 'in', None: None}[w],
+                             x_sharded,
+                             b is not None, gather_out, split(dims[d][0]),
+                             split(dims[d][1]))
+            return b is not None
+
+        for i in range(self.num_modalities):
+            h = layout(f'enc{i}_b1', layout(f'enc{i}_b0', False))
+            layout(f'fc_mu{i}', h, True)
+            layout(f'fc_var{i}', h, True)
+            h = layout(f'dec{i}_b1', layout(f'dec{i}_b0', False))
+            layout(f'dec{i}_out', h, True)
+        return specs
+
+    # --- pieces -----------------------------------------------------------
+    def encode_one(self, x, i: int, generator=None, rows=None):
+        h = self.layers[f'enc{i}_b0'](x.to(self.compute_dtype), generator,
+                                      rows)
+        return self.layers[f'enc{i}_b1'](h, generator, rows)
+
+    def refactor_one(self, h, i: int, generator=None, noise=None, rows=None):
+        """rows: noise (drawn or given) has the whole batch's rows, of which
+        this rank takes its own."""
         mu = self.layers[f'fc_mu{i}'](h)
         logvar = self.layers[f'fc_var{i}'](h)
         if not self.training:
@@ -200,30 +355,37 @@ class CoupledVAE(nn.Module):
         # mu's dtype as jamie_tpu draws and adds it
         std = torch.exp(logvar / 2) + 1e-7
         if noise is None:
-            noise = torch.randn(mu.shape, generator=generator,
+            shape = mu.shape if rows is None else (rows.total, mu.shape[1])
+            noise = torch.randn(shape, generator=generator,
                                 device=mu.device, dtype=mu.dtype)
+        if rows is not None:
+            noise = rows.local(noise)
         return mu + std * noise.to(mu.dtype), mu, logvar
 
-    def decode_one(self, z, i: int, generator=None):
-        h = self.layers[f'dec{i}_b0'](z.to(self.compute_dtype), generator)
-        h = self.layers[f'dec{i}_b1'](h, generator)
+    def decode_one(self, z, i: int, generator=None, rows=None):
+        h = self.layers[f'dec{i}_b0'](z.to(self.compute_dtype), generator,
+                                      rows)
+        h = self.layers[f'dec{i}_b1'](h, generator, rows)
         return self.layers[f'dec{i}_out'](h)
 
     # --- reference API ----------------------------------------------------
     def forward(self, xs, corr, generator: Optional[torch.Generator] = None,
-                noise: Optional[Sequence[torch.Tensor]] = None):
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                rows: Optional[cm.Split] = None):
         """noise: optional per-modality reparameterization noise (train
-        mode); otherwise it is drawn from `generator`."""
+        mode); otherwise it is drawn from `generator`. rows: the batch is
+        split over the 'data' axis and xs, corr are this rank's rows (noise
+        keeps the whole batch's rows)."""
         zs, mus, logvars = [], [], []
         for i in range(self.num_modalities):
-            h = self.encode_one(xs[i], i, generator)
+            h = self.encode_one(xs[i], i, generator, rows)
             z, mu, logvar = self.refactor_one(
-                h, i, generator, None if noise is None else noise[i])
+                h, i, generator, None if noise is None else noise[i], rows)
             zs.append(z)
             mus.append(mu)
             logvars.append(logvar)
-        combined = combine_latents(zs, corr, self.sigma)
-        x_hat = [self.decode_one(combined[i], i, generator)
+        combined = combine_latents(zs, corr, self.sigma, rows)
+        x_hat = [self.decode_one(combined[i], i, generator, rows)
                  for i in range(self.num_modalities)]
         return zs, combined, x_hat, mus, logvars
 

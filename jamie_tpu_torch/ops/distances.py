@@ -31,6 +31,16 @@ card's machine does not have, so here they are scipy's
 `squareform(pdist(X))` with sklearn's conventions (X taken as bool for
 sklearn's boolean metrics, `l1`/`manhattan` as `cityblock`), and
 `nan_euclidean` and `haversine` are sklearn's formulas in torch.
+
+On a device mesh (`mesh=`, a `core.mesh` DeviceMesh with a 'data' axis)
+euclidean, sqeuclidean, cosine and correlation are row-sharded as in
+jamie_tpu (:163-186, 231-238, 391-394): each rank pads the rows to the
+axis size and computes its row block against the whole matrix (through K3
+for the euclidean family), the true diagonal (i, r b + i) of rank r's
+block is zeroed explicitly, and the blocks are all-gathered, because the
+host graph and the solver's setup need the whole matrix. As in jamie_tpu,
+the routes past `_FEATURE_CHUNK_THRESHOLD` and the other metrics ignore
+the mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import mesh as cm
 from ..core import residency
 from ..core.dtypes import bf16_matmul, resolve_device
 from ..core.hostmat import as_f32_ndarray, densify, ensure_col_major, \
@@ -135,10 +146,25 @@ def _pairwise_euclidean_feature_chunked(x, y, squared: bool, self_dist: bool,
     return _finish(d2, squared, self_dist)
 
 
+def _sharded_rows(mesh, x: torch.Tensor, block_fn,
+                  self_dist: bool) -> torch.Tensor:
+    """block_fn(this rank's padded row block of x) -> its block of the
+    output rows; the blocks all-gathered and the pad rows sliced
+    off. self_dist zeroes the true diagonal (i, start + i) of the block."""
+    n = x.shape[0]
+    start, b = cm.row_block(n, mesh)
+    d = block_fn(cm.shard_rows(mesh, x))
+    if self_dist:
+        i = torch.arange(min(b, max(n - start, 0)), device=d.device)
+        d[i, start + i] = 0.0
+    return cm.gather_plain(d, cm.block_split(b, mesh))[:n]
+
+
 def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
-                             device=None) -> torch.Tensor:
+                             device=None, mesh=None) -> torch.Tensor:
     """Euclidean distances of host arrays (dense or scipy-sparse) or
-    tensors, by jamie_tpu's routing (distances.py:190-253)."""
+    tensors, by jamie_tpu's routing (distances.py:190-253); under the
+    threshold, row-sharded over `mesh`'s 'data' axis when one is given."""
     device = resolve_device(device)
     self_dist = y is None
     # tensors are already resident: never the host-streaming routes
@@ -165,6 +191,12 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
         y = densify(y)
     xt = _as_device_f32(x, device)
     yt = None if self_dist else _as_device_f32(y, device)
+    if mesh is not None:
+        other = xt if self_dist else yt
+        return _sharded_rows(
+            mesh, xt, lambda xb: pairwise_euclidean(xb, other,
+                                                    squared=squared),
+            self_dist)
     return pairwise_euclidean(xt, yt, squared=squared)
 
 
@@ -173,15 +205,20 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
                            min=1e-12)
 
 
-def _cosine_dist(x: torch.Tensor) -> torch.Tensor:
-    """1 - cos, clipped to [0, 2] (distances.py:256-261)."""
+def _cosine_dist(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """1 - cos, clipped to [0, 2] (distances.py:256-261); row-sharded on
+    a mesh (:202-213)."""
     xn = _unit_rows(x)
+    if mesh is not None:
+        return _sharded_rows(
+            mesh, xn, lambda xb: torch.clamp(1.0 - xb @ xn.T, 0.0, 2.0),
+            False)
     return torch.clamp(1.0 - xn @ xn.T, 0.0, 2.0)
 
 
-def _correlation_dist(x: torch.Tensor) -> torch.Tensor:
+def _correlation_dist(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """1 - Pearson r of the rows, clipped to [0, 2] (:264-271)."""
-    return _cosine_dist(x - x.mean(1, keepdim=True))
+    return _cosine_dist(x - x.mean(1, keepdim=True), mesh)
 
 
 def _corrcoef_similarity(x: torch.Tensor) -> torch.Tensor:
@@ -301,16 +338,21 @@ def _host_metric(x: np.ndarray, metric: str) -> np.ndarray:
     return squareform(pdist(x, _SCIPY_NAMES.get(metric, metric)))
 
 
-def pairwise_distance(x, metric: str = 'euclidean',
-                      device=None) -> torch.Tensor:
+def pairwise_distance(x, metric: str = 'euclidean', device=None,
+                      mesh=None) -> torch.Tensor:
     """N x N distance matrix of one dataset, on `device` (the card unless
-    the caller asks for another); the dispatch of distances.py:372-413."""
+    the caller asks for another); the dispatch of distances.py:372-413.
+    mesh: row-shard the euclidean family, cosine and correlation over its
+    'data' axis; every rank returns the whole matrix."""
+    cm.check_mesh(mesh)
     if metric in ('euclidean', 'l2', 'sqeuclidean'):
         return _pairwise_euclidean_impl(
-            x, squared=(metric == 'sqeuclidean'), device=device)
+            x, squared=(metric == 'sqeuclidean'), device=device, mesh=mesh)
     device = resolve_device(device)
     if is_scipy_sparse(x):
         x = densify(x)     # only the euclidean family streams sparse blocks
+    if metric in ('cosine', 'correlation'):
+        return _TORCH_METRICS[metric](_as_device_f32(x, device), mesh)
     if metric in _TORCH_METRICS:
         return _TORCH_METRICS[metric](_as_device_f32(x, device))
     if metric in _HOST_FALLBACK_METRICS:
@@ -341,15 +383,17 @@ def _knn_graph(dist: np.ndarray, k: int) -> np.ndarray:
 
 
 def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
-                       device=None) -> np.ndarray:
+                       device=None, mesh=None) -> np.ndarray:
     """Geodesic (kNN-graph shortest-path) distances: grow k from kmin by
     kstep until the kNN graph is connected (capped at kmax), bridge any
     components left, then all-pairs Dijkstra. The euclidean base matrix is
-    computed on `device`; the graph work runs on the host."""
+    computed on `device` (row-sharded over `mesh`); the graph work runs on
+    the host, on every rank."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components, shortest_path
 
-    dist = pairwise_distance(data, 'euclidean', device=device).cpu().numpy()
+    dist = pairwise_distance(data, 'euclidean', device=device,
+                             mesh=mesh).cpu().numpy()
     n = dist.shape[0]
     if n == 1:
         return np.zeros((1, 1), np.float32)
@@ -371,18 +415,19 @@ def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
 
 
 def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
-                            kmax: int = 40, device=None):
+                            kmax: int = 40, device=None, mesh=None):
     """Distance matrix dispatch (jamie/jamie.py:851-885): a host ndarray
     for geodesic (as jamie_tpu), a device tensor for every other mode.
     scipy-sparse data passes through to the sparse-aware euclidean routes;
-    spearman and pearson densify it."""
+    spearman and pearson densify it. `mesh` reaches the modes jamie_tpu
+    shards (geodesic's base matrix and pairwise_distance's)."""
     if is_scipy_sparse(data):
         if distance_mode in ('spearman', 'pearson'):
             data = densify(data)
     elif not isinstance(data, torch.Tensor):
         data = as_f32_ndarray(data)   # keeps the identity the caches key on
     if distance_mode == 'geodesic':
-        return geodesic_distances(data, kmax=kmax, device=device)
+        return geodesic_distances(data, kmax=kmax, device=device, mesh=mesh)
     if distance_mode in ('spearman', 'pearson'):
         if data.shape[0] == 1:
             return np.zeros((1, 1), np.float32)
@@ -397,4 +442,5 @@ def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
                 'Data is not well conditioned for spearman method '
                 '(rank correlation returned nan)')
         return (1.0 - sim) / 2.0
-    return pairwise_distance(data, metric=distance_mode, device=device)
+    return pairwise_distance(data, metric=distance_mode, device=device,
+                             mesh=mesh)

@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import mesh as cm
 from ..core import residency
 from ..core.dtypes import resolve_device
 from ..core.hostmat import dense_rows, densify, is_scipy_sparse
@@ -209,6 +210,7 @@ def landmark_correspondence(
     selection: str = 'fps',
     factor_layout: str = 'auto',
     device=None,
+    mesh=None,
     **prime_dual_kwargs,
 ) -> LowRankF:
     """Low-rank unsupervised correspondence between datasets X (N0, f0) and
@@ -218,7 +220,9 @@ def landmark_correspondence(
     selection: 'fps' (farthest-point cover, default) or 'uniform'.
     factor_layout: 'dense' -> LowRankF (U = A_x F_L materialized, N x L),
     'sparse' -> SparseLandmarkF (k-sparse A factors, O(N k) memory),
-    'auto' -> sparse once max(N) x L crosses _SPARSE_FACTOR_ENTRIES."""
+    'auto' -> sparse once max(N) x L crosses _SPARSE_FACTOR_ENTRIES.
+    mesh: the (L0, L1) solve's state rows shard over its 'data' axis
+    (jamie_tpu/solvers/landmark.py:238); the rest runs on every rank."""
     if factor_layout not in ('auto', 'dense', 'sparse'):
         raise ValueError(f'unknown factor_layout {factor_layout!r}')
     device = resolve_device(device)
@@ -240,7 +244,7 @@ def landmark_correspondence(
     Ky = dataset_distance_matrix(Yl, distance_mode, kmax=kmax, device=device)
     timer.log('distances')
     F_L = prime_dual(Kx, Ky, dx=int(X.shape[1]), dy=int(Y.shape[1]),
-                     device=device, **prime_dual_kwargs)
+                     device=device, mesh=mesh, **prime_dual_kwargs)
     timer.log('solve')
 
     if factor_layout == 'auto':
@@ -259,7 +263,7 @@ def landmark_correspondence(
         # cell's weights; V is the column side's affinity
         F = LowRankF(A_x @ F_L, A_y)
     timer.log('weights')
-    if prime_dual_kwargs.get('verbose', True):
+    if prime_dual_kwargs.get('verbose', True) and cm.is_rank0():
         print('landmark correspondence seconds: ' + ', '.join(
             f'{k} {v:.3f}' for k, v in timer.totals().items()))
     return F

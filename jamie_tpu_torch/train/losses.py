@@ -12,12 +12,17 @@ Reference parity: `jamie_tpu/train/losses.py` (jamie/jamie.py:614-728):
 
 Dtypes promote as in jamie_tpu (losses.py:56, 90): the data is cast to the
 reconstruction's dtype, F to the combined latents'.
+
+`count`: on a batch split over a mesh's 'data' axis each rank holds some
+rows, and every mean over the batch is a mean over the whole batch: the
+local rows' sum divided by the global row count. The trainer all-reduces
+the four terms (each rank's share sums to the whole batch's loss).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -30,25 +35,33 @@ def kl_anneal(epoch: int, min_epochs: int, epoch_dnn: int) -> float:
     return 1.0 / (1.0 + math.exp(-5.0 * (epoch - c) / c))
 
 
+def batch_mean(v: torch.Tensor, count: Optional[int] = None):
+    """The mean of per-row values over the batch: v.mean(), or the local
+    rows' share sum(v) / count of a batch of `count` rows."""
+    return torch.mean(v) if count is None else torch.sum(v) / count
+
+
 def kl_divergence(mus: Sequence[torch.Tensor],
-                  logvars: Sequence[torch.Tensor]):
+                  logvars: Sequence[torch.Tensor],
+                  count: Optional[int] = None):
     """Sum over modalities of the mean-reduced KL(q||N(0,1)). Like
     jamie_tpu, pairs each modality's mu with its own logvar (the
     reference pairs them with the last modality's — an upstream bug)."""
     total = 0.0
     for mu, logvar in zip(mus, logvars):
-        total = total + torch.mean(-0.5 * torch.mean(
-            1 + logvar - mu * mu - torch.exp(logvar), dim=1))
+        total = total + batch_mean(-0.5 * torch.mean(
+            1 + logvar - mu * mu - torch.exp(logvar), dim=1), count)
     return total
 
 
 def reconstruction_loss(reconstructed: Sequence[torch.Tensor],
-                        data: Sequence[torch.Tensor]):
+                        data: Sequence[torch.Tensor],
+                        count: Optional[int] = None):
     """Sum over modalities of MSE (jamie.py:637-642)."""
     total = 0.0
     for rec, x in zip(reconstructed, data):
-        total = total + torch.mean(torch.mean((rec - x.to(rec.dtype)) ** 2,
-                                              dim=1))
+        total = total + batch_mean(
+            torch.mean((rec - x.to(rec.dtype)) ** 2, dim=1), count)
     return total
 
 
@@ -66,19 +79,22 @@ def _diag_sq_diff(a: torch.Tensor, b: torch.Tensor, method: str):
 
 def latent_consistency_loss(embedded: Sequence[torch.Tensor],
                             combined: Sequence[torch.Tensor],
-                            dist_method: str = 'euclidean'):
+                            dist_method: str = 'euclidean',
+                            count: Optional[int] = None):
     """32 x the dim-normalized squared matched-row difference."""
     d0 = _diag_sq_diff(embedded[0], combined[0], dist_method)
     d1 = _diag_sq_diff(embedded[1], combined[1], dist_method)
-    return 32.0 * (torch.mean(d0) / embedded[0].shape[1]
-                   + torch.mean(d1) / embedded[1].shape[1])
+    return 32.0 * (batch_mean(d0, count) / embedded[0].shape[1]
+                   + batch_mean(d1, count) / embedded[1].shape[1])
 
 
 def f_reconstruction_loss(combined0: torch.Tensor, combined1: torch.Tensor,
-                          F: torch.Tensor):
-    """||combined0 - F @ combined1||^2, mean-reduced (jamie.py:663-667)."""
+                          F: torch.Tensor, count: Optional[int] = None):
+    """||combined0 - F @ combined1||^2, mean-reduced (jamie.py:663-667).
+    With a split batch, combined0 and F are this rank's rows and
+    combined1 the whole batch's."""
     diff = combined0 - F.to(combined1.dtype) @ combined1
-    return torch.mean(torch.mean(diff * diff, dim=1))
+    return batch_mean(torch.mean(diff * diff, dim=1), count)
 
 
 def row_normalize(M: torch.Tensor):

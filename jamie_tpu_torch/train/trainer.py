@@ -32,6 +32,29 @@ form but a dense one is ever built as an (N0, N1) matrix:
 Each batch block P[idx0][:, idx1] / F[idx0][:, idx1] is synthesized from
 the indices (`_p_sub`, `_f_sub`), and the sampling regime follows the form
 (:218-259).
+
+On a device mesh (`mesh=`, a `core.mesh` DeviceMesh; jamie_tpu's
+:49-61, 97-104, 159-197, 280-299, 345-356, 759, 785):
+
+- the data, a dense P or F, the ELL tables and the low-rank factors are
+  zero-padded and row-sharded over the 'data' axis; the pad rows are never
+  sampled (indices stay below the true row counts);
+- every rank draws the whole batch's indices, noise and dropout masks from
+  the one seeded generator and keeps its own rows of the batch, so a
+  sharded fit follows the unsharded fit's random stream. A batch row may
+  live on another rank: each rank fills the rows it owns into a zero
+  buffer and a reduce-scatter hands every rank its batch rows (an
+  all-reduce where every rank needs all of them, as for the column side of
+  a low-rank F); the (B0, B1) blocks of P and F take the same route;
+- the model is placed by `CoupledVAE.shard_` (BatchNorm over the whole
+  batch, tensor parallelism on the 'model' axis by tp_wide_threshold);
+  each rank's loss is its rows' share of the whole-batch means, the
+  gradients are all-reduced over 'data', and the global-norm clip counts
+  replicated parameters once and sums the sharded ones over 'model';
+- `FitState`s, snapshots and `final_embed` / `final_corr` are in the
+  unsharded layout (gathered, pad rows dropped), so a mesh fit's snapshot
+  restores on one device; rank 0 alone writes snapshots and metrics and
+  prints. Every rank calls every method (SPMD).
 """
 
 from __future__ import annotations
@@ -47,9 +70,11 @@ import numpy as np
 import torch
 
 from ..config import JamieConfig
+from ..core import mesh as cm
 from ..core.dtypes import resolve_device
 from ..core.timing import device_memory_stats
-from ..ops.lowrank import LowRankF
+from ..ops.lowrank import LowRankF, SparseLandmarkF, _mix_rows, \
+    _scatter_rows
 from ..ops.sparse import (SparseRows, as_sparse_rows, is_sparse_input,
                           sparse_gather_batch)
 from .losses import (
@@ -108,7 +133,13 @@ class FlatClipAdam:
 
     MAX_NORM, B1, B2, EPS = 1.0, 0.9, 0.999, 1e-8
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, data_group=None, model_group=None,
+                 sharded: Optional[torch.Tensor] = None):
+        """On a mesh: `data_group` all-reduces the gradients; `sharded`
+        (a bool mask over the flat vector) marks the parameters sharded
+        over `model_group`, whose squares the clip's norm sums over it."""
+        self.data_group, self.model_group = data_group, model_group
+        self.sharded = sharded
         self.params = list(params)
         self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
         offset = 0
@@ -129,7 +160,14 @@ class FlatClipAdam:
         """Clip the accumulated gradients, take one Adam step, zero them."""
         g = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
                        else p.grad.reshape(-1) for p in self.params])
-        norm = torch.linalg.vector_norm(g)
+        if self.data_group is not None:
+            torch.distributed.all_reduce(g, group=self.data_group)
+        if self.sharded is None:
+            norm = torch.linalg.vector_norm(g)
+        else:
+            sq = g * g
+            norm = torch.sqrt(sq[~self.sharded].sum() + cm.all_reduce_plain(
+                sq[self.sharded].sum(), self.model_group))
         g = torch.where(norm < self.MAX_NORM, g, g / norm * self.MAX_NORM)
         self.count += 1
         adam_update(self.flat, g, self.mu, self.nu, self.count, self.lr,
@@ -159,20 +197,24 @@ class JamieTrainer:
     """Owns the model, data, optimizer and generator of one fit."""
 
     def __init__(self, config: JamieConfig, model, dataset: Sequence,
-                 P, F, device=None):
+                 P, F, device=None, mesh=None):
         if len(dataset) != 2:
             raise ValueError('Currently only compatible with 2 modalities.')
+        cm.check_mesh(mesh)
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.rows = [int(d.shape[0]) for d in dataset]
         self.cols = [int(d.shape[1]) for d in dataset]
+        # this rank's first global row and block size per modality
+        self._blocks = [cm.row_block(n, mesh) if mesh is not None else (0, n)
+                        for n in self.rows]
         # device tensors (the large PCA routes' standardized scores) are
         # taken where they lie, without a host round trip
-        self.data = [d.to(device=self.device, dtype=torch.float32)
-                     if isinstance(d, torch.Tensor) else
-                     torch.as_tensor(np.asarray(d, np.float32),
-                                     device=self.device) for d in dataset]
+        self.data = [self._row_block(
+            d if isinstance(d, torch.Tensor) else np.asarray(d, np.float32),
+            i).float() for i, d in enumerate(dataset)]
         self._init_p(P)
         self._init_f(F)
         # Row budget when final_corr must compress a low-rank F to sparse
@@ -186,6 +228,11 @@ class JamieTrainer:
             self.batch_size = int(max(self.rows))
 
         self.sampling_method, corr_pairs = self._sampling_regime()
+        if mesh is not None:
+            self._shard_tables()
+        # the batch's rows over the 'data' axis (None: all of them here)
+        self._split = (cm.split_of(self.batch_size, mesh, cm.DATA)
+                       if mesh is not None else None)
         self.epoch_sampler = make_epoch_sampler(
             self.sampling_method, self.rows, self.batch_size,
             self.len_dataloader, corr_pairs=corr_pairs,
@@ -202,15 +249,29 @@ class JamieTrainer:
         self.loss_weights = torch.tensor(weights, dtype=torch.float32,
                                          device=self.device)
 
-        # Grad-clip 1.0 then Adam, matching torch clip->step (jamie.py:736-742)
-        self.optimizer = FlatClipAdam(self.model.parameters(), config.model_lr)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            config.manual_seed)
-        # the model's parameters and stats as given: what init_state starts
-        # every fresh fit from
-        self._init_params = self.optimizer.flat.detach().clone()
+        # the model's parameters and stats as given, in the unsharded
+        # layout: what init_state starts every fresh fit from
+        self._init_params = torch.cat([p.detach().reshape(-1).clone()
+                                       for p in self.model.parameters()])
         self._init_stats = {k: v.detach().clone()
                             for k, v in self._stats().items()}
+        self._shapes = [(name, tuple(p.shape))
+                        for name, p in self.model.named_parameters()]
+        self.tp_specs = (self.model.shard_(mesh, config.tp_wide_threshold)
+                         if mesh is not None else {})
+        sharded = None
+        if self.tp_specs:
+            sharded = torch.cat([
+                torch.full((p.numel(),), self.tp_specs[name] is not None,
+                           device=self.device)
+                for name, p in self.model.named_parameters()])
+        # Grad-clip 1.0 then Adam, matching torch clip->step (jamie.py:736-742)
+        self.optimizer = FlatClipAdam(
+            self.model.parameters(), config.model_lr,
+            data_group=cm.axis_group(mesh, cm.DATA),
+            model_group=cm.axis_group(mesh, cm.MODEL), sharded=sharded)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.manual_seed)
 
     # ------------------------------------------------------------ P/F forms
     def _init_p(self, P) -> None:
@@ -256,7 +317,10 @@ class JamieTrainer:
             if F.shape != rows:
                 raise ValueError(f'low-rank F shape {F.shape} != dataset '
                                  f'rows {rows}')
-            self._f_lowrank = F.to(self.device)
+            # on a mesh the object stays where it is (final_corr reads it)
+            # and _shard_tables puts its row blocks on the device
+            self._f_lowrank = (F if self.mesh is not None
+                               else F.to(self.device))
         elif is_sparse_input(F):
             self._f_sparse = as_sparse_rows(F, shape=rows)
             if self._f_sparse.shape != rows:
@@ -265,6 +329,63 @@ class JamieTrainer:
             self._f_ell = _ell_device(self._f_sparse, self.device)
         else:
             self.F = _dense_matrix(F, 'F', rows, self.device)
+
+    def _row_block(self, x, i: int) -> torch.Tensor:
+        """x (an ndarray or tensor with modality i's rows) on the device:
+        all of it without a mesh, else this rank's block of the rows
+        zero-padded to the 'data' axis, in memory of its own."""
+        if isinstance(x, np.ndarray):
+            x = torch.as_tensor(x)
+        if self.mesh is None:
+            return x.to(self.device)
+        start, b = self._blocks[i]
+        blk = x[start:start + b].to(self.device)
+        return torch.cat([blk, blk.new_zeros((b - blk.shape[0],)
+                                             + tuple(blk.shape[1:]))])
+
+    def _shard_tables(self) -> None:
+        """Replace the whole P/F tables _init_p and _init_f placed with
+        this rank's row blocks (the regime is already decided)."""
+        if self.P is not None:
+            self.P = self._row_block(self.P, 0)
+        if self._p_sparse is not None:
+            self._p_ell = tuple(self._row_block(t, 0) for t in self._p_ell)
+        if self.F is not None:
+            self.F = self._row_block(self.F, 0)
+        if self._f_sparse is not None:
+            self._f_ell = tuple(self._row_block(t, 0) for t in self._f_ell)
+        lr = self._f_lowrank
+        if isinstance(lr, SparseLandmarkF):
+            self._f_tables = (self._row_block(lr.ix, 0),
+                              self._row_block(lr.wx, 0),
+                              self._row_block(lr.iy, 1),
+                              self._row_block(lr.wy, 1),
+                              lr.f_l.to(self.device))
+        elif lr is not None:
+            self._f_tables = (self._row_block(lr.u, 0),
+                              self._row_block(lr.v, 1))
+
+    def _local(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's entries of a batch's index vector."""
+        return idx if self._split is None else self._split.local(idx)
+
+    def _batch_rows(self, i: int, idx: torch.Tensor, take,
+                    whole: bool = False) -> torch.Tensor:
+        """Rows idx of modality i's row-sharded tables, where take(local
+        row indices) gives the values of rows this rank holds. Without a
+        mesh, take(idx). On a mesh each rank fills the rows it owns into a
+        zero buffer of the batch, then a reduce-scatter over 'data' gives it
+        its own batch rows, or (whole=True) an all-reduce every row."""
+        if self.mesh is None:
+            return take(idx)
+        start, b = self._blocks[i]
+        own = (idx >= start) & (idx < start + b)
+        vals = take(idx[own] - start)
+        buf = vals.new_zeros((idx.shape[0],) + tuple(vals.shape[1:]))
+        buf[own] = vals
+        if whole:
+            return cm.all_reduce_plain(buf, self._split.group)
+        return cm.reduce_scatter_plain(buf, self._split)
 
     def _sampling_regime(self):
         """(method, matched pairs or None) from P's form (jamie.py:517-534,
@@ -295,47 +416,77 @@ class JamieTrainer:
                         else None)
 
     def _p_sub(self, idx0, idx1) -> torch.Tensor:
-        """P[idx0][:, idx1] for a batch, from whichever form P has."""
+        """P[idx0][:, idx1] for a batch, from whichever form P has (this
+        rank's rows of it on a mesh)."""
+        rows0 = self._local(idx0)
         if self._p_identity:
-            return (idx0[:, None] == idx1[None, :]).float()
+            return (rows0[:, None] == idx1[None, :]).float()
         if self._p_sparse is not None:
-            return sparse_gather_batch(*self._p_ell, idx0, idx1)
+            return self._batch_rows(0, idx0, lambda r: sparse_gather_batch(
+                *self._p_ell, r, idx1))
         if self._p_diag_mask is not None:
-            return (self._p_mask_dev[idx0][:, None]
-                    * (idx0[:, None] == idx1[None, :]).float())
-        return self.P[idx0][:, idx1]
+            return (self._p_mask_dev[rows0][:, None]
+                    * (rows0[:, None] == idx1[None, :]).float())
+        return self._batch_rows(0, idx0, lambda r: self.P[r][:, idx1])
 
     def _f_sub(self, idx0, idx1) -> torch.Tensor:
-        """F[idx0][:, idx1] for a batch, from whichever form F has."""
+        """F[idx0][:, idx1] for a batch, from whichever form F has (this
+        rank's rows of it on a mesh)."""
         if self._f_zeros:
-            return torch.zeros((idx0.shape[0], idx1.shape[0]),
+            return torch.zeros((self._local(idx0).shape[0], idx1.shape[0]),
                                dtype=torch.float32, device=self.device)
         if self._f_lowrank is not None:
-            return self._f_lowrank.gather_batch(idx0, idx1)
+            if self.mesh is None:
+                return self._f_lowrank.gather_batch(idx0, idx1)
+            if isinstance(self._f_lowrank, SparseLandmarkF):
+                ix, wx, iy, wy, f_l = self._f_tables
+                u_b = self._batch_rows(0, idx0, lambda r: _mix_rows(
+                    ix[r], wx[r], f_l))
+                v_b = self._batch_rows(1, idx1, lambda r: _scatter_rows(
+                    iy[r], wy[r], f_l.shape[1]), whole=True)
+            else:
+                u, v = self._f_tables
+                u_b = self._batch_rows(0, idx0, lambda r: u[r])
+                v_b = self._batch_rows(1, idx1, lambda r: v[r], whole=True)
+            return u_b @ v_b.T
         if self._f_sparse is not None:
-            return sparse_gather_batch(*self._f_ell, idx0, idx1)
-        return self.F[idx0][:, idx1]
+            return self._batch_rows(0, idx0, lambda r: sparse_gather_batch(
+                *self._f_ell, r, idx1))
+        return self._batch_rows(0, idx0, lambda r: self.F[r][:, idx1])
 
     # ----------------------------------------------------------- batch step
     def batch_loss(self, idx0, idx1, epoch_idx: int, noise=None):
         """Weighted loss sum and its 4-vector for one batch, in train mode.
-        noise: optional per-modality reparameterization noise."""
+        noise: optional per-modality reparameterization noise (the whole
+        batch's rows). On a mesh these are this rank's rows' shares of the
+        whole-batch means (`_report` sums them over 'data')."""
         cfg = self.config
-        x0 = self.data[0][idx0]
-        x1 = self.data[1][idx1]
+        rows = self._split
+        count = None if rows is None else rows.total
+        x0 = self._batch_rows(0, idx0, lambda r: self.data[0][r])
+        x1 = self._batch_rows(1, idx1, lambda r: self.data[1][r])
         P_sub = self._p_sub(idx0, idx1)
         F_sub = self._f_sub(idx0, idx1)
         Fn = row_normalize(F_sub)
         corr = self.pf_ratio * row_normalize(P_sub) + (1 - self.pf_ratio) * Fn
         zs, combined, x_hat, mus, logvars = self.model(
-            [x0, x1], corr, generator=self.generator, noise=noise)
+            [x0, x1], corr, generator=self.generator, noise=noise, rows=rows)
         kl = (32e-3 * kl_anneal(epoch_idx, cfg.min_epochs, cfg.epoch_DNN)
-              * kl_divergence(mus, logvars))
-        rec = reconstruction_loss(x_hat, [x0, x1])
-        cos = latent_consistency_loss(zs, combined, cfg.dist_method)
-        fl = f_reconstruction_loss(combined[0], combined[1], Fn)
+              * kl_divergence(mus, logvars, count))
+        rec = reconstruction_loss(x_hat, [x0, x1], count)
+        cos = latent_consistency_loss(zs, combined, cfg.dist_method, count)
+        c1 = combined[1] if rows is None else cm.all_gather(combined[1], rows)
+        fl = f_reconstruction_loss(combined[0], c1, Fn, count)
         vec = torch.stack([t.float() for t in (kl, rec, cos, fl)]) \
             * self.loss_weights
+        return torch.sum(vec), vec
+
+    def _report(self, loss, vec):
+        """The batch's (loss, vec), detached; on a mesh the sums over
+        'data' of every rank's share (the whole batch's values)."""
+        if self._split is None:
+            return loss.detach(), vec.detach()
+        vec = cm.all_reduce_plain(vec.detach(), self._split.group)
         return torch.sum(vec), vec
 
     def train_step(self, idx0, idx1, epoch_idx: int, noise=None):
@@ -344,7 +495,7 @@ class JamieTrainer:
         loss, vec = self.batch_loss(idx0, idx1, epoch_idx, noise)
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), vec.detach()
+        return self._report(loss, vec)
 
     # ------------------------------------------------------------ fit state
     def _stats(self) -> Dict[str, torch.Tensor]:
@@ -357,57 +508,110 @@ class JamieTrainer:
         generator seeded with `seed` (default `config.manual_seed`). The
         model's own seed (CoupledVAE(seed=...)) draws its initialization."""
         seed = self.config.manual_seed if seed is None else seed
-        opt = self.optimizer
         return FitState(
             params=self._init_params.clone(),
             batch_stats={k: v.clone() for k, v in self._init_stats.items()},
-            mu=torch.zeros_like(opt.flat), nu=torch.zeros_like(opt.flat),
+            mu=torch.zeros_like(self._init_params),
+            nu=torch.zeros_like(self._init_params),
             count=0,
             rng=torch.Generator(device=self.device).manual_seed(
                 seed).get_state())
 
+    # Tensor parallelism keeps each rank's shards live; a FitState holds
+    # the unsharded layout (flat parameters in named_parameters order)
+    def _tp_split(self, size: int, dim: int) -> cm.Split:
+        n = cm.model_axis_size(self.mesh)
+        return cm.Split(cm.axis_group(self.mesh, cm.MODEL), (size,) * n,
+                        cm.axis_index(self.mesh, cm.MODEL), dim)
+
+    def _whole(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The unsharded tensor of a live shard (gathered over 'model')."""
+        dim = self.tp_specs.get(name)
+        if dim is None:
+            return t.detach().clone()
+        return cm.gather_plain(t.detach(), self._tp_split(t.shape[dim], dim))
+
+    def _shard(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        dim = self.tp_specs.get(name)
+        return cm.local_shard(t, dim, cm.model_axis_size(self.mesh),
+                              cm.axis_index(self.mesh, cm.MODEL))
+
+    def _flat_whole(self, flat: torch.Tensor) -> torch.Tensor:
+        """A live flat vector (parameters, moments) in the unsharded
+        layout."""
+        if not self.tp_specs:
+            return flat.detach().clone()
+        parts, off = [], 0
+        for (name, _), p in zip(self._shapes, self.optimizer.params):
+            t = flat[off:off + p.numel()].view_as(p)
+            parts.append(self._whole(t, name).reshape(-1))
+            off += p.numel()
+        return torch.cat(parts)
+
+    def _flat_shard(self, flat: torch.Tensor) -> torch.Tensor:
+        if not self.tp_specs:
+            return flat
+        parts, off = [], 0
+        for name, shape in self._shapes:
+            size = int(np.prod(shape))
+            t = flat[off:off + size].reshape(shape)
+            parts.append(self._shard(t, name).reshape(-1))
+            off += size
+        return torch.cat(parts)
+
+    def whole_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict in the unsharded layout (gathered over
+        'model' under tensor parallelism; every rank calls it)."""
+        return {k: self._whole(v, k)
+                for k, v in self.model.state_dict().items()}
+
     def _capture(self, epoch: int, best, streak: int,
                  stopped: bool) -> FitState:
-        """A copy of the live state: later steps do not change it."""
+        """A copy of the live state in the unsharded layout: later steps
+        do not change it."""
         opt = self.optimizer
         return FitState(
-            params=opt.flat.detach().clone(),
-            batch_stats={k: v.detach().clone()
+            params=self._flat_whole(opt.flat),
+            batch_stats={k: self._whole(v, k)
                          for k, v in self._stats().items()},
-            mu=opt.mu.clone(), nu=opt.nu.clone(), count=opt.count,
+            mu=self._flat_whole(opt.mu), nu=self._flat_whole(opt.nu),
+            count=opt.count,
             rng=self.generator.get_state(), epoch=int(epoch),
             best_running_loss=float(best), streak=int(streak),
             stopped=bool(stopped))
 
     @torch.no_grad()
     def _load_params(self, params, batch_stats) -> None:
-        """Copy parameters and stats into the live buffers IN PLACE: the
-        model's parameters are views of FlatClipAdam.flat, which a new
-        tensor would silently detach."""
+        """Copy parameters and stats (unsharded layout) into the live
+        buffers IN PLACE: the model's parameters are views of
+        FlatClipAdam.flat, which a new tensor would silently detach."""
         live = self._stats()
-        if (params.numel() != self.optimizer.flat.numel()
+        if (params.numel() != self._init_params.numel()
                 or set(batch_stats) != set(live)):
             raise ValueError(f'a state of {params.numel()} parameters and '
                              f'stats {sorted(batch_stats)[:2]}... does not '
-                             f'fit this model ({self.optimizer.flat.numel()} '
+                             f'fit this model ({self._init_params.numel()} '
                              'parameters)')
-        self.optimizer.flat.copy_(params)
+        self.optimizer.flat.copy_(self._flat_shard(params))
         for k, v in batch_stats.items():
-            live[k].copy_(v)
+            live[k].copy_(self._shard(v, k))
 
     @torch.no_grad()
     def _load(self, state: FitState) -> None:
         """Make `state` the live state (in place; `state` is not changed)."""
         self._load_params(state.params, state.batch_stats)
         opt = self.optimizer
-        opt.mu.copy_(state.mu)
-        opt.nu.copy_(state.nu)
+        opt.mu.copy_(self._flat_shard(state.mu))
+        opt.nu.copy_(self._flat_shard(state.nu))
         opt.count = int(state.count)
         self.generator.set_state(state.rng.cpu())
 
     def save_fit_state(self, path: str, state: FitState) -> None:
         """torch.save the state at `path`, resolved to an absolute path
-        (jamie_tpu/train/trainer.py:796-804)."""
+        (jamie_tpu/train/trainer.py:796-804); on a mesh rank 0 writes and
+        the other ranks do nothing."""
+        if not cm.is_rank0():
+            return
         path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         torch.save({f.name: getattr(state, f.name)
@@ -434,7 +638,7 @@ class JamieTrainer:
             else:   # gradients accumulate; one step per epoch
                 loss, vec = self.batch_loss(idx0_all[b], idx1_all[b], epoch)
                 loss.backward()
-                loss, vec = loss.detach(), vec.detach()
+                loss, vec = self._report(loss, vec)
             losses.append(loss)
         if not cfg.batch_step:
             self.optimizer.step()
@@ -458,6 +662,12 @@ class JamieTrainer:
         have passed since the last one. `config.dispatch_lookahead`, which
         pipelines jamie_tpu's jitted chunks, has no meaning in this eager
         loop and is ignored."""
+        with cm.rank0_stdout():
+            return self._fit(state, seed, checkpoint_dir, checkpoint_every,
+                             metrics_path)
+
+    def _fit(self, state, seed, checkpoint_dir, checkpoint_every,
+             metrics_path) -> FitState:
         cfg = self.config
         self.loss_history: Dict[str, List[float]] = {n: [] for n in LOSS_NAMES}
         self.epoch_losses: List[float] = []
@@ -467,7 +677,8 @@ class JamieTrainer:
         epoch, streak, stopped = state.epoch, state.streak, state.stopped
         best = np.float32(state.best_running_loss)
         last_ckpt = epoch
-        metrics_f = open(metrics_path, 'a') if metrics_path else None
+        metrics_f = (open(metrics_path, 'a')
+                     if metrics_path and cm.is_rank0() else None)
         t0 = chunk_t0 = time.perf_counter()
         self.model.train()
         self.optimizer.zero_grad()
@@ -597,13 +808,13 @@ class JamieTrainer:
             return SparseRows(cols, vals, (n0, n1))
         dev = self.device
         P = (torch.as_tensor(Psp.to_dense(), device=dev) if Psp is not None
-             else self.P)
+             else self._rows_whole(self.P, 0))
         if Fsp is not None:
             F = torch.as_tensor(Fsp.to_dense(), device=dev)
         elif self._f_lowrank is not None:
             F = torch.as_tensor(self._f_lowrank.to_dense(), device=dev)
         else:
-            F = self.F
+            F = self._rows_whole(self.F, 0)
         return (self.pf_ratio * col_normalize(P)
                 + (1 - self.pf_ratio) * col_normalize(F))
 
@@ -620,8 +831,18 @@ class JamieTrainer:
             self._load_params(state.params, state.batch_stats)
         try:
             self.model.eval()
-            return [self.model.embed_one(x, i).float().cpu().numpy()
-                    for i, x in enumerate(self.data)]
+            return [self._rows_whole(self.model.embed_one(x, i), i)
+                    .float().cpu().numpy() for i, x in enumerate(self.data)]
         finally:
             if state is not None:
-                self._load_params(*live)
+                self.optimizer.flat.copy_(live[0])
+                for k, v in self._stats().items():
+                    v.copy_(live[1][k])
+
+    def _rows_whole(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Modality i's row blocks of t gathered over 'data', pad rows
+        dropped (t itself without a mesh)."""
+        if self.mesh is None:
+            return t
+        return cm.gather_plain(t, cm.block_split(t.shape[0], self.mesh))[
+            :self.rows[i]]

@@ -506,3 +506,56 @@ def test_mmdma_opt_card_matches_cpu(cuda):
         outs.append((E1.cpu(), E2.cpu()))
     for g, w in zip(*outs):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------- the mesh
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world-size-1 NCCL group and its ('data',) mesh, destroyed after
+    the test."""
+    from jamie_tpu_torch.core import mesh as cm
+    mesh = cm.create_mesh((1,), ('data',), device_type='cuda')
+    yield mesh
+    cm.destroy_group()
+
+
+def test_mesh_collectives_on_nccl(nccl_mesh):
+    """The autograd collectives on a one-rank NCCL group: forward the
+    identity of a single rank's whole, backward the adjoint's."""
+    from jamie_tpu_torch.core import mesh as cm
+    dev = torch.device('cuda')
+    group = cm.axis_group(nccl_mesh, 'data')
+    rows = cm.split_of(5, nccl_mesh, 'data')
+    x = torch.randn(5, 3, device=dev, requires_grad=True)
+    for y in (cm.all_reduce(x, group), cm.all_gather(x, rows),
+              cm.reduce_scatter(x, rows), cm.copy_to(x, group),
+              cm.reduce_from(x, group)):
+        assert torch.equal(y, x)
+        g, = torch.autograd.grad((y * y).sum(), x)
+        torch.testing.assert_close(g, 2 * x)
+
+
+def test_mesh_shards_run_k1_and_k3(nccl_mesh):
+    """The mesh path on the card: K3 on the distance shard and K1 on the
+    solver shard, against their plain versions."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(301, 40).astype(np.float32)
+    ops.reset_launch_counts()
+    d = distances.pairwise_distance(x, 'euclidean', mesh=nccl_mesh)
+    assert pairwise.pairwise_euclidean.launches == 1
+    xt = torch.as_tensor(x, device='cuda')
+    want = pairwise.pairwise_euclidean_plain(xt, None, squared=False)
+    scale = float((xt * xt).sum(1).max()) * 2
+    assert float((d * d - want * want).abs().max()) <= 1e-5 * scale
+    assert bool((torch.diagonal(d) == 0).all())
+    from jamie_tpu_torch.solvers.prime_dual import prime_dual
+    K = d.cpu().numpy()
+    ops.reset_launch_counts()
+    F = prime_dual(K, K[::-1, ::-1].copy(), 40, 40, epoch_pd=50,
+                   verbose=False, precision='highest', mesh=nccl_mesh)
+    assert pd_update.fused_pd_grad_update.launches == 50
+    F_cpu = prime_dual(K, K[::-1, ::-1].copy(), 40, 40, epoch_pd=50,
+                       verbose=False, precision='highest', device='cpu')
+    assert F.shape == (301, 301)
+    assert float((F.cpu() - F_cpu).abs().max()) <= 1e-4 * float(
+        F_cpu.abs().max())

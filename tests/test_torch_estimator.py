@@ -88,14 +88,15 @@ def test_checkpoints_cross_load(fitted, tmp_path, direction):
     ({'mesh': object()}, 14),
 ])
 def test_unported_options_raise(kwargs, item):
-    """A device mesh (item 14) still raises, naming its item; the options
-    of items 12 (the t-SNE projection, the UMAP preclass,
+    """The options of items 12 (the t-SNE projection, the UMAP preclass,
     corr_method='jamie') and 13 (bf16 compute, mid-fit snapshots, the
-    metrics log) are ported and build."""
+    metrics log) are ported and build. A device mesh (item 14) is ported
+    too (tests/test_torch_mesh.py): a mesh that is not a torch.distributed
+    DeviceMesh raises TypeError."""
     if item in (12, 13):
         assert JAMIE(device='cpu', **kwargs).config.nondefault_kwargs() == kwargs
         return
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md item {item}'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         JAMIE(device='cpu', **kwargs)
 
 

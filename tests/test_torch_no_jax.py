@@ -1,5 +1,6 @@
 """jamie_tpu_torch and chip_smoke.py import nothing of jax, flax, optax,
-jamie_tpu, sklearn or umap (the card's machine has none of them), the port
+jamie_tpu, sklearn or umap (the card's machine has none of them), nor does
+the device mesh (core/mesh.py, multichip.py) at world size 1, the port
 runs without h5py, pandas, matplotlib, seaborn and shap (optional: only the
 readers, the plots and the shap route that need one import it), and the
 port runs on the CPU only when asked to."""
@@ -113,6 +114,17 @@ nn_funcs.knn_dist(data[1], device='cpu')
 e = torch.tensor(data[1], requires_grad=True)
 nn_funcs.gw_loss([e, torch.tensor(data[1][::-1].copy())]).backward()
 assert bool(torch.isfinite(e.grad).all())
+# the device mesh at world size 1 (gloo): distances, solver, fit, entry
+from jamie_tpu_torch import multichip
+from jamie_tpu_torch.core import mesh as cm
+mesh = cm.create_mesh((1,), device_type='cpu')
+distances.pairwise_distance(x, 'cosine', device='cpu', mesh=mesh)
+prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
+                      device='cpu', mesh=mesh)
+JAMIE(mesh=mesh, **kw).fit_transform(dataset=data)
+fn, args = multichip.entry()
+fn(*args)
+cm.destroy_group()
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED))
 print('leaked', leaked, tuple(F.shape))
