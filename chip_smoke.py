@@ -84,7 +84,15 @@
    and through a (1, 1) data x model mesh, counts at 0 (K1 2000, K3 >= 2),
    FOSCTTM and embeddings against step 4's; a 2048^2 mesh prime-dual solve
    against the unsharded one; one `mesh:` line; the group destroyed.
-20. A `kernels` JSON line, the nvidia-smi line, and as the last line
+20. The card's route thresholds (L): JAMIE() with no corr_landmarks on
+   24,000 SNARE-shaped cells per side (576M entries) at full width,
+   euclidean distances, epoch_pd cut to 50 and epoch_DNN to 2, counts at
+   0: a dense (24000, 24000) F on the card, K1 50, K3 for RNA and the
+   bf16-resident Gram for the 120M-element ATAC, the state dtype
+   DENSE_F32_STATE_ENTRIES selects, the device peak and seconds per
+   iteration, finite embeddings; one `thresholds:` line with every route
+   global.
+21. A `kernels` JSON line, the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -146,24 +154,6 @@ MESH_PD_REL = 1e-4
 def fail(msg):
     print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def make_snare_like(n=1047, d_rna=3000, d_atac=5000, seed=0):
-    """Synthetic SNARE-seq-shaped paired data (cell lines, ~1k cells): the
-    generator of bench.py."""
-    rng = np.random.RandomState(seed)
-    k = 16
-    z = rng.randn(n, k).astype(np.float32)
-    # 4 "cell line" clusters
-    centers = rng.randn(4, k).astype(np.float32) * 2
-    assign = rng.randint(0, 4, n)
-    z += centers[assign]
-    x_rna = np.maximum(z @ rng.randn(k, d_rna).astype(np.float32)
-                       + 0.5 * rng.randn(n, d_rna).astype(np.float32), 0)
-    x_atac = (z @ rng.randn(k, d_atac).astype(np.float32)
-              + 0.5 * rng.randn(n, d_atac).astype(np.float32) > 0.5
-              ).astype(np.float32)
-    return [x_rna, x_atac], assign
 
 
 def peaks_for(name):
@@ -239,7 +229,11 @@ class KernelPhase:
         if not check <= tol:
             fail(f'{kernel} {case}: {check} exceeds the tolerance {tol}')
 
-    def pd_update(self, m, n, m1_dtype, has_grad=True):
+    def pd_update(self, m, n, m1_dtype, has_grad=True, plain_rows=None):
+        """K1 (or K2) at (m, n) against its plain version; with plain_rows
+        the plain version runs, and is timed, on the last plain_rows rows
+        only (at sizes where its temporaries do not fit beside the
+        kernel's operands)."""
         torch = self.torch
         from jamie_tpu_torch.ops import pd_update as K
         g, dev = self.gen, self.dev
@@ -267,7 +261,14 @@ class KernelPhase:
             kern, plain = K.fused_pd_update, K.fused_pd_update_plain
             ins = (F, M1, M2, mm4)
             flops = 17 * m * n
-        got, want = kern(*args), plain(*args)
+        sl = slice(m - (plain_rows or m), m)
+        # the operands indexed by row: F, M1, M2, mm4 (and K1's KxFKy, Mu
+        # and row sums), sliced to the last rows for the plain version
+        by_row = (0, 1, 2, 3, 4, 5, 8) if has_grad else (0, 1, 2, 3)
+        plain_args = tuple(t[sl] if plain_rows and j in by_row else t
+                           for j, t in enumerate(args))
+        got, want = kern(*args), plain(*plain_args)
+        got = tuple(t[sl] for t in got)
         torch.cuda.synchronize()
         # Elementwise |kernel - plain| <= atol + rtol |plain|: rtol 1e-5 for
         # f32 outputs (division/sqrt order, FMA contraction); a bf16 M1' may
@@ -280,11 +281,15 @@ class KernelPhase:
             atol = 1e-6 * float(p_out.abs().max()) + 1e-12
             err = max(err, float(diff.max()))
             worst = max(worst, float((diff / (atol + rtol * p_out.abs())).max()))
+        out_bytes = nbytes(*got) * m // (sl.stop - sl.start)
+        del got, want
         ms = time_ms(torch, lambda: kern(*args))
-        plain_ms = time_ms(torch, lambda: plain(*args))
+        plain_ms = time_ms(torch, lambda: plain(*plain_args))
         case = f'{m}x{n} M1={str(m1_dtype).split(".")[-1]}'
+        if plain_rows:
+            case += f' (plain on the last {plain_rows} rows)'
         self.record(name, case, err, worst, 1.0, ms, plain_ms,
-                    nbytes(*ins, *got), flops)
+                    nbytes(*ins) + out_bytes, flops)
         return kern, args
 
     def pairwise(self, x, y, squared):
@@ -1022,8 +1027,9 @@ def tsne_reference_phase(torch, dev, n=600, iters=200,
     (a 3xTF32 model on the CPU: at most 1.1e-4)."""
     from jamie_tpu_torch import evaluation
     from jamie_tpu_torch.ops.distances import pairwise_distance
+    from jamie_tpu_torch.probes import snare_like
     from jamie_tpu_torch.solvers import tsne as T
-    data, _ = make_snare_like(n=n)
+    data, _ = snare_like(n=n)
     P_cpu = [T.joint_probabilities(pairwise_distance(x, device='cpu'), 30,
                                    device='cpu') for x in data]
     P_err = 0.0
@@ -1496,6 +1502,108 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
         fail('phase K (the mesh path) failed: ' + '; '.join(bad))
 
 
+def thresholds_phase(torch, JAMIE, ops, dev, smi_line, n=24_000,
+                     epoch_pd=50, epoch_dnn=2):
+    """L. The card's route thresholds: JAMIE() with no corr_landmarks on
+    n SNARE-shaped cells per side (n^2 = 576M entries at 24,000: past the
+    520M at which jamie_tpu takes the landmark route) at full width, with
+    distance_mode='euclidean' (the host Dijkstra of the geodesic default
+    takes minutes at this size), epoch_pd and epoch_DNN cut, the counts at
+    0 just before the fit. Fails unless F is a dense (n, n) tensor on the
+    card (not a LowRankF), K1 launched epoch_pd times, each modality's
+    distances took K3 or, past _FEATURE_CHUNK_THRESHOLD elements (ATAC at
+    24,000 x 5000), the bf16-resident Gram, the solver ran with the state
+    dtype DENSE_F32_STATE_ENTRIES selects, the device peak stayed under
+    the card's memory and both (n, 32) embeddings are finite. One
+    `thresholds:` line lists every route global's value."""
+    from unittest import mock
+
+    from jamie_tpu_torch import estimator as E
+    from jamie_tpu_torch.core import residency as R
+    from jamie_tpu_torch.ops import distances as D
+    from jamie_tpu_torch.ops.lowrank import LowRankF
+    from jamie_tpu_torch.probes import route_thresholds, snare_like
+    print(f'phase L: {n} cells per side; cuts: distance_mode=euclidean '
+          f'(default geodesic), epoch_pd={epoch_pd} (default 2000), '
+          f'epoch_DNN={epoch_dnn} (default 10000, no early stop)',
+          flush=True)
+    t = time.perf_counter()
+    data, labels = snare_like(n=n)
+    data_s = time.perf_counter() - t
+    jm = JAMIE(distance_mode='euclidean', epoch_pd=epoch_pd,
+               epoch_DNN=epoch_dnn, min_epochs=epoch_dnn, use_early_stop=False)
+    entries = n * n
+    want_state = jm._resolved_state_dtype(entries)
+    wide = sum(x.size > D._FEATURE_CHUNK_THRESHOLD for x in data)
+    if jm._takes_landmarks(entries):
+        fail(f'phase L: {entries} entries take the landmark route at the '
+             f'default LANDMARK_AUTO_ENTRIES {E.LANDMARK_AUTO_ENTRIES}')
+    solves = []
+    real_pd = E.prime_dual
+
+    def timed_pd(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F = real_pd(*a, **k)
+        torch.cuda.synchronize()
+        solves.append((k['state_dtype'], time.perf_counter() - t0))
+        return F
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    R.route_counts.clear()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(E, 'prime_dual', timed_pd):
+        out = jm.fit_transform(dataset=data)
+    fit_s = time.perf_counter() - t
+    counts, routes = ops.launch_counts(), dict(R.route_counts)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    F = jm.match_result[0]
+    t = time.perf_counter()
+    foscttm = jm.test_closer(out)
+    metrics_s = time.perf_counter() - t
+    line = {'cells': n, 'entries': entries, 'data_s': round(data_s, 3),
+            'fit_s': round(fit_s, 3), 'phases': jm.phase_timings,
+            'mapping': {k: round(v, 3)
+                        for k, v in jm._mapping_timings.items()},
+            'solves': solves,
+            's_per_iteration': [s / epoch_pd for _, s in solves],
+            'launches': counts, 'routes': routes,
+            'max_memory_allocated': peak,
+            'card_total': total, 'foscttm': foscttm,
+            'metrics_s': round(metrics_s, 3), 'card': smi_line}
+    print('phase L fit: ' + json.dumps(line, default=float), flush=True)
+    print('thresholds: ' + json.dumps(route_thresholds()), flush=True)
+    bad = []
+    if not (isinstance(F, torch.Tensor) and not isinstance(F, LowRankF)
+            and tuple(F.shape) == (n, n) and F.is_cuda
+            and bool(torch.isfinite(F).all())):
+        bad.append(f'F is {type(F).__name__} {tuple(getattr(F, "shape", ()))}'
+                   ', not a finite dense (n, n) tensor on the card')
+    if counts['fused_pd_grad_update'] != epoch_pd:
+        bad.append(f'K1 launched {counts["fused_pd_grad_update"]} times, '
+                   f'expected {epoch_pd}')
+    if (counts['pairwise_euclidean'] < 2 - wide
+            or routes.get('distance_resident_bf16', 0) != wide):
+        bad.append(f'K3 launched {counts["pairwise_euclidean"]} times and '
+                   f'routes {routes}: expected K3 for {2 - wide} and the '
+                   f'bf16-resident Gram for {wide} modalities')
+    if [st for st, _ in solves] != [want_state]:
+        bad.append(f'the solver ran with {solves}, expected one solve with '
+                   f'state_dtype {want_state}')
+    if not peak < total:
+        bad.append(f'device peak {peak} not under the card total {total}')
+    for i, e in enumerate(out):
+        if e.shape != (n, 32) or not np.isfinite(e).all():
+            bad.append(f'embedding {i}: shape {e.shape}')
+    if not np.isfinite(foscttm):
+        bad.append(f'FOSCTTM {foscttm}')
+    if bad:
+        fail('phase L (the dense fit past 520M entries) failed: '
+             + '; '.join(bad))
+
+
 def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                   knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
                   nn_epochs=50, small_n=256, small_steps=200,
@@ -1713,6 +1821,7 @@ def main():
         from jamie_tpu_torch import JAMIE, ops
         from jamie_tpu_torch.core.dtypes import MM_OUT_DTYPE_ON_CUDA
         from jamie_tpu_torch.ops import _build
+        from jamie_tpu_torch.probes import snare_like
         from jamie_tpu_torch.solvers.prime_dual import prime_dual
     except ImportError as e:
         fail(f'jamie_tpu_torch is not importable next to this script: {e}')
@@ -1761,13 +1870,32 @@ def main():
 
     # 3. Kernels against their plain versions
     kp = KernelPhase(torch, *peaks)
-    data, labels = make_snare_like()
+    data, labels = snare_like()
     k1_calls = {}
     for (m, n, dt) in ((1047, 1047, torch.float32), (1047, 1047, torch.bfloat16),
                        (1000, 1037, torch.float32), (9190, 9190, torch.float32),
                        (9190, 9190, torch.bfloat16)):
         k1_calls[(m, n, dt)] = kp.pd_update(m, n, dt)
     kp.pd_update(1047, 1047, torch.float32, has_grad=False)
+    # Phase L's solve (24,000^2, f32 state) and the largest dense solve the
+    # default thresholds allow (LANDMARK_AUTO_ENTRIES, bf16 state), whose
+    # plain version runs on its last 2048 rows
+    from jamie_tpu_torch import estimator as E
+    kp.pd_update(24000, 24000, torch.float32)
+    nb = math.isqrt(E.LANDMARK_AUTO_ENTRIES)
+    kp.pd_update(nb, nb, torch.bfloat16, plain_rows=2048)
+    torch.cuda.empty_cache()
+    # Phase L's K3 shapes: the RNA distances (24,000 x 3000, self sqrt; the
+    # 120M-element ATAC takes the bf16-resident Gram) and one row block of
+    # its blocked FOSCTTM (cross squared on the 32-dimensional embeddings)
+    from jamie_tpu_torch import evaluation
+    g = kp.gen
+    kp.pairwise(torch.randn(24000, 3000, device=dev, generator=g), None,
+                squared=False)
+    bs24 = max(evaluation._FOSCTTM_BLOCK_ENTRIES // 24000, 256)
+    kp.pairwise(torch.randn(bs24, 32, device=dev, generator=g),
+                torch.randn(24000, 32, device=dev, generator=g), squared=True)
+    torch.cuda.empty_cache()
     # K1's block size and warps are constants of ops/pd_update.py, chosen
     # from this sweep (device ms per call)
     from jamie_tpu_torch.ops import pd_update as K
@@ -1790,7 +1918,6 @@ def main():
           flush=True)
     if len(names) != 1:
         fail(f'one K1 call issued {len(names)} device kernels, expected 1')
-    g = kp.gen
     x_rna = torch.as_tensor(data[0], device=dev)
     x_atac = torch.as_tensor(data[1], device=dev)
     emb = [torch.randn(1047, 32, device=dev, generator=g) for _ in range(2)]
@@ -1849,7 +1976,7 @@ def main():
     # cross squared from an 8192-row block of cells to the landmarks, and
     # cross squared on one row block of the blocked FOSCTTM / kNN
     t = time.perf_counter()
-    data19, labels19 = make_snare_like(n=19000)
+    data19, labels19 = snare_like(n=19000)
     print(f'data: 19000 cells generated in {time.perf_counter() - t:.2f} s',
           flush=True)
     kp.pd_update(2048, 2048, torch.float32)
@@ -1860,7 +1987,6 @@ def main():
         lms = torch.as_tensor(x_host[lm_rows], device=dev)
         kp.pairwise(lms, None, squared=False)
         kp.pairwise(cells, lms, squared=True)
-    from jamie_tpu_torch import evaluation
     emb19 = torch.randn(19000, 32, device=dev, generator=g)
     bs19 = max(evaluation._FOSCTTM_BLOCK_ENTRIES // 19000, 256)
     kp.pairwise(emb19[:bs19], torch.randn(19000, 32, device=dev, generator=g),
@@ -1992,6 +2118,8 @@ def main():
     mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                jm.phase_timings, smi_line,
                dict(epoch_DNN=20, min_epochs=10, use_early_stop=False))
+    # L. The card's route thresholds: a dense fit past 520M entries
+    thresholds_phase(torch, JAMIE, ops, dev, smi_line)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

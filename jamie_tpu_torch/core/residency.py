@@ -53,13 +53,25 @@ import torch
 from .dtypes import resolve_device
 from .hostmat import dense_rows, is_scipy_sparse
 
-# Whole-matrix residency budget: jamie_tpu's value (headroom on a 16 GB
-# v5e), kept so every input takes the same route in both packages until a
-# probe on the card re-derives it for 80 GB. Read at call time.
+# Whole-matrix residency budget, per matrix. The residencies of both
+# modalities stay on the device through the dense solve (they are released
+# after preprocessing), so two of them must fit beside the largest default
+# dense fit. jamie_tpu's value, kept for the card's reason: the `fit` probe
+# at 29,154^2 entries (f32 state, at estimator.DENSE_F32_STATE_ENTRIES)
+# with two budget-sized resident inputs peaked at 80.92 GB for 6 GiB and
+# 83.06 GB for 7 GiB, of the 85.0 GB of an H100 80GB HBM3 at 700.00 W;
+# 7 GiB leaves less than the 1.9-11.4 GiB the allocator held unusable in
+# the rungs that ran out (PERF.md). Read at call time.
 DEFAULT_BUDGET_BYTES = 6 * 1024 ** 3
 
 # At or above this many DENSE elements (n * f) a matrix's values are
-# rounded to bf16; below it they stay exact float32. Read at call time.
+# rounded to bf16; below it they stay exact float32. jamie_tpu's value,
+# kept for the card's own reasons (H100 80GB HBM3, 700.00 W): at every
+# size the `residency` probe ran, 72M to 4.8G elements, the bf16 routes
+# took 1.15-4.7x less time than the exact f32 routes per modality
+# (distances + PCA), and the `quality` probe put the rounding's cost
+# inside the seed spread; below the pivot the exact route costs at most
+# 0.21 s a modality (PERF.md). Read at call time.
 BF16_LINK_ELEMS = 100_000_000
 
 # route name -> calls since the last clear()
@@ -115,6 +127,13 @@ def _csr_block_to_device(chunk, device, rounded: bool) -> torch.Tensor:
                     torch.from_numpy(chunk.indices.astype(idt)).to(device),
                     vals, (r, f))
     return t.to_dense()
+
+
+def csr_to_device(x, device) -> torch.Tensor:
+    """A whole scipy-sparse matrix as a dense exact-f32 tensor on `device`,
+    shipped as CSR and decoded there: the exact routes under the
+    thresholds never densify a sparse matrix on the host."""
+    return _csr_block_to_device(x, resolve_device(device), False)
 
 
 def content_fingerprint(arr) -> str:

@@ -74,18 +74,44 @@ from .solvers.prime_dual import prime_dual
 from .solvers.tsne import joint_probabilities, project_tsne
 from .train.trainer import JamieTrainer
 
-# jamie_tpu's thresholds (estimator.py:41-59), set there for a 16 GB TPU
-# and kept until a probe on the card re-derives them. Module globals read
-# at call time, so tests can patch them to force either route.
+# The route thresholds of jamie_tpu (estimator.py:41-59), with the values
+# the probes measured on one H100 80GB HBM3 at 700.00 W
+# (`python -m jamie_tpu_torch.probes`, PERF.md). Module globals read at
+# call time, so tests can patch them to force either route.
 # Past this many N0*N1 entries P and an all-zeros F stay implicit (the
 # 'identity' / 'zeros' sentinels, a zero-nnz SparseRows for unequal rows).
+# jamie_tpu's value, kept: no ceiling, the sentinels are exact and a dense
+# P or F this large is only zeros and ones.
 SENTINEL_ENTRIES = 50_000_000
-# Dense prime-dual state: exact f32 up to this many (N0, N1) entries, bf16
-# M1 / carried products above ('auto', estimator.py:50).
-DENSE_F32_STATE_ENTRIES = 250_000_000
+# The two dense thresholds below were measured on square fits; an unequal
+# pair is compared by `dense_entries`, the square fit of the same peak.
+# Dense prime-dual state: exact f32 up to this many entries, bf16 M1 /
+# carried products above ('auto', estimator.py:50). 83% (jamie_tpu's
+# margin) of the largest f32-state fit the `fit` probe ran: 32,000^2 =
+# 1.024G entries at 82.3 GB (80.4 B per entry; 33,000^2 ran out).
+DENSE_F32_STATE_ENTRIES = 850_000_000
 # Past this many entries the correspondence takes the landmark route
-# (corr_landmarks forces it at any size).
-LANDMARK_AUTO_ENTRIES = 520_000_000
+# (corr_landmarks forces it at any size). 83% of the largest default
+# (bf16-state) fit the `fit` probe ran: 33,000^2 = 1.089G entries at 78.8
+# GB (34,000^2 ran out). Below 2^31, so K1's int32 offsets always hold.
+LANDMARK_AUTO_ENTRIES = 900_000_000
+# Peak device bytes of a dense fit, in tenths of a byte per entry of its
+# (N0, N1), (N0, N0) and (N1, N1) arrays (the distances, Kx and the log
+# step's residual are (N0, N0); Ky and `inner` are (N1, N1)), by state
+# dtype: the least-squares fit to the `fit` probe's square rungs and its
+# 2:1, 1:2 and 3:1 rungs at 400M entries, each within 1.6% (H100 80GB
+# HBM3, 700.00 W). By N0 * N1 alone, 2:1, 1:2 and 3:1 pairs at 850M
+# (f32) and a 2:1 pair at 900M (bf16) entries ran out of memory.
+DENSE_PEAK_TENTHS = {'float32': (341, 268, 196),
+                     'bfloat16': (233, 266, 225)}
+
+
+def dense_entries(n0: int, n1: int, state_dtype: str) -> int:
+    """The entries N^2 of the square dense fit whose peak (by
+    DENSE_PEAK_TENTHS[state_dtype]) equals an (n0, n1) fit's: N0 * N1 for
+    a square pair, more for a skewed one."""
+    a, b, c = DENSE_PEAK_TENTHS[state_dtype]
+    return -(-(a * n0 * n1 + b * n0 * n0 + c * n1 * n1) // (a + b + c))
 
 
 def _compute_dtype(bf16: bool) -> torch.dtype:
@@ -167,10 +193,8 @@ class JAMIE:
         # Landmark route: the dense N x N distance matrices exist only to
         # feed the dense solver; the landmark solver builds its own L x L
         # ones (jamie_tpu/estimator.py:144-156)
-        self._use_landmarks = (
-            cfg.use_f_tilde and self.match_result is None
-            and (cfg.corr_landmarks is not None
-                 or entries > LANDMARK_AUTO_ENTRIES))
+        self._use_landmarks = self._takes_landmarks(
+            dense_entries(*self.row, 'bfloat16'))
         # the t-SNE projection reads the distances whatever F's route
         self.compute_distances(save_dist=(
             cfg.project_mode == 'tsne'
@@ -185,6 +209,12 @@ class JAMIE:
                 [np.zeros([d.shape[0] for d in self.dataset], np.float32)])
         if self.match_result is None:
             self.match_result = self.match()
+        if self.device.type == 'cuda':
+            # The solve's freed temporaries stay reserved by the caching
+            # allocator; cuSOLVER and cuBLAS allocate their handles and
+            # workspaces outside it (a dense 37,464 x 18,732 fit failed in
+            # cusolverDnCreate at its first QR without this)
+            torch.cuda.empty_cache()
         if cfg.project_mode == 'tsne':
             return self._project_tsne(time)
         time.log('Correspondence')
@@ -313,9 +343,19 @@ class JAMIE:
             state_dtype=(cfg.solver_state_dtype
                          if cfg.solver_state_dtype != 'auto' else 'float32'))
 
+    def _takes_landmarks(self, entries: int) -> bool:
+        """Whether F takes the landmark route: corr_landmarks, or past
+        LANDMARK_AUTO_ENTRIES (`dense_entries` with bf16 state, the state
+        past DENSE_F32_STATE_ENTRIES) when F is still to be solved."""
+        cfg = self.config
+        return (cfg.use_f_tilde and self.match_result is None
+                and (cfg.corr_landmarks is not None
+                     or entries > LANDMARK_AUTO_ENTRIES))
+
     def _resolved_state_dtype(self, entries: int) -> str:
-        """'auto' -> exact f32 state up to DENSE_F32_STATE_ENTRIES, bf16
-        state above (jamie_tpu/estimator.py:315-326)."""
+        """'auto' -> exact f32 state up to DENSE_F32_STATE_ENTRIES
+        (`dense_entries` with f32 state), bf16 state above
+        (jamie_tpu/estimator.py:315-326)."""
         st = self.config.solver_state_dtype
         if st != 'auto':
             return st
@@ -324,7 +364,8 @@ class JAMIE:
 
     def Prime_Dual(self, dist, dx=None, dy=None, verbose=True):
         cfg = self.config
-        entries = int(np.shape(dist[0])[0]) * int(np.shape(dist[1])[0])
+        entries = dense_entries(int(np.shape(dist[0])[0]),
+                                int(np.shape(dist[1])[0]), 'float32')
         return prime_dual(
             dist[0], dist[1], dx=dx, dy=dy,
             epoch_pd=cfg.epoch_pd, rho=cfg.rho, epsilon=cfg.epsilon,

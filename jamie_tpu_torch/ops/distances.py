@@ -21,7 +21,9 @@ values to bf16 and accumulate in f32:
 Those Gram products are plain large matmuls that jamie_tpu leaves to XLA,
 so here they are `torch.mm` with bf16 operands and an f32 result
 (`core/dtypes.bf16_matmul`). A scipy-sparse source under the threshold is
-densified and goes through K3 as a dense one does.
+shipped as CSR, decoded to exact f32 on the device and goes through K3 as
+a dense one does: it is never densified on the host, whatever the
+threshold.
 
 The other metrics run where jamie_tpu runs them. cosine, correlation,
 spearman, pearson, kulsinski, sokalmichener and wminkowski are Gram
@@ -71,7 +73,8 @@ _SCIPY_NAMES = {'l1': 'cityblock', 'manhattan': 'cityblock'}
 
 # Past this many elements a host matrix goes through the shared bf16
 # residency, or past its budget through feature chunks
-# (jamie_tpu/ops/distances.py:130). Read at call time.
+# (jamie_tpu/ops/distances.py:130). The one bf16 pivot, kept for the reason
+# core/residency.BF16_LINK_ELEMS states. Read at call time.
 _FEATURE_CHUNK_THRESHOLD = 100_000_000
 
 # Rows per block when reducing squared norms of a bf16 matrix, so no f32
@@ -80,9 +83,13 @@ _NORM_BLOCK_BYTES = 1 << 30
 
 
 def _as_device_f32(x, device) -> torch.Tensor:
-    """x (host array or tensor) as a contiguous float32 tensor on device."""
+    """x (host array, scipy-sparse matrix or tensor) as a contiguous
+    float32 tensor on device. A scipy-sparse matrix travels as CSR and is
+    decoded on the device, exactly: it is never densified on the host."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).contiguous()
+    if is_scipy_sparse(x):
+        return residency.csr_to_device(x, device)
     return torch.as_tensor(as_f32_ndarray(x), device=device).contiguous()
 
 
@@ -185,10 +192,6 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
         residency.route_counts['distance_feature_chunked'] += 1
         return _pairwise_euclidean_feature_chunked(xs, ys, squared,
                                                    self_dist, device)
-    if is_scipy_sparse(x):
-        x = densify(x)
-    if is_scipy_sparse(y):
-        y = densify(y)
     xt = _as_device_f32(x, device)
     yt = None if self_dist else _as_device_f32(y, device)
     if mesh is not None:

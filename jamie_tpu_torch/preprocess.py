@@ -12,7 +12,7 @@ PCA routes, chosen as jamie_tpu chooses them (`_pca_fit_host`):
 - up to `_STREAM_THRESHOLD` elements (compared with `>`): the exact
   Gram/covariance eigh (`_pca_fit_direct`), or the Halko randomized range
   finder (`_pca_fit_randomized`) past `_RANDOMIZED_THRESHOLD`; a sparse
-  source is densified first;
+  source is shipped as CSR and decoded to exact f32 on the device;
 - past it, the matrix is rounded to bf16: `_pca_fit_resident_bf16` from
   the shared bf16 residency (`core/residency.device_bf16`) while it fits
   the budget, else `_pca_fit_streamed` over column chunks (f > n) or
@@ -45,7 +45,8 @@ from .core.hostmat import (as_f32_ndarray, dense_rows, densify,
                            ensure_col_major, is_scipy_sparse)
 
 # Past this many elements (compared with `>`) PCA takes the bf16-resident
-# or streamed routes (preprocess.py:32). Read at call time.
+# or streamed routes (preprocess.py:32). The one bf16 pivot, kept for the
+# reason core/residency.BF16_LINK_ELEMS states. Read at call time.
 _STREAM_THRESHOLD = 100_000_000
 
 # Above this many cells (and with n_components <= min(n, f) // 4) the
@@ -53,7 +54,9 @@ _STREAM_THRESHOLD = 100_000_000
 _RANDOMIZED_THRESHOLD = 4096
 
 # Row-block size of the row-streamed PCA's SpMM sketch (preprocess.py:43).
-# Read at call time.
+# A block size, not a route: kept, as the `residency` probe timed 16,384-row
+# blocks and whole-matrix SpMMs alike (H100 80GB HBM3, 700.00 W). Read at
+# call time.
 _SKETCH_SPMM_ROWS = 65_536
 
 # Feature columns per f32 chunk when a product reads a bf16 matrix
@@ -271,9 +274,9 @@ def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
                 X, n_components, power_iters=power_iters, device=device)
         signs = _component_signs(comps)
         return mean, comps * signs[:, None], scores * signs[None, :]
-    if sparse_in:
-        X = densify(X)
-    mean, comps = _pca_fit(torch.as_tensor(X, device=device), n_components)
+    Xt = (residency.csr_to_device(X, device) if sparse_in
+          else torch.as_tensor(X, device=device))
+    mean, comps = _pca_fit(Xt, n_components)
     return mean, comps, None
 
 

@@ -44,7 +44,7 @@ import torch
 from ..core import mesh as cm
 from ..core import residency
 from ..core.dtypes import resolve_device
-from ..core.hostmat import dense_rows, densify, is_scipy_sparse
+from ..core.hostmat import dense_rows, is_scipy_sparse
 from ..core.timing import TimeLogger
 from ..ops.distances import _as_device_f32, dataset_distance_matrix
 from ..ops.lowrank import LowRankF, SparseLandmarkF
@@ -52,16 +52,22 @@ from ..ops.pairwise import pairwise_euclidean
 from .prime_dual import prime_dual
 
 # FPS keeps the whole matrix on the device in f32; past this many bytes it
-# runs on a JL sketch (compared with `>`)
+# runs on a JL sketch (compared with `>`). jamie_tpu's value, kept: the
+# `residency` probe found the sketch 1.2-4x faster than exact FPS at every
+# size it ran (0.29-19 GB of f32; H100 80GB HBM3, 700.00 W), so a larger
+# budget buys no time; below it the picks stay exact.
 _FPS_BYTES_BUDGET = 2 << 30
 
 # A dense host source of this many elements or more (`>=`) streams its
 # cell-to-landmark weight blocks through the uploader (jamie_tpu writes
-# the number at landmark.py:145)
+# the number at landmark.py:145), whose blocks carry the bf16 rounding of
+# core/residency.BF16_LINK_ELEMS: the same pivot, kept for its reason.
 _UPLOAD_ELEMS = 100_000_000
 
 # Past this many dense-factor entries per side (N x L) the correspondence
-# takes the k-sparse factor layout
+# takes the k-sparse factor layout. jamie_tpu's value, kept: both layouts
+# give the same F, the dense factors at it take 4.8 GB (6% of the card) and
+# no probed fit reached it (195,313 cells at L = 2048).
 _SPARSE_FACTOR_ENTRIES = 400_000_000
 
 
@@ -145,8 +151,7 @@ def _select_landmarks(x, n_landmarks: int, method: str, rng,
             xd = _project_for_fps(x, rng, device=device)
         else:
             residency.route_counts['fps_dense'] += 1
-            xd = _as_device_f32(densify(x) if is_scipy_sparse(x) else x,
-                                device)
+            xd = _as_device_f32(x, device)
         return np.sort(_fps_indices_device(xd, first,
                                            int(n_landmarks)).cpu().numpy())
     raise ValueError(f'unknown landmark selection method {method!r}')

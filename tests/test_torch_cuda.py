@@ -11,7 +11,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from jamie_tpu_torch import evaluation, ops
+from jamie_tpu_torch import evaluation, ops, probes
 from jamie_tpu_torch.core import dtypes, residency
 from jamie_tpu_torch.ops import distances, pairwise, pd_update
 from jamie_tpu_torch.solvers import landmark
@@ -57,6 +57,42 @@ def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype):
         rtol = 8e-3 if w.dtype == torch.bfloat16 else 1e-5
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=1e-6 * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize('state_dtype', ['float32', 'bfloat16'])
+def test_dense_solve_past_520m_entries_matches_plain(cuda, monkeypatch,
+                                                     state_dtype):
+    """A short dense solve at 24,000^2 = 576M entries, past jamie_tpu's
+    520M landmark threshold and inside the port's dense band: each K1
+    call of the solve is held against the plain version on the last 128
+    rows of its inputs (the largest flat offsets), at
+    test_pd_grad_update_kernel_matches_plain's tolerances."""
+    from jamie_tpu_torch.solvers import prime_dual as pdm
+    n = 24_000
+    Kx, Ky = (probes.distance_operand(n, s, cuda) for s in (0, 1))
+    real, rows, checked = pdm.fused_pd_grad_update, slice(n - 128, n), []
+
+    def k1(F, M1, M2, mm4, KxFKy, Mu, Lam, S, rowsum, colsum, a, i, eps,
+           rho):
+        got = real(F, M1, M2, mm4, KxFKy, Mu, Lam, S, rowsum, colsum, a, i,
+                   eps, rho)
+        want = pd_update.fused_pd_grad_update_plain(
+            F[rows], M1[rows], M2[rows], mm4[rows], KxFKy[rows], Mu[rows],
+            Lam, S, rowsum[rows], colsum, a, i, eps, rho)
+        for g, w in zip(got, want):
+            rtol = 8e-3 if w.dtype == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(
+                g[rows].float(), w.float(), rtol=rtol,
+                atol=1e-6 * float(w.float().abs().max()))
+        checked.append(i)
+        return got
+    monkeypatch.setattr(pdm, 'fused_pd_grad_update', k1)
+    ops.reset_launch_counts()
+    F = pdm.prime_dual(Kx, Ky, dx=32, dy=32, epoch_pd=3, log_pd=3,
+                       state_dtype=state_dtype, device=cuda)
+    assert checked == [1, 2, 3]
+    assert pd_update.fused_pd_grad_update.launches == 3
+    assert F.shape == (n, n) and bool(torch.isfinite(F).all())
 
 
 @pytest.mark.parametrize('shape', [(1047, 1047), (1037, 1037), (1, 1047),
