@@ -92,7 +92,22 @@
    DENSE_F32_STATE_ENTRIES selects, the device peak and seconds per
    iteration, finite embeddings; one `thresholds:` line with every route
    global.
-21. A `kernels` JSON line, the nvidia-smi line, and as the last line
+21. The bench twin (M): `jamie_tpu_torch.bench`'s train leg (one warm-up
+   and one timed chunk of 20 epochs) and its pipeline leg once at the
+   scGLUE shape (9190 cells x 28,930 / 241,757 features, binary ATAC
+   z-scored per column, generated in memory), geodesic as bench runs it,
+   epoch_DNN cut to 20, counts at 0: bench.py's record keys, K1 2000, the
+   bf16-resident distance and PCA for both modalities, the 'identity' P
+   sentinel, f32 solver state, F on the card, FOSCTTM under 0.5, the
+   residency's upload 2 bytes a dense element; one `bench:` line.
+22. The time-and-memory twin (N): `jamie_tpu_torch.time_and_memory.
+   run_config` for the six other published shapes at full width,
+   epoch_dnn 20 and min_epochs 0, counts at 0 before each: K1 2000, K3 or
+   the resident Gram per modality, the state dtype, FOSCTTM under 0.5, the
+   JAX harness's record keys; one `time_and_memory:` line. K1 and K3 are
+   held to their plain versions at phases M's and N's shapes first.
+23. A `kernels` JSON line (with each kernel's launches on the fit, bench
+   and time-and-memory paths), the nvidia-smi line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
@@ -1604,6 +1619,309 @@ def thresholds_phase(torch, JAMIE, ops, dev, smi_line, n=24_000,
              + '; '.join(bad))
 
 
+# bench.py's record keys (the train leg's at :151-168, the pipeline
+# leg's at :254-300); the MFU key names the card's bf16 peak where bench.py
+# names the TPU's
+BENCH_KEYS = {
+    'record': {'metric', 'value', 'unit', 'vs_baseline', 'extra'},
+    'extra': {'train_achieved_tflops', 'train_mfu_vs_card_bf16_peak',
+              'scglue_pipeline_seconds', 'scglue_pipeline_vs_ref_cpu',
+              'scglue_pipeline_band_seconds',
+              'scglue_pipeline_band_vs_ref_cpu', 'scglue_pipeline_reps',
+              'input_variant', 'runs'},
+    'run': {'scglue_pipeline_seconds', 'scglue_pipeline_vs_ref_cpu',
+            'epochs_run', 'phases', 'upload_mb', 'upload_mb_bf16_equiv',
+            'host_read_s', 'host_encode_s'},
+}
+# examples/time_and_memory.py's record keys (:81-104)
+TM_KEYS = {'dataset', 'shapes', 'input_variant', 'total_seconds',
+           'reference_cpu_seconds', 'speedup', 'epochs_run', 'phases',
+           'upload_mb', 'upload_mb_bf16_equiv', 'host_read_s',
+           'host_encode_s'}
+# FOSCTTM above this is no integration at all (0.5 is chance)
+HARNESS_FOSCTTM_LIMIT = 0.5
+
+
+def harness_kernels(kp, dev, n, dims):
+    """K1 and K3 against their plain versions at a harness fit's shapes:
+    the (n, n) f32 solve, each modality's self-sqrt distances where they
+    take K3 (n * f at most _FEATURE_CHUNK_THRESHOLD) and the FOSCTTM's
+    cross-squared blocks of the 32-dimensional embeddings."""
+    torch = kp.torch
+    from jamie_tpu_torch import evaluation
+    from jamie_tpu_torch.ops import distances as D
+    g = kp.gen
+    kp.pd_update(n, n, torch.float32)
+    for f in dims:
+        if n * f <= D._FEATURE_CHUNK_THRESHOLD:
+            kp.pairwise(torch.randn(n, f, device=dev, generator=g), None,
+                        squared=False)
+    rows = min(n, max(evaluation._FOSCTTM_BLOCK_ENTRIES // n, 256))
+    kp.pairwise(torch.randn(rows, 32, device=dev, generator=g),
+                torch.randn(n, 32, device=dev, generator=g), squared=True)
+    torch.cuda.empty_cache()
+
+
+def harness_fit_checks(tag, jm, integrated, counts, routes, n, dims, states,
+                       upload_mb, routes_want=None):
+    """The checks every harness fit shares: K1 launched epoch_pd times,
+    each modality's distances through K3 or, past
+    _FEATURE_CHUNK_THRESHOLD elements, the bf16-resident Gram, one solve
+    with the state dtype the thresholds select, the residency's upload 2
+    bytes a dense element of the modalities it holds (past
+    _FEATURE_CHUNK_THRESHOLD or _STREAM_THRESHOLD), finite (n, 32)
+    embeddings and FOSCTTM under HARNESS_FOSCTTM_LIMIT. Returns (FOSCTTM,
+    the failures)."""
+    from jamie_tpu_torch import preprocess as PP
+    from jamie_tpu_torch.ops import distances as D
+    bad = []
+    wide = sum(n * f > D._FEATURE_CHUNK_THRESHOLD for f in dims)
+    shipped = 2 * sum(n * f for f in dims if n * f > min(
+        D._FEATURE_CHUNK_THRESHOLD, PP._STREAM_THRESHOLD))
+    if round(upload_mb * 1e6) != shipped:
+        bad.append(f'{tag}: the residency shipped {upload_mb} MB, expected '
+                   f'{shipped / 1e6} (2 bytes a dense element)')
+    k1 = counts['fused_pd_grad_update']
+    if k1 != jm.config.epoch_pd:
+        bad.append(f'{tag}: K1 launched {k1} times, expected '
+                   f'{jm.config.epoch_pd}')
+    if (counts['pairwise_euclidean'] < 2 - wide
+            or routes.get('distance_resident_bf16', 0) != wide):
+        bad.append(f'{tag}: K3 launched {counts["pairwise_euclidean"]} '
+                   f'times and routes {routes}: expected K3 for {2 - wide} '
+                   f'and the bf16-resident Gram for {wide} modalities')
+    if routes_want is not None and routes != routes_want:
+        bad.append(f'{tag}: routes {routes}, expected {routes_want}')
+    want_state = jm._resolved_state_dtype(n * n)
+    if states != [want_state]:
+        bad.append(f'{tag}: the solver ran with {states}, expected one '
+                   f'solve with state_dtype {want_state}')
+    for i, e in enumerate(integrated):
+        if e.shape != (n, 32) or not np.isfinite(e).all():
+            bad.append(f'{tag}: embedding {i} shape {e.shape}')
+    foscttm = float(jm.test_closer(integrated))
+    if not foscttm < HARNESS_FOSCTTM_LIMIT:
+        bad.append(f'{tag}: FOSCTTM {foscttm} not under '
+                   f'{HARNESS_FOSCTTM_LIMIT}')
+    return foscttm, bad
+
+
+def solver_states():
+    """A patch of estimator.prime_dual that records each solve's state
+    dtype, and the list it records into."""
+    from unittest import mock
+
+    from jamie_tpu_torch import estimator as E
+    states = []
+    real_pd = E.prime_dual
+
+    def pd(*a, **k):
+        states.append(k['state_dtype'])
+        return real_pd(*a, **k)
+    return mock.patch.object(E, 'prime_dual', pd), states
+
+
+def link_evidence(torch, dev, x, chunk_bytes=256 << 20):
+    """The host link's share of a dense residency, and what jamie_tpu's
+    packed-bit link format would cost on this host. One resident build of
+    x, timed: the host read and bf16 cast from transfer_stats, the rest
+    the copy to the card. Then the packed-bit encode of jamie_tpu's
+    'bits2' path (per-column aminmax, the two equality passes and
+    np.packbits) on the first row chunk of the build's size, scaled to
+    the matrix."""
+    from jamie_tpu_torch.core import residency as R
+    R.reset_transfer_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    resident = R.build_resident_bf16(x, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    st = R.transfer_stats()
+    del resident
+    torch.cuda.empty_cache()
+    n, f = x.shape
+    rows = max(int(chunk_bytes / (f * 2)), 64)
+    chunk = np.ascontiguousarray(x[:rows], np.float32)
+    t = time.perf_counter()
+    xt = torch.from_numpy(chunk)
+    lo, hi = torch.aminmax(xt, dim=0)
+    eq_hi = xt == hi
+    two_valued = bool(torch.logical_or(eq_hi, xt == lo).all())
+    packed = np.packbits(eq_hi.numpy(), axis=1)
+    bits_s = (time.perf_counter() - t) * n / rows
+    copy_s = build_s - st['read_s'] - st['encode_s']
+    return {'build_s': build_s, 'read_s': st['read_s'],
+            'encode_s': st['encode_s'], 'copy_s': copy_s,
+            'bytes': st['bytes'], 'copy_gb_per_s': st['bytes'] / copy_s / 1e9,
+            'two_valued': two_valued, 'bits_encode_s': bits_s,
+            'bits_bytes': packed.nbytes * n / rows + 8 * f}
+
+
+def bench_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, train_chunk=20,
+                shapes=None, train_data=None, pca_dim=512, **overrides):
+    """M. The bench twin (jamie_tpu_torch.bench) through its leg functions:
+    the train leg with one warm-up and one timed chunk of train_chunk
+    epochs, then the pipeline leg once at the scGLUE shapes (generated in
+    memory), every option at bench's values but epoch_DNN, with the counts
+    and route_counts at 0 just before the fit. Fails unless the record has
+    bench.py's keys, K1 ran 2000 times, both modalities took the
+    bf16-resident distance and PCA, P took the 'identity' sentinel, the
+    solver kept f32 state, F is a dense (n, n) tensor on the card, FOSCTTM
+    is under HARNESS_FOSCTTM_LIMIT and the residency shipped 2 bytes per
+    dense element. One `bench:` line. Returns the fit's launch counts."""
+    from jamie_tpu_torch import bench
+    from jamie_tpu_torch.core import residency as R
+    from jamie_tpu_torch.ops import distances as D
+    from jamie_tpu_torch import preprocess as PP
+    shapes = shapes or bench.SCGLUE_SHAPES
+    cuts = (f'train leg 1 warm-up + 1 timed chunk of {train_chunk} epochs '
+            f'(default 1 + 5 of 200); pipeline epoch_DNN={epoch_dnn} '
+            f'(default 10000, early stop), data in memory')
+    if overrides:
+        cuts += f'; {overrides}'
+    print(f'phase M: cuts: {cuts}', flush=True)
+    t = time.perf_counter()
+    record = bench.train_leg(data=train_data, pca_dim=pca_dim,
+                             epoch_chunk=train_chunk, timed_chunks=1,
+                             device=dev)
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    data = bench.synth_scglue(cache=False, shapes=shapes)
+    data_s = time.perf_counter() - t
+    n, dims = shapes[0][0], [s[1] for s in shapes]
+    harness_kernels(kp, dev, n, dims)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+
+    def on_fit(jm, integrated):
+        seen.update(counts=ops.launch_counts(), routes=dict(R.route_counts),
+                    peak=torch.cuda.max_memory_allocated(), jm=jm,
+                    integrated=integrated)
+    patch, states = solver_states()
+    R.route_counts.clear()
+    ops.reset_launch_counts()
+    with patch:
+        extra = bench.scglue_pipeline_noise_controlled(
+            reps=1, data=data, device=dev, on_fit=on_fit,
+            epoch_DNN=epoch_dnn, pca_dim=(pca_dim, pca_dim), **overrides)
+    record['extra'].update(extra)
+    jm, counts, routes = seen['jm'], seen['counts'], seen['routes']
+    # the predicted routes: the distance Gram and the PCA of every modality
+    # past its 100M-element threshold read the bf16 residency
+    want_routes = {k: v for k, v in (
+        ('distance_resident_bf16',
+         sum(n * f > D._FEATURE_CHUNK_THRESHOLD for f in dims)),
+        ('pca_resident_bf16',
+         sum(n * f > PP._STREAM_THRESHOLD for f in dims))) if v}
+    run = extra['runs'][0]
+    foscttm, bad = harness_fit_checks('phase M', jm, seen['integrated'],
+                                      counts, routes, n, dims, states,
+                                      run['upload_mb'], routes_want=want_routes)
+    link = link_evidence(torch, dev, data[1])
+    F = jm.match_result[0]
+    line = {'cells_per_sec': record['value'],
+            'train_tflops': record['extra']['train_achieved_tflops'],
+            'train_mfu': record['extra']['train_mfu_vs_card_bf16_peak'],
+            'train_leg_s': train_s, 'data_s': data_s,
+            'pipeline_s': run['scglue_pipeline_seconds'],
+            'phases': run['phases'], 'epochs_run': run['epochs_run'],
+            'mapping': {k: round(v, 3)
+                        for k, v in jm._mapping_timings.items()},
+            'upload_mb': run['upload_mb'],
+            'upload_mb_bf16_equiv': run['upload_mb_bf16_equiv'],
+            'host_read_s': run['host_read_s'],
+            'host_encode_s': run['host_encode_s'], 'foscttm': foscttm,
+            'launches': counts, 'routes': routes, 'states': states,
+            'max_memory_allocated': seen['peak'],
+            'distance_mode': jm.config.distance_mode, 'link': link,
+            'card': smi_line}
+    print('bench: ' + json.dumps(line, default=float), flush=True)
+    got = {'record': set(record), 'extra': set(record['extra']),
+           'run': set(run)}
+    if got != BENCH_KEYS:
+        bad.append(f'phase M: record keys {got}, expected {BENCH_KEYS}')
+    if not (np.isfinite(record['value']) and record['value'] > 0):
+        bad.append(f'phase M: train leg value {record["value"]}')
+    if not (isinstance(jm.P, str) and jm.P == 'identity'):
+        bad.append(f'phase M: P is {type(jm.P).__name__}, expected the '
+                   "'identity' sentinel")
+    if not (isinstance(F, torch.Tensor) and F.is_cuda
+            and tuple(F.shape) == (n, n)):
+        bad.append(f'phase M: F is {type(F).__name__}, not a dense (n, n) '
+                   'tensor on the card')
+    del seen, jm, data
+    torch.cuda.empty_cache()
+    if bad:
+        fail('phase M (the bench twin) failed: ' + '; '.join(bad))
+    return counts
+
+
+def harness_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, min_epochs=0,
+                  keys=None, shape_of=None):
+    """N. The time-and-memory twin (jamie_tpu_torch.time_and_memory): its
+    run_config for each config but scGLUE (phase M's), at full width,
+    epoch_dnn and min_epochs cut, data in memory, with the counts and
+    route_counts at 0 just before each. Each fit holds the checks of
+    harness_fit_checks and returns the JAX harness's record keys. One
+    `time_and_memory:` line. Returns the summed launch counts.
+    shape_of(key) may shrink a config (CPU rehearsal)."""
+    from jamie_tpu_torch import time_and_memory as TM
+    from jamie_tpu_torch.core import residency as R
+    keys = keys or [k for k in TM.CONFIGS if k != 'scglue']
+    print(f'phase N: configs {keys}; cuts: epoch_dnn={epoch_dnn} (default '
+          f'10000), min_epochs={min_epochs} (default 2500), data in memory',
+          flush=True)
+    args = {k: TM.config_args(k) for k in keys}
+    if shape_of is not None:
+        args = {k: (a[0], *shape_of(k), a[3], a[4]) for k, a in args.items()}
+    for name, s0, s1, _, _ in args.values():
+        harness_kernels(kp, dev, s0[0], (s0[1], s1[1]))
+    total, rows, bad = {}, {}, []
+    for key, (name, s0, s1, ref, b1) in args.items():
+        seen = {}
+
+        def on_fit(jm, integrated, _dataset):
+            seen.update(counts=ops.launch_counts(),
+                        routes=dict(R.route_counts),
+                        peak=torch.cuda.max_memory_allocated(), jm=jm,
+                        integrated=integrated)
+        patch, states = solver_states()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        R.route_counts.clear()
+        ops.reset_launch_counts()
+        with patch:
+            res = TM.run_config(name, s0, s1, ref, epoch_dnn=epoch_dnn,
+                                min_epochs=min_epochs, binarize1=b1,
+                                device=dev, cache=False, on_fit=on_fit)
+        n, dims = s0[0], (s0[1], s1[1])
+        foscttm, why = harness_fit_checks(f'phase N {key}', seen['jm'],
+                                          seen['integrated'], seen['counts'],
+                                          seen['routes'], n, dims, states,
+                                          res['upload_mb'])
+        bad += why
+        if set(res) != TM_KEYS:
+            bad.append(f'phase N {key}: record keys {sorted(res)}')
+        for k, v in seen['counts'].items():
+            total[k] = total.get(k, 0) + v
+        rows[key] = {'seconds': res['total_seconds'],
+                     'phases': res['phases'],
+                     'epochs_run': res['epochs_run'], 'foscttm': foscttm,
+                     'upload_mb': res['upload_mb'],
+                     'host_read_s': res['host_read_s'],
+                     'host_encode_s': res['host_encode_s'],
+                     'launches': seen['counts'], 'routes': seen['routes'],
+                     'max_memory_allocated': seen['peak']}
+        del seen
+    print('time_and_memory: ' + json.dumps({'configs': rows,
+                                            'card': smi_line}, default=float),
+          flush=True)
+    if bad:
+        fail('phase N (the time-and-memory twin) failed: ' + '; '.join(bad))
+    return total
+
+
 def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                   knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
                   nn_epochs=50, small_n=256, small_steps=200,
@@ -2120,6 +2438,11 @@ def main():
                dict(epoch_DNN=20, min_epochs=10, use_early_stop=False))
     # L. The card's route thresholds: a dense fit past 520M entries
     thresholds_phase(torch, JAMIE, ops, dev, smi_line)
+    # M-N. The benchmark harnesses at the published shapes
+    path_counts = {'fit': fit_counts,
+                   'bench': bench_phase(torch, ops, kp, dev, smi_line),
+                   'time_and_memory': harness_phase(torch, ops, kp, dev,
+                                                    smi_line)}
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',
@@ -2144,7 +2467,8 @@ def main():
             name=key, route=route, source=source, replaces=replaces,
             launches=fit_counts[fn], max_abs_err=row['max_abs_err'],
             ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
-            bound_by=row['bound_by'], library_ms=row['library_ms']))
+            bound_by=row['bound_by'], library_ms=row['library_ms'],
+            launches_by_path={p: c[fn] for p, c in path_counts.items()}))
     print(f'total: {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi_line)

@@ -31,6 +31,22 @@ MM_OUT_DTYPE_ON_CUDA = bool(torch._C._dispatch_has_kernel_for_dispatch_key(
     'aten::mm.dtype', 'CUDA'))
 
 
+_DTYPES = {
+    'float32': torch.float32,
+    'bfloat16': torch.bfloat16,
+    'float16': torch.float16,
+    'float64': torch.float64,
+}
+
+
+def resolve_dtype(name):
+    """A dtype name ('float32', 'bfloat16', ...) as its torch dtype; a
+    dtype is returned as it is."""
+    if isinstance(name, str):
+        return _DTYPES[name]
+    return name
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
     for another device. Never falls back to the CPU on its own."""

@@ -2,16 +2,29 @@
 
 - `pd_update`: K1/K2, the prime-dual iteration tail (Triton).
 - `pairwise`: K3, pairwise (squared) euclidean distances (CUDA C++).
-- `distances`: the distance-matrix dispatch on top of K3.
+- `distances`: the distance-matrix dispatch on top of K3 (its entry
+  points are exported here, as in jamie_tpu.ops).
 - `sparse`: `SparseRows` (padded-ELL priors / top-k F) and its batch gather.
 - `lowrank`: `LowRankF` / `SparseLandmarkF`, the landmark F layouts.
 - `_build`: nvcc + ctypes loader for `csrc/*.cu`.
 """
 
+from .distances import (
+    pairwise_distance, pairwise_sq_euclidean, dataset_distance_matrix,
+    geodesic_distances,
+)
 from .pairwise import pairwise_euclidean
 from .pd_update import fused_pd_grad_update, fused_pd_update
 
 KERNEL_WRAPPERS = (fused_pd_grad_update, fused_pd_update, pairwise_euclidean)
+
+
+__all__ = [
+    'pairwise_distance', 'pairwise_sq_euclidean', 'dataset_distance_matrix',
+    'geodesic_distances', 'pairwise_euclidean', 'fused_pd_grad_update',
+    'fused_pd_update', 'KERNEL_WRAPPERS', 'reset_launch_counts',
+    'launch_counts',
+]
 
 
 def reset_launch_counts() -> None:

@@ -203,6 +203,12 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
     return pairwise_euclidean(xt, yt, squared=squared)
 
 
+def pairwise_sq_euclidean(x, y=None, device=None) -> torch.Tensor:
+    """Squared euclidean distances of x (to y, else to itself) on `device`:
+    the squared route of the dispatch above (K3 under the thresholds)."""
+    return _pairwise_euclidean_impl(x, y, squared=True, device=device)
+
+
 def _unit_rows(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
                            min=1e-12)

@@ -62,6 +62,7 @@ from .ops import distances
 from .ops.lowrank import LowRankF
 from .solvers import landmark
 from .solvers.prime_dual import prime_dual
+from .synth import make_snare_like as snare_like
 
 # Bytes the dense solver keeps per (N0 * N1) entry between iterations, by
 # state dtype, with bf16 GEMMs (solvers/prime_dual.init_state): F, M1,
@@ -197,25 +198,6 @@ def _emit(records: list, rec: dict, out: Callable) -> dict:
 
 
 # -------------------------------------------------------------------- data
-def snare_like(n=1047, d_rna=3000, d_atac=5000, seed=0):
-    """SNARE-seq-shaped paired data (the generator of bench.py): a
-    16-dimensional latent around 4 cluster centres; RNA relu(z W + 0.5
-    noise), ATAC 0/1 at (z W + 0.5 noise) > 0.5. Returns ([rna, atac],
-    labels)."""
-    rng = np.random.RandomState(seed)
-    k = 16
-    z = rng.randn(n, k).astype(np.float32)
-    centers = rng.randn(4, k).astype(np.float32) * 2
-    assign = rng.randint(0, 4, n)
-    z += centers[assign]
-    x_rna = np.maximum(z @ rng.randn(k, d_rna).astype(np.float32)
-                       + 0.5 * rng.randn(n, d_rna).astype(np.float32), 0)
-    x_atac = (z @ rng.randn(k, d_atac).astype(np.float32)
-              + 0.5 * rng.randn(n, d_atac).astype(np.float32) > 0.5
-              ).astype(np.float32)
-    return [x_rna, x_atac], assign
-
-
 def _host_csr(blocks, n, f):
     """A host scipy CSR (n, f) from an iterable of dense row blocks, each
     converted to CSR on its own device, so no dense (n, f) host array

@@ -158,3 +158,77 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         JAMIE()
     assert JAMIE(device='cpu').device == torch.device('cpu')
+
+
+# The harnesses keep their own copies of the repo's bench.py,
+# examples/synth.py and examples/time_and_memory.py: none imports them
+HARNESSES = ('jamie_tpu_torch/bench.py', 'jamie_tpu_torch/synth.py',
+             'jamie_tpu_torch/time_and_memory.py')
+HARNESS_BLOCKED = ('bench', 'synth', 'examples', 'time_and_memory')
+
+
+@pytest.mark.parametrize('path', HARNESSES)
+def test_harnesses_import_no_jax_side_harness(path):
+    names = list(_imported_names(ROOT / path))
+    assert not [n for n in names if _blocked(n) or any(
+        n == b or n.startswith(b + '.') for b in HARNESS_BLOCKED)], names
+
+
+def test_harnesses_run_with_jax_and_examples_blocked():
+    # a blocked module has a spec whose loader refuses it: importing it
+    # raises, while importlib.util.find_spec (which torch's flop counter
+    # calls on optional packages) still returns
+    code = f'''
+import importlib.machinery, sys
+BLOCKED = {BLOCKED + HARNESS_BLOCKED!r}
+class Refuse:
+    def create_module(self, spec):
+        raise ImportError('blocked ' + spec.name)
+    def exec_module(self, module):
+        pass
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            return importlib.machinery.ModuleSpec(name, Refuse())
+sys.meta_path.insert(0, Block())
+for name in BLOCKED:
+    try:
+        __import__(name)
+        raise SystemExit(name + ' imported')
+    except ImportError:
+        pass
+from jamie_tpu_torch import bench, synth, time_and_memory
+data = synth.make_snare_like(n=40, d_rna=20, d_atac=30)[0]
+rec = bench.train_leg(data=data, pca_dim=8, epoch_chunk=1, timed_chunks=1,
+                      device='cpu')
+res = time_and_memory.run_config('t', (40, 12), (40, 9), 1.0, epoch_dnn=1,
+                                 min_epochs=0, device='cpu', cache=False)
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED))
+print('leaked', leaked, rec['value'] > 0, res['epochs_run'])
+'''
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'leaked [] True 1'
+
+
+@pytest.mark.parametrize('entry', ['bench.main', 'bench.train_leg',
+                                   'time_and_memory.run_config',
+                                   'time_and_memory.main'])
+def test_harness_entry_points_need_the_card(monkeypatch, entry):
+    """Without CUDA the harnesses raise before any work, unless the caller
+    passes device='cpu'."""
+    import importlib
+    mod_name, fn_name = entry.split('.')
+    mod = importlib.import_module(f'jamie_tpu_torch.{mod_name}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    called = []
+    monkeypatch.setattr(mod, 'synthesize',
+                        lambda *a, **k: called.append(1) or [])
+    args = {'bench.main': (), 'bench.train_leg': (),
+            'time_and_memory.run_config': ('t', (4, 2), (4, 2), 1.0),
+            'time_and_memory.main': ([],)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(mod, fn_name)(*args)
+    assert not called
