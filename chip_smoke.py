@@ -106,9 +106,22 @@
    the resident Gram per modality, the state dtype, FOSCTTM under 0.5, the
    JAX harness's record keys; one `time_and_memory:` line. K1 and K3 are
    held to their plain versions at phases M's and N's shapes first.
-23. A `kernels` JSON line (with each kernel's launches on the fit, bench
-   and time-and-memory paths), the nvidia-smi line, and as the last line
-   {"ok": true, "device": {...}}.
+23. The synthetic-data examples (O): each twin of
+   `jamie_tpu_torch.examples` through its main, counts at 0 before each:
+   sample with its own settings (K1 500, K3 >= 2 on the fit, FOSCTTM, LTA
+   and imputation r within EXAMPLES_BAND of jamie_tpu's CPU values in
+   EXAMPLES_REF, the checkpoint reloaded to an identical modal_predict),
+   tuning (num_search 2, epoch_DNN 100: K1 300, the second fit reusing F),
+   imputation_comparison (epoch_DNN 200: K1 500, K3 >= 2 from predict_knn,
+   JAMIE's r per direction in its band, no figure without matplotlib),
+   atlas_scale on 100,000 PCA-space cells ('diag', then 'hybrid' under
+   --sparse-prior 0.5) and --sparse-data on 20,000 cells x 20,000 / 40,000
+   features (K1 300, a rank-2048 LowRankF, FOSCTTM under 0.5, LTA above
+   chance); K1 and K3 against their plain versions at these shapes first;
+   one `examples:` line.
+24. A `kernels` JSON line (with each kernel's launches on the fit, bench,
+   time-and-memory and examples paths), the nvidia-smi line, and as the
+   last line {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
 It exits non-zero without a result when no CUDA device is visible or when
@@ -164,6 +177,21 @@ COMPARE_FOSCTTM_TOL = 0.02
 # (the card-vs-CPU solver tolerance of phase 5).
 MESH_EMBED_RTOL, MESH_EMBED_ATOL, MESH_FOSCTTM_TOL = 5e-2, 5e-3, 0.02
 MESH_PD_REL = 1e-4
+
+# Phase O's references: jamie_tpu's own values on the CPU at the same
+# settings (examples/sample.py's fit as it stands; the imputation flow of
+# examples/imputation_comparison.py at epoch_DNN 200, min_epochs 50). The
+# port's twins on the CPU gave 3.3e-5, 1.0, 0.99353 and (0.98731, 0.98785).
+# Each twin's value on the card must land within EXAMPLES_BAND of them.
+EXAMPLES_REF = {
+    'sample': {'foscttm': 1.1111111234640703e-05,
+               'label_transfer_accuracy': 1.0,
+               'mean_imputation_r': 0.9936676274513018},
+    'imputation_comparison': {'jamie_r': (0.9867431108862583,
+                                          0.9870351660296348)},
+}
+EXAMPLES_BAND = {'foscttm': 0.01, 'label_transfer_accuracy': 0.02,
+                 'mean_imputation_r': 0.02, 'jamie_r': 0.02}
 
 
 def fail(msg):
@@ -1922,6 +1950,184 @@ def harness_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, min_epochs=0,
     return total
 
 
+
+def examples_phase(torch, ops, kp, dev, smi_line, sample_kw=None,
+                   tuning_kw=None, imputation_kw=None, atlas_argv=None,
+                   sparse_argv=None):
+    """O. The twins of the synthetic-data examples
+    (jamie_tpu_torch.examples), each through its main on the card at full
+    feature width, with the counts at 0 just before each run: sample (the
+    README walkthrough, its own settings), tuning (num_search 2, epoch_DNN
+    100), imputation_comparison (epoch_DNN 200, min_epochs 50), atlas_scale
+    on 100,000 PCA-space cells ('identity' P 4 epochs, then --sparse-prior
+    0.5 2 epochs) and --sparse-data on 20,000 cells x 20,000 / 40,000
+    features (3% CSR, epoch_pd 300, 10 epochs, LTA on 10,000 cells). K1
+    and K3 first against their plain versions at these fits' shapes. One
+    `examples:` line. Returns the summed launch counts. The keyword
+    arguments shrink the runs (CPU rehearsal)."""
+    import importlib.util
+    from jamie_tpu_torch.examples import (atlas_scale, imputation_comparison,
+                                          sample, tuning)
+    from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
+    sample_kw = sample_kw or {}
+    tuning_kw = tuning_kw or dict(num_search=2, epoch_DNN=100, min_epochs=50)
+    imputation_kw = imputation_kw or dict(epoch_DNN=200, min_epochs=50)
+    atlas_argv = atlas_argv or (['--epochs', '4'],
+                                ['--sparse-prior', '0.5', '--epochs', '2'])
+    sparse_argv = sparse_argv or ['--cells', '20000', '--epoch-pd', '300',
+                                  '--epochs', '10', '--metric-cells', '10000']
+    print(f'phase O: cuts: tuning {tuning_kw}, imputation_comparison '
+          f'{imputation_kw}, atlas_scale {atlas_argv}, --sparse-data '
+          f'{sparse_argv} (sample runs its own settings {sample_kw})',
+          flush=True)
+    # the fits' K1 and K3 shapes (the 2048^2 landmark solve and the
+    # 2048-landmark distances are step 3's rows)
+    g = kp.gen
+    for n in (sample_kw.get('n', 300), tuning_kw.get('n', 200),
+              int(0.8 * imputation_kw.get('n', 400))):
+        harness_kernels(kp, dev, n, (2000, 1000))
+    n_imp = imputation_kw.get('n', 400)
+    for f in (1000, 2000):                      # predict_knn, both ways
+        kp.pairwise(torch.randn(n_imp, f, device=dev, generator=g),
+                    torch.randn(int(0.8 * n_imp), f, device=dev, generator=g),
+                    squared=True)
+    from jamie_tpu_torch import evaluation
+    n_sp = int(sparse_argv[sparse_argv.index('--cells') + 1])
+    bs = min(n_sp, max(evaluation._FOSCTTM_BLOCK_ENTRIES // n_sp, 256))
+    kp.pairwise(torch.randn(bs, 32, device=dev, generator=g),
+                torch.randn(n_sp, 32, device=dev, generator=g), squared=True)
+    torch.cuda.empty_cache()
+
+    total, rows, bad = {}, {}, []
+    has_mpl = importlib.util.find_spec('matplotlib') is not None
+    dev_arg = ['--device', str(dev)]
+
+    def run(name, fn):
+        seen = {}
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        rec = fn(seen)
+        sec = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rows[name] = {'seconds': sec, 'launches': counts,
+                      'fit_launches': seen.get('counts'), 'record': rec}
+        print(f'phase O {name}: {sec:.3f} s; launches {counts} (fit '
+              f'{seen.get("counts")})', flush=True)
+        return rec, seen, counts
+
+    def on_fit(seen):
+        def hook(jm, integrated, dataset):
+            seen.update(counts=ops.launch_counts(), jm=jm, data=dataset)
+        return hook
+
+    def k1(tag, counts, want):
+        if counts['fused_pd_grad_update'] != want:
+            bad.append(f'{tag}: K1 launched {counts["fused_pd_grad_update"]} '
+                       f'times, expected {want}')
+
+    def band(tag, key, got, ref):
+        if not abs(got - ref) <= EXAMPLES_BAND[key]:
+            bad.append(f'{tag}: {key} {got} is not within '
+                       f'{EXAMPLES_BAND[key]} of jamie_tpu\'s {ref}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # sample: the README walkthrough, every setting its own
+        rec, seen, _ = run('sample', lambda seen: sample.main(
+            out_dir=tmp, device=dev, on_fit=on_fit(seen), **sample_kw))
+        jm = seen['jm']
+        k1('sample', seen['counts'], jm.config.epoch_pd)
+        if seen['counts']['pairwise_euclidean'] < 2:
+            bad.append('sample: K3 launched fewer than 2 times in the fit')
+        for key, ref in EXAMPLES_REF['sample'].items():
+            band('sample', key, rec[key], ref)
+        x0 = seen['data'][0]
+        from jamie_tpu_torch import JAMIE
+        again = JAMIE(device=dev).load_model(rec['model_path'])
+        if not np.array_equal(again.modal_predict(x0, 0),
+                              jm.modal_predict(x0, 0)):
+            bad.append('sample: modal_predict differs after the checkpoint '
+                       'reload')
+        if (rec['figure'] is not None) != has_mpl:
+            bad.append(f'sample: figure {rec["figure"]!r} with matplotlib '
+                       f'{"present" if has_mpl else "absent"}')
+        del seen, jm, again
+
+        # tuning: every search fit after the first reuses its F (both
+        # packages refit with the estimator's match_result)
+        rec, seen, counts = run('tuning', lambda seen: tuning.main(
+            device=dev, **tuning_kw))
+        k1('tuning', counts, tuning_kw.get('epoch_pd', 300))
+        if not (rec['best_finite'] and rec['best_weights'] is not None
+                and np.isfinite(rec['best_weights']).all()):
+            bad.append(f'tuning: best weights {rec["best_weights"]}, finite '
+                       f'embeddings {rec["best_finite"]}')
+
+        # imputation_comparison: JAMIE against predict_knn and predict_nn
+        rec, seen, counts = run('imputation_comparison',
+                                lambda seen: imputation_comparison.main(
+                                    out_dir=tmp, device=dev,
+                                    on_fit=on_fit(seen), **imputation_kw))
+        k1('imputation_comparison', seen['counts'],
+           imputation_kw.get('epoch_pd', 500))
+        knn = counts['pairwise_euclidean'] - seen['counts'][
+            'pairwise_euclidean']
+        if knn < 2:
+            bad.append(f'imputation_comparison: K3 launched {knn} times '
+                       'after the fit, expected >= 2 (predict_knn)')
+        for i, (got, ref) in enumerate(zip(
+                rec['jamie_r'], EXAMPLES_REF['imputation_comparison'][
+                    'jamie_r'])):
+            if not got > 0:
+                bad.append(f'imputation_comparison: JAMIE r[{i}] {got}')
+            band(f'imputation_comparison r[{i}]', 'jamie_r', got, ref)
+        if (rec['figure'] is not None) != has_mpl:
+            bad.append(f'imputation_comparison: figure {rec["figure"]!r}')
+        del seen
+
+    # atlas_scale, the PCA-space trainer: 'identity', then the partial prior
+    for argv, sampling in zip(atlas_argv, ('diag', 'hybrid')):
+        name = 'atlas_scale ' + ' '.join(argv)
+        torch.cuda.reset_peak_memory_stats()
+        rec, _, _ = run(name, lambda seen: atlas_scale.main(argv + dev_arg))
+        cells = int(argv[argv.index('--cells') + 1]) if '--cells' in argv \
+            else 100_000
+        if not (rec['sampling'] == sampling and rec['finite']
+                and rec['embedding_shapes'] == [[cells, 32]] * 2
+                and rec['cell_samples_per_sec'] > 0):
+            bad.append(f'{name}: sampling {rec["sampling"]} (expected '
+                       f'{sampling}), shapes {rec["embedding_shapes"]}, '
+                       f'finite {rec["finite"]}')
+        rows[name]['max_memory_allocated'] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    # atlas_scale --sparse-data: raw CSR through JAMIE with a landmark F
+    name = 'atlas_scale --sparse-data'
+    rec, seen, _ = run(name, lambda seen: atlas_scale.main(
+        ['--sparse-data', *sparse_argv, *dev_arg], cache=False,
+        on_fit=on_fit(seen)))
+    jm, n_lm = seen['jm'], min(2048, n_sp)
+    k1(name, seen['counts'], jm.config.epoch_pd)
+    F = jm.match_result[0]
+    if not (isinstance(F, LowRankF) and not isinstance(F, SparseLandmarkF)
+            and F.rank == n_lm and F.shape == (n_sp, n_sp)):
+        bad.append(f'{name}: F is {F!r}, not a rank-{n_lm} LowRankF')
+    if not (rec['foscttm_exact'] < 0.5 and rec['label_transfer_acc'] > 1 / 12):
+        bad.append(f'{name}: FOSCTTM {rec["foscttm_exact"]} (limit < 0.5), '
+                   f'LTA {rec["label_transfer_acc"]} (limit > 1/12)')
+    if set(rec['transfer']) != {'bytes', 'bf16_equiv_bytes', 'read_s',
+                                'encode_s'} or 'generate_seconds' not in rec:
+        bad.append(f'{name}: record keys {sorted(rec)}, transfer '
+                   f'{sorted(rec["transfer"])}')
+    del seen, jm, F
+    torch.cuda.empty_cache()
+    print('examples: ' + json.dumps({'runs': rows, 'card': smi_line},
+                                    default=float), flush=True)
+    if bad:
+        fail('phase O (the examples) failed: ' + '; '.join(bad))
+    return total
+
 def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                   knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
                   nn_epochs=50, small_n=256, small_steps=200,
@@ -2443,6 +2649,10 @@ def main():
                    'bench': bench_phase(torch, ops, kp, dev, smi_line),
                    'time_and_memory': harness_phase(torch, ops, kp, dev,
                                                     smi_line)}
+    # O. The synthetic-data examples, each through its main
+    t = time.perf_counter()
+    path_counts['examples'] = examples_phase(torch, ops, kp, dev, smi_line)
+    print(f'phase O: {time.perf_counter() - t:.1f} s', flush=True)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

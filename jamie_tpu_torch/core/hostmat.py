@@ -48,15 +48,15 @@ def densify(x, dtype=np.float32) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=dtype)
 
 
-def dense_rows(x, start: int, stop: int) -> np.ndarray:
-    """Rows [start:stop) as a C-contiguous dense f32 block."""
-    return densify(x[start:stop])
+def dense_rows(x, start: int, stop: int, dtype=np.float32) -> np.ndarray:
+    """Rows [start:stop) as a C-contiguous dense block of `dtype`."""
+    return densify(x[start:stop], dtype)
 
 
-def dense_cols(x, start: int, stop: int) -> np.ndarray:
-    """Columns [start:stop) as a C-contiguous dense f32 block (pass CSC for
-    sparse inputs; see ensure_col_major)."""
-    return densify(x[:, start:stop])
+def dense_cols(x, start: int, stop: int, dtype=np.float32) -> np.ndarray:
+    """Columns [start:stop) as a C-contiguous dense block of `dtype` (pass
+    CSC for sparse inputs; see ensure_col_major)."""
+    return densify(x[:, start:stop], dtype)
 
 
 def as_f32_ndarray(x):

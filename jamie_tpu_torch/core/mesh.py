@@ -91,6 +91,7 @@ def destroy_group() -> None:
 
 def create_mesh(shape: Optional[Tuple[int, ...]] = None,
                 axis_names: Tuple[str, ...] = (DATA,),
+                devices: Optional[Sequence] = None,
                 device_type: Optional[str] = None):
     """A DeviceMesh over the default process group.
 
@@ -99,9 +100,32 @@ def create_mesh(shape: Optional[Tuple[int, ...]] = None,
     so the same code path runs from one device up. Every rank must be in
     the mesh: the port is SPMD, and a rank outside it would have no part
     to play. device_type defaults to 'cuda' on an NCCL group, else 'cpu'.
+
+    devices: jamie_tpu's device list, one `torch.device` (or its string)
+    per rank in rank order. shape=None then takes its length, as in
+    jamie_tpu, and only its first prod(shape) entries are used; they must
+    be the ranks' own devices (one type, and on the card this rank's
+    current device), else the ValueError jamie_tpu raises for a shape it
+    cannot fill.
     """
     from torch.distributed.device_mesh import init_device_mesh
     axis_names = tuple(axis_names)
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if shape is None:
+            shape = (len(devices),) + (1,) * (len(axis_names) - 1)
+        n = math.prod(shape)
+        if n > len(devices):
+            raise ValueError(f'mesh shape {tuple(shape)} needs {n} devices, '
+                             f'have {len(devices)}')
+        devices = devices[:n]
+        types = {d.type for d in devices}
+        if len(types) != 1 or device_type not in (None, *types):
+            raise ValueError(f'mesh shape {tuple(shape)} needs {n} devices, '
+                             f'have {len(devices)} of types {sorted(types)}'
+                             + (f' for a {device_type} mesh'
+                                if device_type else ''))
+        device_type = devices[0].type
     if not dist.is_initialized():
         want = 1 if shape is None else math.prod(shape)
         if want != 1:
@@ -124,6 +148,13 @@ def create_mesh(shape: Optional[Tuple[int, ...]] = None,
                          'every rank must be in the mesh')
     if device_type is None:
         device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    if devices is not None:
+        mine = devices[dist.get_rank()]
+        if (device_type == 'cuda' and mine.index is not None
+                and mine.index != torch.cuda.current_device()):
+            raise ValueError(f'mesh shape {shape} needs {n} devices, have '
+                             f'rank {dist.get_rank()} on cuda:'
+                             f'{torch.cuda.current_device()}, not {mine}')
     return init_device_mesh(device_type, shape, mesh_dim_names=axis_names)
 
 
@@ -480,7 +511,7 @@ def _spawn_worker(rank_: int, fn: Callable, world: int, backend: str,
                             rank=rank_, world_size=world)
     try:
         mesh = create_mesh(mesh_shape, (DATA, MODEL)[:len(mesh_shape)],
-                           'cuda' if backend == 'nccl' else 'cpu')
+                           device_type='cuda' if backend == 'nccl' else 'cpu')
         result = fn(mesh, *args)
         torch.save(result, os.path.join(out_dir, f'rank{rank_}.pt'))
     finally:

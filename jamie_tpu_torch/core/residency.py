@@ -242,7 +242,10 @@ class DeviceCSR:
             X.indptr.astype(idt), X.indices.astype(idt),
             np.asarray(X.data, np.float32), device=self.device)
         self.vals = round_bf16(vals) if self.bf16 else vals
-        # jamie_tpu counts one dense-bf16 shipment per resident CSR
+        # one dense-bf16 shipment of this matrix, counted once per build:
+        # the decodes from it (build_resident_bf16, ChunkUploader.rows)
+        # ship nothing and count nothing more, where jamie_tpu counts
+        # each of them again
         _transfer['bf16_equiv_bytes'] += 2 * n * f
         self._csc = None          # lazy transposed twin (CSR of X^T)
         self._row_sq = None       # lazy (n,) f32
@@ -365,8 +368,7 @@ def build_resident_bf16(arr, device=None,
     dcsr = device_csr(arr, device=device) if sparse_in else None
     for s in range(0, n, rows):
         e = min(s + rows, n)
-        if dcsr is not None:
-            _transfer['bf16_equiv_bytes'] += 2 * (e - s) * f
+        if dcsr is not None:   # counted once, by the DeviceCSR
             resident[s:e] = dcsr.rows(s, e)
             continue
         t0 = time.perf_counter()
@@ -409,9 +411,13 @@ class ChunkUploader:
     Values are exact when n * f < BF16_LINK_ELEMS and bf16-rounded at or
     above it (a dense block then travels as bf16). A CSR source that fits
     the budget becomes a shared DeviceCSR once and `rows` decode from it;
-    other sparse blocks travel as CSR and are decoded on the device."""
+    other sparse blocks travel as CSR and are decoded on the device.
 
-    def __init__(self, X, device=None):
+    `limit_bytes` is accepted for jamie_tpu's signature and ignored: it
+    caps jamie_tpu's pinned-memory backpressure, and every block here is
+    consumed before the next one ships."""
+
+    def __init__(self, X, device=None, limit_bytes: int = 1 << 30):
         self.X = X
         self.device = resolve_device(device)
         self.sparse = is_scipy_sparse(X)
@@ -433,8 +439,7 @@ class ChunkUploader:
     def rows(self, s: int, e: int) -> torch.Tensor:
         """Rows [s, e) as a dense f32 device block."""
         e = min(e, int(self.X.shape[0]))
-        if self.dcsr is not None:
-            _transfer['bf16_equiv_bytes'] += 2 * (e - s) * int(self.X.shape[1])
+        if self.dcsr is not None:   # counted once, by the DeviceCSR
             return self.dcsr.rows(s, e)
         return self._block(self.X[s:e])
 

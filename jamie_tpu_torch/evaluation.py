@@ -13,7 +13,8 @@ Explanations: `evaluate_impact` (host occlusion around any function),
 forward on the estimator's device), the native `kernel_shap` (host
 coalitions from `np.random.RandomState(seed)`, as in jamie_tpu; one float32
 least-squares solve on the device) and `shap_explain`, which uses the
-`shap` package where it is installed. The figures are in `figures.py`;
+`shap` package where it is installed. The figures are in `figures.py`
+(re-exported here, as in jamie_tpu);
 `test_partial(plot=True)` imports matplotlib itself.
 """
 
@@ -34,6 +35,19 @@ from .ops.pairwise import pairwise_euclidean
 # kept, as the `residency` probe timed FOSCTTM at 100,000 cells alike with
 # 2^26, 2^28 and 2^30-entry blocks (H100 80GB HBM3, 700.00 W).
 _FOSCTTM_BLOCK_ENTRIES = 1 << 28
+
+
+__all__ = [
+    'test_partial', 'test_closer', 'test_label_dist', 'test_LabelTA',
+    'knn_label_transfer_accuracy', 'evaluate_impact',
+    'occlusion_impact_device', 'shap_explain', 'kernel_shap', 'ShapValues',
+    'plot_regular', 'plot_integrated', 'plot_accuracy',
+    'plot_accuracy_table', 'plot_accuracy_graph', 'plot_silhouette',
+    'plot_auroc', 'plot_correlation', 'plot_auroc_correlation',
+    'plot_sample', 'plot_distribution', 'plot_distribution_alone',
+    'plot_distribution_similarity', 'plot_impact',
+    'plot_shap_summary', 'plot_shap_waterfall',
+]
 
 
 def _block_rows(n_cols: int) -> int:
@@ -523,3 +537,15 @@ def shap_explain(estimator, data, modality: int = 0, max_evals=500,
     explainer = shap.Explainer(
         lambda x: estimator.modal_predict(x, modality), data, **kwargs)
     return explainer(data, max_evals=max_evals)
+
+
+# The figures live in figures.py (which imports matplotlib inside each
+# function) and are re-exported here, as jamie_tpu's evaluation does. At the
+# end of the module: figures imports this module's metrics.
+from .figures import (  # noqa: E402,F401
+    plot_accuracy, plot_accuracy_graph, plot_accuracy_table, plot_auroc,
+    plot_auroc_correlation, plot_correlation, plot_distribution,
+    plot_distribution_alone, plot_distribution_similarity, plot_impact,
+    plot_shap_summary, plot_shap_waterfall,
+    plot_integrated, plot_regular, plot_sample, plot_silhouette,
+)

@@ -52,6 +52,7 @@ trainer.py:345-356):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -215,6 +216,22 @@ class _Block(nn.Module):
         return x
 
 
+@contextlib.contextmanager
+def _mode(module: nn.Module, train: Optional[bool]):
+    """Run the body with every submodule in train (True) or eval (False)
+    mode, then restore each one's own mode; None changes nothing."""
+    if train is None:
+        yield
+        return
+    modes = [(m, m.training) for m in module.modules()]
+    module.train(bool(train))
+    try:
+        yield
+    finally:
+        for m, was in modes:
+            m.training = was
+
+
 def combine_latents(zs: Sequence[torch.Tensor], corr: torch.Tensor,
                     sigma: torch.Tensor,
                     rows: Optional[cm.Split] = None) -> List[torch.Tensor]:
@@ -339,18 +356,26 @@ class CoupledVAE(nn.Module):
         return specs
 
     # --- pieces -----------------------------------------------------------
-    def encode_one(self, x, i: int, generator=None, rows=None):
-        h = self.layers[f'enc{i}_b0'](x.to(self.compute_dtype), generator,
-                                      rows)
-        return self.layers[f'enc{i}_b1'](h, generator, rows)
+    # train: jamie_tpu's flag. None keeps the module's mode; True or False
+    # runs dropout, the reparameterization noise and BatchNorm in that mode
+    # for this call only (a True call updates the running statistics, as a
+    # training step does) and leaves every submodule's mode as it was.
+    def encode_one(self, x, i: int, train: Optional[bool] = None,
+                   generator=None, rows=None):
+        with _mode(self, train):
+            h = self.layers[f'enc{i}_b0'](x.to(self.compute_dtype),
+                                          generator, rows)
+            return self.layers[f'enc{i}_b1'](h, generator, rows)
 
-    def refactor_one(self, h, i: int, generator=None, noise=None, rows=None):
+    def refactor_one(self, h, i: int, train: Optional[bool] = None,
+                     generator=None, noise=None, rows=None):
         """rows: noise (drawn or given) has the whole batch's rows, of which
         this rank takes its own."""
-        mu = self.layers[f'fc_mu{i}'](h)
-        logvar = self.layers[f'fc_var{i}'](h)
-        if not self.training:
-            return mu, mu, logvar
+        with _mode(self, train):
+            mu = self.layers[f'fc_mu{i}'](h)
+            logvar = self.layers[f'fc_var{i}'](h)
+            if not self.training:
+                return mu, mu, logvar
         # std + 1e-7 rounding protection (jamie/model.py:236-239), in
         # mu's dtype as jamie_tpu draws and adds it
         std = torch.exp(logvar / 2) + 1e-7
@@ -362,11 +387,13 @@ class CoupledVAE(nn.Module):
             noise = rows.local(noise)
         return mu + std * noise.to(mu.dtype), mu, logvar
 
-    def decode_one(self, z, i: int, generator=None, rows=None):
-        h = self.layers[f'dec{i}_b0'](z.to(self.compute_dtype), generator,
-                                      rows)
-        h = self.layers[f'dec{i}_b1'](h, generator, rows)
-        return self.layers[f'dec{i}_out'](h)
+    def decode_one(self, z, i: int, train: Optional[bool] = None,
+                   generator=None, rows=None):
+        with _mode(self, train):
+            h = self.layers[f'dec{i}_b0'](z.to(self.compute_dtype),
+                                          generator, rows)
+            h = self.layers[f'dec{i}_b1'](h, generator, rows)
+            return self.layers[f'dec{i}_out'](h)
 
     # --- reference API ----------------------------------------------------
     def forward(self, xs, corr, generator: Optional[torch.Generator] = None,
@@ -378,24 +405,32 @@ class CoupledVAE(nn.Module):
         keeps the whole batch's rows)."""
         zs, mus, logvars = [], [], []
         for i in range(self.num_modalities):
-            h = self.encode_one(xs[i], i, generator, rows)
+            h = self.encode_one(xs[i], i, generator=generator, rows=rows)
             z, mu, logvar = self.refactor_one(
-                h, i, generator, None if noise is None else noise[i], rows)
+                h, i, generator=generator,
+                noise=None if noise is None else noise[i], rows=rows)
             zs.append(z)
             mus.append(mu)
             logvars.append(logvar)
         combined = combine_latents(zs, corr, self.sigma, rows)
-        x_hat = [self.decode_one(combined[i], i, generator, rows)
+        x_hat = [self.decode_one(combined[i], i, generator=generator,
+                                 rows=rows)
                  for i in range(self.num_modalities)]
         return zs, combined, x_hat, mus, logvars
 
-    def impute(self, x, from_mod: int, to_mod: int, generator=None):
+    def impute(self, x, from_mod: int, to_mod: int,
+               train: Optional[bool] = None, generator=None):
         """Cross-modal imputation: encode `from_mod`, decode `to_mod`
         (jamie/model.py:277-282). No combine step, as in the reference."""
-        h = self.encode_one(x, from_mod, generator)
-        z, _, _ = self.refactor_one(h, from_mod, generator)
-        return self.decode_one(z, to_mod, generator)
+        with _mode(self, train):
+            h = self.encode_one(x, from_mod, generator=generator)
+            z, _, _ = self.refactor_one(h, from_mod, generator=generator)
+            return self.decode_one(z, to_mod, generator=generator)
 
-    def embed_one(self, x, i: int):
-        """Single-modality latent: fc_mus[i](encoders[i](x)), the mean head."""
-        return self.layers[f'fc_mu{i}'](self.encode_one(x, i))
+    def embed_one(self, x, i: int, train: Optional[bool] = None,
+                  generator=None):
+        """Single-modality latent: fc_mus[i](encoders[i](x)), the mean head
+        (no sampling, whatever the mode)."""
+        with _mode(self, train):
+            return self.layers[f'fc_mu{i}'](
+                self.encode_one(x, i, generator=generator))

@@ -203,9 +203,13 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
     return pairwise_euclidean(xt, yt, squared=squared)
 
 
-def pairwise_sq_euclidean(x, y=None, device=None) -> torch.Tensor:
+def pairwise_sq_euclidean(x, y=None, block: int = 4096,
+                          device=None) -> torch.Tensor:
     """Squared euclidean distances of x (to y, else to itself) on `device`:
-    the squared route of the dispatch above (K3 under the thresholds)."""
+    the squared route of the dispatch above (K3 under the thresholds).
+    `block` is accepted for jamie_tpu's signature and ignored: K3 tiles
+    the rows itself, and the routes past the thresholds choose their own
+    blocks."""
     return _pairwise_euclidean_impl(x, y, squared=True, device=device)
 
 
@@ -347,12 +351,13 @@ def _host_metric(x: np.ndarray, metric: str) -> np.ndarray:
     return squareform(pdist(x, _SCIPY_NAMES.get(metric, metric)))
 
 
-def pairwise_distance(x, metric: str = 'euclidean', device=None,
-                      mesh=None) -> torch.Tensor:
+def pairwise_distance(x, metric: str = 'euclidean', block: int = 4096,
+                      mesh=None, device=None) -> torch.Tensor:
     """N x N distance matrix of one dataset, on `device` (the card unless
     the caller asks for another); the dispatch of distances.py:372-413.
     mesh: row-shard the euclidean family, cosine and correlation over its
-    'data' axis; every rank returns the whole matrix."""
+    'data' axis; every rank returns the whole matrix. `block` is accepted
+    for jamie_tpu's signature and ignored, as in pairwise_sq_euclidean."""
     cm.check_mesh(mesh)
     if metric in ('euclidean', 'l2', 'sqeuclidean'):
         return _pairwise_euclidean_impl(

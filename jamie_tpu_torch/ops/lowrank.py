@@ -244,6 +244,11 @@ class SparseLandmarkF(LowRankF):
                 f'k={self.ix.shape[1]}, landmarks={tuple(self.f_l.shape)})')
 
 
+def is_lowrank(x) -> bool:
+    """True for a LowRankF (SparseLandmarkF included), as jamie_tpu's."""
+    return isinstance(x, LowRankF)
+
+
 _SPARSE_FIELDS = ('ix', 'wx', 'iy', 'wy', 'f_l')
 
 

@@ -9,7 +9,7 @@ in the other. The model's variables cross through `models/convert.py`.
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -38,13 +38,20 @@ def _unflatten(arrays: Dict[str, np.ndarray], prefix: str) -> Dict:
 
 
 def save_checkpoint(path: str, params: Any, batch_stats: Any,
-                    preprocessors: Tuple, header: Dict[str, Any]) -> None:
+                    preprocessors: Tuple, header: Dict[str, Any],
+                    opt_state_arrays: Optional[Dict[str, np.ndarray]] = None
+                    ) -> None:
+    """Write the .npz; `opt_state_arrays` are extra arrays stored under
+    their own keys, as jamie_tpu stores them (load_checkpoint returns the
+    model's part; np.load reads them back)."""
     arrays: Dict[str, np.ndarray] = {}
     arrays.update(_flatten(params, 'params'))
     arrays.update(_flatten(batch_stats, 'batch_stats'))
     for i, pre in enumerate(preprocessors):
         for k, v in pre.to_dict().items():
             arrays[f'pre{i}/{k}'] = np.asarray(v)
+    if opt_state_arrays:
+        arrays.update({k: np.asarray(v) for k, v in opt_state_arrays.items()})
     arrays['__header__'] = np.frombuffer(
         json.dumps(header).encode(), dtype=np.uint8)
     with open(path, 'wb') as f:

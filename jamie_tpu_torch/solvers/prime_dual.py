@@ -105,6 +105,7 @@ def prime_dual(
     state_dtype: str = 'float32',
     device=None,
     mesh=None,
+    use_pallas: Optional[bool] = None,
 ) -> torch.Tensor:
     """Estimate the (m, n) correspondence matrix F, returned as an f32
     tensor on `device`.
@@ -119,6 +120,10 @@ def prime_dual(
     runs f32 for unknown values; the port is strict on purpose).
     mesh: a `core.mesh` DeviceMesh; the state's rows shard over its 'data'
     axis (module docstring). Every rank passes the same Kx, Ky.
+    use_pallas: accepted for jamie_tpu's signature and ignored. jamie_tpu
+    chooses between its Pallas tail and XLA's fused one; here the update
+    is always K1 on the card and its plain version on the CPU, whatever
+    the value.
     """
     if precision not in _BF16_PRECISIONS:
         raise ValueError(f'precision must be one of {sorted(_BF16_PRECISIONS)}'

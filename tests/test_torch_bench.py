@@ -200,7 +200,9 @@ def test_transfer_stats_of_the_resident_build(monkeypatch, kind):
     """device_bf16 in both packages past a patched-down BF16_LINK_ELEMS:
     the same dense-bf16 equivalent; the port ships 2 bytes an element of a
     dense source, where jamie_tpu's packed bits ship fewer for two-valued
-    columns (the deliberate deviation)."""
+    columns (the deliberate deviation). A resident CSR counts its dense
+    equivalent once per build, 2 n f, where jamie_tpu counts it again for
+    the decode into the resident copy, 4 n f (the second deviation)."""
     JR = _jax_residency()
     x = _inputs(kind)
     n, f = x.shape
@@ -216,12 +218,13 @@ def test_transfer_stats_of_the_resident_build(monkeypatch, kind):
         mod.clear_residency_cache()
     np.testing.assert_array_equal(resident[1], resident[0])
     jax_s, ours = stats
-    assert ours['bf16_equiv_bytes'] == jax_s['bf16_equiv_bytes']
     if kind == 'csr':   # one DeviceCSR upload, decoded on the device
-        assert ours['bf16_equiv_bytes'] == 4 * n * f
+        assert ours['bf16_equiv_bytes'] == 2 * n * f
+        assert jax_s['bf16_equiv_bytes'] == 4 * n * f
         assert ours['bytes'] == 4 * (n + 1) + 8 * x.nnz
         assert ours['read_s'] >= 0 and ours['encode_s'] == 0
     else:
+        assert ours['bf16_equiv_bytes'] == jax_s['bf16_equiv_bytes']
         assert ours['bf16_equiv_bytes'] == 2 * n * f
         assert ours['bytes'] == 2 * n * f
         assert ours['encode_s'] > 0
@@ -251,6 +254,29 @@ def test_transfer_stats_of_the_chunk_uploader(monkeypatch, exact):
     elems = 120 * 50 + 200 * 20
     assert ours['bf16_equiv_bytes'] == jax_s['bf16_equiv_bytes'] == 2 * elems
     assert ours['bytes'] == (4 if exact else 2) * elems == jax_s['bytes']
+
+
+def test_chunk_uploader_counts_a_resident_csr_once(monkeypatch):
+    """Rows decoded from a resident CSR ship nothing: one DeviceCSR build
+    counts 2 n f however many passes read it, where jamie_tpu counts each
+    pass again (the deviation of test_transfer_stats_of_the_resident_build)."""
+    JR = _jax_residency()
+    x = _inputs('csr')
+    n, f = x.shape
+    stats = []
+    for mod, kw in ((JR, {}), (R, {'device': 'cpu'})):
+        mod.clear_residency_cache()
+        mod.reset_transfer_stats()
+        up = mod.ChunkUploader(x, **kw)
+        assert up.dcsr is not None
+        for _ in range(2):
+            up.rows(0, n)
+        stats.append(mod.transfer_stats())
+        mod.clear_residency_cache()
+    jax_s, ours = stats
+    assert ours['bf16_equiv_bytes'] == 2 * n * f
+    assert jax_s['bf16_equiv_bytes'] == 3 * 2 * n * f
+    assert ours['bytes'] == 4 * (n + 1) + 8 * x.nnz
 
 
 def test_csr_to_device_counts_its_csr_payload():

@@ -6,6 +6,8 @@ jax nor jamie_tpu, so on the card it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -67,7 +69,8 @@ def test_dense_solve_past_520m_entries_matches_plain(cuda, monkeypatch,
     call of the solve is held against the plain version on the last 128
     rows of its inputs (the largest flat offsets), at
     test_pd_grad_update_kernel_matches_plain's tolerances."""
-    from jamie_tpu_torch.solvers import prime_dual as pdm
+    # the submodule: jamie_tpu_torch.solvers binds the function prime_dual
+    pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
     n = 24_000
     Kx, Ky = (probes.distance_operand(n, s, cuda) for s in (0, 1))
     real, rows, checked = pdm.fused_pd_grad_update, slice(n - 128, n), []

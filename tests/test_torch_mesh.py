@@ -10,6 +10,7 @@ checks that neither was imported. Each spawn runs several checks and
 returns their results; the tests hold them to the references."""
 
 import glob
+import importlib
 import os
 
 import numpy as np
@@ -23,8 +24,10 @@ from jamie_tpu_torch.models.convert import (load_flax_variables,
                                             to_flax_variables)
 from jamie_tpu_torch.models.coupled_vae import CoupledVAE
 from jamie_tpu_torch.ops.distances import pairwise_distance
-from jamie_tpu_torch.solvers import prime_dual as pd
 from jamie_tpu_torch.train.trainer import JamieTrainer
+
+# the submodule: jamie_tpu_torch.solvers binds the function prime_dual
+pd = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
 
 METRICS = ('euclidean', 'sqeuclidean', 'cosine', 'correlation')
 BLOCKED = ('jax', 'jaxlib', 'flax', 'jamie_tpu')

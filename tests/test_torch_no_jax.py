@@ -56,8 +56,8 @@ from jamie_tpu_torch.config import DISTANCE_MODES
 import numpy as np
 import scipy.sparse
 x = np.random.RandomState(0).rand(12, 5).astype('float32')
-F = prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
-                          device='cpu')
+F = prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
+           device='cpu')
 residency.DeviceCSR(scipy.sparse.csr_matrix(x), 'cpu').tmatmul(x)
 residency.device_bf16(x, device='cpu')
 for mode in DISTANCE_MODES:
@@ -119,8 +119,8 @@ from jamie_tpu_torch import multichip
 from jamie_tpu_torch.core import mesh as cm
 mesh = cm.create_mesh((1,), device_type='cpu')
 distances.pairwise_distance(x, 'cosine', device='cpu', mesh=mesh)
-prime_dual.prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
-                      device='cpu', mesh=mesh)
+prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
+           device='cpu', mesh=mesh)
 JAMIE(mesh=mesh, **kw).fit_transform(dataset=data)
 fn, args = multichip.entry()
 fn(*args)
@@ -232,3 +232,78 @@ def test_harness_entry_points_need_the_card(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(mod, fn_name)(*args)
     assert not called
+
+
+# The twins of the synthetic-data examples keep their own copies of the
+# examples' generators: none imports examples/ or its modules
+EXAMPLES = tuple(sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / 'jamie_tpu_torch' / 'examples').glob('*.py')))
+EXAMPLES_BLOCKED = HARNESS_BLOCKED + ('sample', 'tuning', 'atlas_scale',
+                                      'imputation_comparison', 'scgem')
+
+
+def test_examples_are_listed():
+    assert EXAMPLES == tuple(f'jamie_tpu_torch/examples/{n}.py' for n in (
+        '__init__', 'atlas_scale', 'imputation_comparison', 'sample',
+        'tuning'))
+
+
+@pytest.mark.parametrize('path', EXAMPLES)
+def test_examples_import_no_jax_side_example(path):
+    names = list(_imported_names(ROOT / path))
+    assert not [n for n in names if _blocked(n) or any(
+        n == b or n.startswith(b + '.') for b in EXAMPLES_BLOCKED)], names
+
+
+def test_examples_run_with_jax_examples_and_matplotlib_blocked(tmp_path):
+    """Each twin's main at a tiny size with jax, jamie_tpu, examples/ and
+    the optional packages unimportable, as on the card's machine: the
+    figures are skipped (null) and nothing blocked is loaded."""
+    code = f'''
+import importlib.machinery, sys
+BLOCKED = {BLOCKED + OPTIONAL + EXAMPLES_BLOCKED!r}
+class Refuse:
+    def create_module(self, spec):
+        raise ImportError('blocked ' + spec.name)
+    def exec_module(self, module):
+        pass
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            return importlib.machinery.ModuleSpec(name, Refuse())
+sys.meta_path.insert(0, Block())
+from jamie_tpu_torch.examples import (atlas_scale, imputation_comparison,
+                                      sample, tuning)
+out = {str(tmp_path)!r}
+small = dict(device='cpu', epoch_DNN=4, min_epochs=2, epoch_pd=10)
+s = sample.main(out_dir=out, n=60, **small)
+t = tuning.main(num_search=1, n=60, **small)
+i = imputation_comparison.main(out_dir=out, n=60, nn_epochs=1, **small)
+a = atlas_scale.main(['--cells', '60', '--epochs', '1', '--batch-size',
+                      '32', '--device', 'cpu'])
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED))
+print('leaked', leaked, s['figure'], i['figure'], t['best_finite'],
+      a['finite'])
+'''
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert (out.stdout.strip().splitlines()[-1]
+            == 'leaked [] None None True True')
+
+
+@pytest.mark.parametrize('name', ['sample', 'tuning',
+                                  'imputation_comparison', 'atlas_scale'])
+def test_example_mains_need_the_card(monkeypatch, name):
+    """Without CUDA each twin raises before any work, unless the caller
+    passes device='cpu'."""
+    import importlib
+    mod = importlib.import_module(f'jamie_tpu_torch.examples.{name}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if name == 'atlas_scale':
+            mod.main(['--cells', '8'])
+        else:
+            mod.main(n=8)

@@ -17,6 +17,8 @@ tests hold the estimator's decisions at the port's own defaults (the
 values measured on the card), where they deliberately differ from
 jamie_tpu's, and the byte model behind them."""
 
+import importlib
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -32,7 +34,9 @@ import jamie_tpu_torch.ops.distances as td
 import jamie_tpu_torch.preprocess as tp
 import jamie_tpu_torch.probes as tprobes
 import jamie_tpu_torch.solvers.landmark as tl
-import jamie_tpu_torch.solvers.prime_dual as tpd
+
+# the submodule: jamie_tpu_torch.solvers binds the function prime_dual
+tpd = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
 
 DELTAS = [-1, 0, 1]
 
