@@ -18,7 +18,8 @@
    one 2684-row block of the blocked FOSCTTM at 100,000 cells.
 4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
    to 20) on SNARE-seq-shaped synthetic data (1047 cells x 3000 RNA / 5000
-   ATAC, seed 0), with every launch count set to 0 just before it; then
+   ATAC, seed 0), with every launch count and the trainer's epochs by
+   route set to 0 just before it (every epoch must train captured); then
    FOSCTTM and label transfer, with the counts set to 0 again.
 5. Serve: transform, modal_predict, save_model -> JAMIE().load_model ->
    identical modal_predict, with the counts set to 0 again; then a small
@@ -119,7 +120,21 @@
    features (K1 300, a rank-2048 LowRankF, FOSCTTM under 0.5, LTA above
    chance); K1 and K3 against their plain versions at these shapes first;
    one `examples:` line.
-24. A `kernels` JSON line (with each kernel's launches on the fit, bench,
+24. The captured trainer (P): every epoch since step 4 but phase K's (the
+   mesh route trains eagerly) trained captured; then the trainer's epochs
+   replayed as CUDA graphs held bit for bit to its eager epoch body
+   (fit(eager=True)) on full-width fits of the 1047-cell data (the default
+   'diag' fit, batch_step=False, the half-mask hybrid prior, the identity
+   sentinel with F 'zeros', a sparse prior with a top-32 sparse F,
+   bfloat16 compute, an early stop inside a chunk under
+   dispatch_lookahead=3) and of the 19,000-cell landmark data (LowRankF and
+   SparseLandmarkF, 3 epochs): epochs_run, loss_history, epoch_losses, the
+   metrics records and the final FitState; then ms per step, cells per
+   second, the device's idle share over one epoch (torch.profiler) and
+   device ops per step, eager and captured, at the bench train leg's, the
+   scGLUE pipeline's and the 100,000-cell atlas trainer's shapes; one
+   `train_capture:` line.
+25. A `kernels` JSON line (with each kernel's launches on the fit, bench,
    time-and-memory and examples paths), the nvidia-smi line, and as the
    last line {"ok": true, "device": {...}}.
 
@@ -434,7 +449,8 @@ def partial_prior_phase(JAMIE, ops, match_result, data):
 def landmark_fit_phase(torch, JAMIE, ops, data, labels, n_landmarks=2048):
     """JAMIE(corr_landmarks=...).fit_transform with the counts at 0 just
     before it, its row-blocked metrics with the counts at 0 again, and
-    transform == the fit's output."""
+    transform == the fit's output. Returns the fit's training data (its
+    PCA-512 scores on the card)."""
     from jamie_tpu_torch import evaluation
     from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
     n = data[0].shape[0]
@@ -499,13 +515,14 @@ def landmark_fit_phase(torch, JAMIE, ops, data, labels, n_landmarks=2048):
                for a, b in zip(jm.transform(data), out)):
         fail('transform differs from the landmark fit output')
     print('landmark serve: transform == fit output', flush=True)
+    return list(jm.trainer.data)
 
 
 def landmark_layout_phase(torch, data, dev, n_landmarks=2048):
     """The dense and k-sparse factor layouts of one landmark solve (same
     seed, euclidean, 200 iterations) held to each other: float32 summation
     order (an (N, L) x (L, L) GEMM against an 8-term mix per row), within
-    1e-4 of the largest entry."""
+    1e-4 of the largest entry. Returns both (LowRankF, SparseLandmarkF)."""
     from jamie_tpu_torch.solvers.landmark import landmark_correspondence
     n = data[0].shape[0]
     kw = dict(n_landmarks=n_landmarks, epoch_pd=200, verbose=False,
@@ -530,6 +547,7 @@ def landmark_layout_phase(torch, data, dev, n_landmarks=2048):
           flush=True)
     if not (worst <= 1e-4 and cs_err <= 1e-4):
         fail('the dense and sparse landmark layouts disagree')
+    return F_dense, F_sparse
 
 
 def landmark_reference_phase(dev, n=600, n_landmarks=128):
@@ -2128,6 +2146,245 @@ def examples_phase(torch, ops, kp, dev, smi_line, sample_kw=None,
         fail('phase O (the examples) failed: ' + '; '.join(bad))
     return total
 
+def state_diff(torch, a, b):
+    """The largest |difference| between two FitStates' tensors (0.0 when
+    bit-equal), and whether their scalars agree."""
+    worst = 0.0
+    for name in ('params', 'mu', 'nu'):
+        x, y = getattr(a, name).float(), getattr(b, name).float()
+        worst = max(worst, float((x - y).abs().max()))
+    for k in a.batch_stats:
+        worst = max(worst, float((a.batch_stats[k].float()
+                                  - b.batch_stats[k].float()).abs().max()))
+    scalars = all(getattr(a, f) == getattr(b, f) for f in (
+        'count', 'epoch', 'best_running_loss', 'streak', 'stopped'))
+    return worst, scalars and torch.equal(a.rng.cpu(), b.rng.cpu())
+
+
+def capture_pair(torch, make, tmp, tag):
+    """One fit captured and the same fit with eager=True (the plain
+    version), each from a new trainer (make()): whether they are bit-equal
+    and took their routes, and their numbers. Every P and F form is held
+    bit-equal, the atomic scatter of SparseLandmarkF's batch gather
+    included: it adds each of a row's distinct landmark weights once into
+    a zero row, so no two atomics meet in one cell."""
+    runs = {}
+    for route in ('captured', 'eager'):
+        tr = make()
+        path = os.path.join(tmp, f'{tag}_{route}.jsonl')
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = tr.fit(metrics_path=path, eager=route == 'eager')
+        torch.cuda.synchronize()
+        runs[route] = dict(
+            state=state, seconds=time.perf_counter() - t,
+            history=tr.loss_history, losses=tr.epoch_losses,
+            run=tr.epochs_run, stats=dict(tr.graph_stats),
+            records=[{k: v for k, v in json.loads(ln).items()
+                      if k not in ('seconds', 'memory')}
+                     for ln in open(path)])
+        del tr
+    cap, eag = runs['captured'], runs['eager']
+    diff, scalars = state_diff(torch, cap['state'], eag['state'])
+    same = (cap['run'] == eag['run'] and cap['records'] == eag['records']
+            and cap['history'] == eag['history']
+            and cap['losses'] == eag['losses'] and scalars and diff == 0.0)
+    ok = (same and cap['stats'].get('route') == 'captured'
+          and eag['stats'].get('route') == 'eager')
+    return ok, {'route': cap['stats'].get('route'), 'bit_equal': same,
+                'max_state_diff': diff, 'epochs_run': cap['run'],
+                'stopped': cap['state'].stopped,
+                'captured_s': cap['seconds'], 'eager_s': eag['seconds'],
+                'capture': {k: cap['stats'].get(k) for k in (
+                    'warmup_s', 'capture_s', 'nodes', 'kernel_nodes',
+                    'steps_per_epoch')}}
+
+
+def device_idle(torch, fn):
+    """(idle share, device ops) of one call of fn on the card, from
+    torch.profiler's CUDA activity: the share of the span from the first
+    device op's start to the last one's end in which no op ran."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None, 0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    return (1.0 - busy / window if window > 0 else None), len(spans)
+
+
+def step_timing(torch, tr, epochs):
+    """ms per step, cells per second, idle share over one epoch and device
+    ops (kernels, copies, memsets) per step, eager and captured, on one
+    trainer from its initial state each time; epochs = (eager, captured)
+    epochs timed after one warm-up epoch."""
+    L, B = tr.len_dataloader, tr.batch_size
+    out = {}
+    for route, n_ep in zip(('eager', 'captured'), epochs):
+        tr._load(tr.init_state())
+        t = time.perf_counter()
+        runner = tr._epoch_runner(eager=route == 'eager')
+        build_s = time.perf_counter() - t
+        tr._dispatch(runner, 1).result()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr._dispatch(runner, n_ep).result()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        idle, ops_n = device_idle(torch, lambda: tr._dispatch(runner, 1))
+        runner.close()
+        out[route] = {'ms_per_step': 1e3 * dt / (n_ep * L),
+                      'cells_per_sec': n_ep * L * B / dt,
+                      'idle_share': idle, 'device_ops_per_step': ops_n / L,
+                      'epochs_timed': n_ep, 'build_s': build_s}
+        st = tr.graph_stats
+        if st['route'] == 'captured':
+            out[route].update(
+                graph_launches_per_step=st['launches_per_epoch'] / L,
+                graph_nodes_per_step=st['nodes'] / L,
+                kernel_nodes_per_step=st['kernel_nodes'] / L,
+                capture_s=st['capture_s'], warmup_s=st['warmup_s'],
+                nodes=st['nodes'])
+    return {'steps_per_epoch': L, 'batch': B, **out}
+
+
+def train_capture_phase(torch, dev, smi_line, fit_inputs, landmark_inputs,
+                        epochs=30, landmark_epochs=3,
+                        timing_cells=(9190, 100_000), timing_dim=512,
+                        timing_epochs=((20, 100), (5, 20), (1, 3))):
+    """P. The trainer's captured epochs against its eager epoch body: at
+    full width on the 1047-cell SNARE-shaped data (PCA-512, F the first
+    fit's dense F), each fit captured and with eager=True, from new
+    trainers: the default 'diag' fit; batch_step=False; the half-mask
+    hybrid prior (a 1-D mask); the 'identity' sentinel with F 'zeros'; a
+    sparse prior (SparseRows, half the diagonal) with a top-32 SparseRows
+    F; compute_dtype='bfloat16'; an early stop inside a chunk under
+    dispatch_lookahead=3; then the 19,000-cell landmark data (PCA-512) with
+    its LowRankF and SparseLandmarkF layouts, epoch_DNN cut to
+    landmark_epochs. Each pair must agree bit for bit in epochs_run,
+    loss_history, epoch_losses, the metrics records and the final
+    FitState. Then ms per step, cells per
+    second, the device's idle share over one epoch and device ops per step,
+    eager and captured, at the bench train leg's shape (1047 cells, batch
+    512, 2 steps an epoch, bf16 model matmuls, P = I, F = 0), the scGLUE
+    pipeline's (9190 cells, 17 steps, bf16 model matmuls, the identity
+    sentinel and a dense F) and the 100,000-cell atlas trainer's (195
+    steps, a rank-2048 LowRankF), on random PCA-512-shaped data made on the
+    card. One `train_capture:` line."""
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.ops.lowrank import LowRankF
+    from jamie_tpu_torch.ops.sparse import SparseRows
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    t_phase = time.perf_counter()
+    X, P, F = fit_inputs
+    n = int(X[0].shape[0])
+    dims = tuple(int(x.shape[1]) for x in X)
+    half = (np.arange(n) % 2 == 0).astype(np.float32)
+    F_host = F.cpu().numpy() if isinstance(F, torch.Tensor) else F
+    idx = np.flatnonzero(half)
+    base = dict(epoch_DNN=epochs, min_epochs=10, use_early_stop=False,
+                log_DNN=10 ** 6, epoch_chunk=10)
+    fits = {
+        'diag': (base, P, F),
+        'batch_step_false': ({**base, 'batch_step': False}, P, F),
+        'hybrid_mask': (base, half, F),
+        'identity_zeros': (base, 'identity', 'zeros'),
+        'sparse_rows': (base, SparseRows.from_coo(idx, idx, half[idx],
+                                                  (n, n)),
+                        SparseRows.top_k(F_host, 32)),
+        'bf16': ({**base, 'compute_dtype': 'bfloat16'}, P, F),
+        'early_stop_lookahead3': (
+            {**base, 'epoch_DNN': 100, 'use_early_stop': True,
+             'max_steps_without_increment': 3, 'min_increment': 1e9,
+             'dispatch_lookahead': 3}, P, F),
+    }
+    X19, lr_dense, lr_sparse = landmark_inputs
+    n19 = int(X19[0].shape[0])
+    dims19 = tuple(int(x.shape[1]) for x in X19)
+    lm = dict(base, epoch_DNN=landmark_epochs)
+    for tag, Fl in (('lowrank_19k', lr_dense), ('sparse_landmark_19k',
+                                                lr_sparse)):
+        fits[tag] = (lm, 'identity', Fl)
+    results, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, (kw, Pt, Ft) in fits.items():
+            cfg = JamieConfig(**kw)
+            big = tag.endswith('19k')
+            data, d = (X19, dims19) if big else (X, dims)
+
+            def make(cfg=cfg, data=data, d=d, Pt=Pt, Ft=Ft):
+                bf16 = cfg.compute_dtype == 'bfloat16'
+                model = CoupledVAE(d, cfg.output_dim, dropout=cfg.dropout,
+                                   seed=cfg.manual_seed,
+                                   compute_dtype=(torch.bfloat16 if bf16
+                                                  else torch.float32))
+                return JamieTrainer(cfg, model, data, Pt, Ft, device=dev)
+            ok, res = capture_pair(torch, make, tmp, tag)
+            results[tag] = res
+            print(f'phase P {tag}: {json.dumps(res, default=float)}',
+                  flush=True)
+            if not ok:
+                bad.append(f'{tag}: captured and eager disagree ({res})')
+    stop = results['early_stop_lookahead3']
+    if not (stop['stopped'] and stop['epochs_run'] % 10 != 0):
+        bad.append(f'the early stop did not land inside a chunk: {stop}')
+    del fits
+    torch.cuda.empty_cache()
+
+    # ms per step at three shapes
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = {}
+    cfg = JamieConfig(epoch_DNN=10 ** 6, min_epochs=2500,
+                      use_early_stop=False, log_DNN=10 ** 6)
+    model = CoupledVAE(dims, 32, matmul_bf16=True)
+    tr = JamieTrainer(cfg, model, X, np.eye(n, dtype=np.float32),
+                      np.zeros((n, n), np.float32), device=dev)
+    shapes[f'bench_{n}'] = step_timing(torch, tr, timing_epochs[0])
+    del tr
+    m, d = timing_cells[0], timing_dim
+    Xs = [torch.randn(m, d, device=dev, generator=g) for _ in range(2)]
+    Fs = torch.rand(m, m, device=dev, generator=g)
+    tr = JamieTrainer(cfg, CoupledVAE((d, d), 32, matmul_bf16=True), Xs,
+                      'identity', Fs, device=dev)
+    shapes[f'scglue_{m}'] = step_timing(torch, tr, timing_epochs[1])
+    del tr, Xs, Fs
+    m = timing_cells[1]
+    Xa = [torch.randn(m, d, device=dev, generator=g) for _ in range(2)]
+    Fa = LowRankF(torch.rand(m, 2048, device=dev, generator=g) / 2048,
+                  torch.rand(m, 2048, device=dev, generator=g))
+    tr = JamieTrainer(cfg, CoupledVAE((d, d), 32), Xa, 'identity', Fa,
+                      device=dev)
+    shapes[f'atlas_{m}'] = step_timing(torch, tr, timing_epochs[2])
+    del tr, Xa, Fa
+    torch.cuda.empty_cache()
+    for name, s in shapes.items():
+        if not (s['captured']['ms_per_step'] > 0
+                and s['eager']['ms_per_step'] > 0):
+            bad.append(f'{name}: no step time')
+    line = {'fits': results, 'shapes': shapes,
+            'train_leg_cells_per_sec': {
+                r: shapes[f'bench_{n}'][r]['cells_per_sec']
+                for r in ('eager', 'captured')},
+            'phase_s': time.perf_counter() - t_phase, 'card': smi_line}
+    print('train_capture: ' + json.dumps(line, default=float), flush=True)
+    if bad:
+        fail('phase P (the captured trainer) failed: ' + '; '.join(bad))
+
+
 def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                   knn_pca_dim=16, mmdma_iters=2001, unioncom_kw=None,
                   nn_epochs=50, small_n=256, small_steps=200,
@@ -2347,6 +2604,7 @@ def main():
         from jamie_tpu_torch.ops import _build
         from jamie_tpu_torch.probes import snare_like
         from jamie_tpu_torch.solvers.prime_dual import prime_dual
+        from jamie_tpu_torch.train import trainer as T
     except ImportError as e:
         fail(f'jamie_tpu_torch is not importable next to this script: {e}')
     t_start = time.perf_counter()
@@ -2534,13 +2792,18 @@ def main():
     kw = dict(epoch_DNN=20, min_epochs=10, use_early_stop=False)
     jm = JAMIE(**kw)
     ops.reset_launch_counts()
+    T.epoch_routes.clear()
     t = time.perf_counter()
     integrated = jm.fit_transform(dataset=data)
     fit_s = time.perf_counter() - t
     fit_counts = ops.launch_counts()
     print(f'fit: {fit_s:.3f} s; phases {jm.phase_timings}; mapping '
           f'{ {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
-          f'launches {fit_counts}', flush=True)
+          f'launches {fit_counts}; epochs {dict(T.epoch_routes)}; graphs '
+          f'{jm.trainer.graph_stats}', flush=True)
+    if dict(T.epoch_routes) != {'captured': jm.epochs_run}:
+        fail(f'the fit trained {dict(T.epoch_routes)} epochs by route, '
+             f'expected all {jm.epochs_run} captured')
     if fit_counts['fused_pd_grad_update'] != jm.config.epoch_pd:
         fail(f'K1 launched {fit_counts["fused_pd_grad_update"]} times in the '
              f'fit, expected epoch_pd={jm.config.epoch_pd}')
@@ -2612,8 +2875,8 @@ def main():
     # 6. Partial prior: the first fit's F, half the cells paired
     partial_prior_phase(JAMIE, ops, jm.match_result, data)
     # 7. The landmark path on 19,000 cells
-    landmark_fit_phase(torch, JAMIE, ops, data19, labels19)
-    landmark_layout_phase(torch, data19, dev)
+    X19 = landmark_fit_phase(torch, JAMIE, ops, data19, labels19)
+    layouts19 = landmark_layout_phase(torch, data19, dev)
     del data19
     landmark_reference_phase(dev)
     # 9-11. The sparse and atlas input path
@@ -2653,6 +2916,19 @@ def main():
     t = time.perf_counter()
     path_counts['examples'] = examples_phase(torch, ops, kp, dev, smi_line)
     print(f'phase O: {time.perf_counter() - t:.1f} s', flush=True)
+    # Every epoch since step 4 trained captured but phase K's (the mesh
+    # route keeps the eager body)
+    routes = dict(T.epoch_routes)
+    print(f'epochs by route since step 4: {routes}', flush=True)
+    if routes.get('eager') or not routes.get('captured'):
+        fail(f'epochs ran eagerly on one card: {routes}')
+
+    # P. The captured trainer against its eager epoch body
+    t = time.perf_counter()
+    train_capture_phase(torch, dev, smi_line,
+                        (list(jm.trainer.data), jm.P, jm.match_result[0]),
+                        (X19, *layouts19))
+    print(f'phase P: {time.perf_counter() - t:.1f} s', flush=True)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

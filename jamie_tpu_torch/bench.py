@@ -6,16 +6,19 @@ throughput, plus the whole-pipeline scGLUE-shaped fit.
 The twin of the repo's `bench.py`. Prints ONE JSON line on stdout:
 {"metric", "value", "unit", "vs_baseline", "extra"}, with bench.py's keys.
 
-- Train leg: cell-samples/s through the training loop (sampling, P/F row
-  normalization, forward, 4-term loss, backward, clip, Adam, the epoch's
-  one host read) on `make_snare_like()` (1047 cells, 3000 RNA / 5000 ATAC)
-  after PCA-512, with bf16 model matmuls, P = I and F = 0, batch 512: one
-  warm-up chunk of `epoch_chunk` epochs discarded, then `timed_chunks`
-  chunks between device synchronizations. `train_achieved_tflops` counts
-  one step's FLOPs with `torch.utils.flop_counter.FlopCounterMode` and
-  scales them by the steps; `train_mfu_vs_card_bf16_peak` divides it by
-  the dense bf16 peak of the card it ran on (null where the card is not
-  in `BF16_DENSE_PEAK`, or on the CPU).
+- Train leg: cell-samples/s through the trainer's chunk function
+  (`JamieTrainer._chunk_fn`, bench.py's `_chunk_fn(cfg.epoch_chunk)`:
+  sampling, P/F row normalization, forward, 4-term loss, backward, clip,
+  Adam and the bookkeeping, on the card as replays of the captured epoch)
+  on `make_snare_like()` (1047 cells, 3000 RNA / 5000 ATAC) after PCA-512,
+  with bf16 model matmuls, P = I and F = 0, batch 512: one warm-up chunk of
+  `epoch_chunk` epochs discarded, then `timed_chunks` chunks between
+  device synchronizations. `train_achieved_tflops` counts one eager step's
+  FLOPs with `torch.utils.flop_counter.FlopCounterMode` (a replayed graph
+  hides its ops from the counter) and scales them by the steps;
+  `train_mfu_vs_card_bf16_peak` divides it by the dense bf16 peak of the
+  card it ran on (null where the card is not in `BF16_DENSE_PEAK`, or on
+  the CPU).
 - Pipeline leg: the wall time of a whole `JAMIE().fit_transform` at the
   scGLUE shape (9190 cells x 28,930 RNA / 241,757 ATAC features, binary
   ATAC z-scored per column; `synth.synthesize`), every option at its
@@ -27,7 +30,9 @@ Switches (bench.py's meanings and defaults): JAMIE_BENCH_PIPELINE=0 skips
 the pipeline leg; JAMIE_BENCH_PIPELINE_REPS sets its runs;
 JAMIE_BENCH_ATAC=continuous fits the continuous-Gaussian ATAC variant. A
 failed pipeline leg still prints the train record, with
-`scglue_pipeline_error`, and exits 1.
+`scglue_pipeline_error`, and exits 1. Each fit's FOSCTTM, device peak,
+`manual_seed` and epochs go to a stderr progress line; one pipeline fit at
+another seed is `main(pipeline_kw={'manual_seed': s, 'reps': 1})`.
 
 Left out of bench.py: the device bring-up timer and the pipeline watchdog
 (written for a TPU pool that could hang for tens of minutes before any
@@ -105,30 +110,22 @@ def train_leg(data=None, pca_dim=512, epoch_chunk=200, timed_chunks=5,
     P = np.eye(n, dtype=np.float32)
     F = np.zeros((n, n), np.float32)
     trainer = JamieTrainer(cfg, model, transformed, P, F, device=device)
-    trainer.model.train()
-    trainer.optimizer.zero_grad()
 
-    # One step's FLOPs (forward, backward, clip, Adam); the step also
-    # warms up the allocator before the warm-up chunk
+    # One eager step's FLOPs (forward, backward, clip, Adam), then the
+    # fit's initial state back
     idx0, idx1 = trainer.epoch_sampler(
         torch.Generator(device=device).manual_seed(0))
     with FlopCounterMode(display=False) as counter:
         trainer.train_step(idx0[0], idx1[0], 0)
     step_flops = counter.get_total_flops()
+    trainer._load(trainer.init_state())
 
-    epoch = 0
-
-    def chunk():
-        nonlocal epoch
-        for _ in range(epoch_chunk):
-            trainer._epoch(epoch)
-            epoch += 1
-
-    chunk()   # warm-up, discarded
+    chunk_fn = trainer._chunk_fn(epoch_chunk)
+    chunk_fn().result()   # warm-up, discarded
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(timed_chunks):
-        chunk()
+        chunk_fn()
     _sync(device)
     dt = time.perf_counter() - t0
 
@@ -233,7 +230,9 @@ def _report_fit(jm, integrated) -> None:
     peak = (torch.cuda.max_memory_allocated(jm.device)
             if jm.device.type == 'cuda' else None)
     print(json.dumps({'scglue_foscttm': float(jm.test_closer(integrated)),
-                      'max_memory_allocated': peak}), flush=True)
+                      'max_memory_allocated': peak,
+                      'manual_seed': jm.config.manual_seed,
+                      'epochs_run': jm.epochs_run}), flush=True)
 
 
 def main(device=None, train_kw=None, pipeline_kw=None) -> int:

@@ -4,13 +4,16 @@ The same frozen dataclass as `jamie_tpu.config` (same fields, defaults,
 validation and `cache_key`), so a config and its cache key mean the same
 thing in both packages.
 
-Two fields that only steer the TPU build are accepted and inert here:
-`prng_impl` (the port draws from its own torch generators) and
-`dispatch_lookahead` (PyTorch runs eagerly). `mesh_shape`,
+`prng_impl` only steers the TPU build and is accepted and inert here (the
+port draws from its own torch generators). `mesh_shape`,
 `mesh_axis_names` and `tp_wide_threshold` shape the device mesh
-(`core/mesh.py`) as in jamie_tpu. `epoch_chunk` sets how many epochs one
-`metrics_path` record and one `checkpoint_every` step cover, as in
-jamie_tpu.
+(`core/mesh.py`) as in jamie_tpu. `epoch_chunk` and `dispatch_lookahead`
+mean what they mean in jamie_tpu: the trainer dispatches `epoch_chunk`
+epochs at a time (on the card as replays of captured CUDA graphs),
+reads each chunk's losses once, and keeps `dispatch_lookahead`
+chunks in flight past the one it reads; a chunk is also the step of the
+`metrics_path` log and of `checkpoint_every`. The mesh route dispatches
+sequentially, so `dispatch_lookahead` is inert there only.
 """
 
 from __future__ import annotations
@@ -108,8 +111,15 @@ class JamieConfig:
     # and the K operands in bf16 (F and M2 stay f32); 'auto' = f32 up to
     # estimator.DENSE_F32_STATE_ENTRIES
     solver_state_dtype: str = 'auto'
-    epoch_chunk: int = 100            # epochs per metrics record / snapshot step
-    dispatch_lookahead: int = 3       # inert (TPU dispatch pipelining)
+    epoch_chunk: int = 100            # epochs per dispatched chunk
+    # Chunks kept in flight past the one being read back: the host reads
+    # chunk k's (tiny) loss outputs while the card already runs
+    # k+1..k+1+L. Post-stop epochs are no-ops on the card (a conditional
+    # node), so the <= L chunks dispatched after an early stop cost ~0.
+    # 0 = fully sequential (also forced whenever checkpoint_every is set,
+    # because mid-fit snapshots need the state at the processed boundary,
+    # and on a mesh, where it is inert).
+    dispatch_lookahead: int = 3
     mesh_shape: Optional[Tuple[int, ...]] = None   # None -> all ranks on 'data'
     mesh_axis_names: Tuple[str, ...] = ('data',)
     true_ratio: float = 0.8           # hybrid-sampling corr fraction (jamie.py:529)

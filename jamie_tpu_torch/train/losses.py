@@ -29,9 +29,15 @@ import torch
 LOSS_NAMES = ('KL', 'Rec', 'CosSim', 'F')
 
 
-def kl_anneal(epoch: int, min_epochs: int, epoch_dnn: int) -> float:
-    """Sigmoid annealing weight in [0, 1] with midpoint c (jamie.py:630-631)."""
+def kl_anneal(epoch, min_epochs: int, epoch_dnn: int):
+    """Sigmoid annealing weight in [0, 1] with midpoint c (jamie.py:630-631).
+    A tensor epoch (the trainer's device epoch counter) gives a float32
+    tensor on its device, computed as jamie_tpu computes it in its jitted
+    chunk; an int gives a Python float."""
     c = (min_epochs / 2) if min_epochs > 0 else (epoch_dnn / 2)
+    if isinstance(epoch, torch.Tensor):
+        e = epoch.to(torch.float32)
+        return 1.0 / (1.0 + torch.exp(-5.0 * (e - c) / c))
     return 1.0 / (1.0 + math.exp(-5.0 * (epoch - c) / c))
 
 

@@ -10,10 +10,17 @@ per-batch or per-epoch stepping (`batch_step`), early stopping after
 last batch's loss vector in `loss_history`, and the eval-mode mu-head
 embeddings in `final_embed`.
 
-The dataset, P and F live on the device. The host reads the epoch's batch
-losses once per epoch, which is where logging and the early-stop decision
-happen; an early stop therefore leaves the state exactly where jamie_tpu's
-`lax.cond`-skipped epochs leave it.
+The dataset, P and F live on the device, and so does the whole epoch
+(jamie_tpu's design note, :12-19): `_epoch_body` draws the epoch's batches,
+runs its steps, and keeps the epoch counter and the early-stop bookkeeping
+in device tensors, with no host read. On the card its start, one step and
+its end are captured once per fit as CUDA graphs and replayed under a
+conditional node on `not stopped` (`_CapturedEpochs`), so every epoch
+after the stop is a no-op on the device, as jamie_tpu's `lax.cond` makes
+it; on the CPU and on a mesh the same body runs eagerly. The host dispatches `epoch_chunk` epochs at a time,
+reads each chunk's losses and flags in one copy and keeps up to
+`dispatch_lookahead` chunks in flight (jamie_tpu's `_fit`, :620-708);
+logging happens there, and a chunk dispatched after the stop is dropped.
 
 A fit's complete state is a `FitState` (jamie_tpu's `TrainState`,
 :64-73): the flat parameters and BatchNorm stats, the Adam moments and
@@ -64,6 +71,7 @@ import json
 import os
 import time
 import warnings
+from collections import Counter, deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -105,30 +113,42 @@ def _ell_device(sp: SparseRows, device):
 
 
 def adam_update(flat: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-                nu: torch.Tensor, count: int, lr: float, b1: float = 0.9,
+                nu: torch.Tensor, count, lr: float, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8) -> None:
     """One optax.adam(lr, b1, b2, eps) step of `flat`, in place, with its
     moments mu and nu and the step number `count` (from 1); the bias
-    corrections 1 - b^t are float32, as optax computes them."""
+    corrections 1 - b^t are float32, as optax computes them. `count` is an
+    int, or a tensor on flat's device: then the corrections are computed
+    there, with no host read (as optax computes them inside a jit), so the
+    step can be captured in a CUDA graph."""
     mu.mul_(b1).add_(g, alpha=1 - b1)
     nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-    t = np.float32(count)
-    c1 = float(np.float32(1) - np.float32(b1) ** t)
-    c2 = float(np.float32(1) - np.float32(b2) ** t)
+    if isinstance(count, torch.Tensor):
+        t = count.to(torch.float32)
+        c1 = 1 - torch.pow(b1, t)
+        c2 = 1 - torch.pow(b2, t)
+    else:
+        t = np.float32(count)
+        c1 = float(np.float32(1) - np.float32(b1) ** t)
+        c2 = float(np.float32(1) - np.float32(b2) ** t)
     flat.sub_(lr * ((mu / c1) / (torch.sqrt(nu / c2) + eps)))
 
 
 class FlatClipAdam:
     """optax.flatten(optax.chain(clip_by_global_norm(1.0),
     adam(lr, 0.9, 0.999, eps=1e-8))) with optax's formulas, over one flat
-    buffer: the chain of jamie_tpu/train/trainer.py:290-294.
+    buffer: the chain of jamie_tpu/train/trainer.py:280-294.
 
-    The parameters become views into one contiguous vector, so the clip and
-    the Adam update are a few vector ops per step (jamie_tpu flattens its
-    chain for the same reason). The clip scales g -> g / ||g|| only when
-    ||g|| >= 1 (torch's clip_grad_norm_ adds 1e-6 to the norm and always
-    rescales); Adam's bias corrections 1 - b^t are float32, as optax
-    computes them. Build it after the model is on its device.
+    The parameters become views into one contiguous vector, and their
+    `.grad`s views into one flat gradient buffer that backward accumulates
+    into and `zero_grad` zeroes in place, so the clip and the Adam update
+    are a few vector ops per step (jamie_tpu flattens its chain for the
+    same reason) and every buffer stays where a captured CUDA graph saw it.
+    The step count is a device tensor. The clip scales g -> g / ||g|| only
+    when ||g|| >= 1 (torch's clip_grad_norm_ adds 1e-6 to the norm and
+    always rescales); Adam's bias corrections 1 - b^t are float32 on the
+    device, as optax computes them. Build it after the model is on its
+    device, and never set a parameter's `.grad` to None.
     """
 
     MAX_NORM, B1, B2, EPS = 1.0, 0.9, 0.999, 1e-8
@@ -142,24 +162,25 @@ class FlatClipAdam:
         self.sharded = sharded
         self.params = list(params)
         self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        self.grad = torch.zeros_like(self.flat)
         offset = 0
         for p in self.params:
             p.data = self.flat[offset:offset + p.numel()].view_as(p)
+            p.grad = self.grad[offset:offset + p.numel()].view_as(p)
             offset += p.numel()
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=self.flat.device)
         self.lr = lr
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        self.grad.zero_()
 
     @torch.no_grad()
     def step(self) -> None:
         """Clip the accumulated gradients, take one Adam step, zero them."""
-        g = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
-                       else p.grad.reshape(-1) for p in self.params])
+        g = self.grad
         if self.data_group is not None:
             torch.distributed.all_reduce(g, group=self.data_group)
         if self.sharded is None:
@@ -169,7 +190,7 @@ class FlatClipAdam:
             norm = torch.sqrt(sq[~self.sharded].sum() + cm.all_reduce_plain(
                 sq[self.sharded].sum(), self.model_group))
         g = torch.where(norm < self.MAX_NORM, g, g / norm * self.MAX_NORM)
-        self.count += 1
+        self.count.add_(1)
         adam_update(self.flat, g, self.mu, self.nu, self.count, self.lr,
                     self.B1, self.B2, self.EPS)
         self.zero_grad()
@@ -191,6 +212,183 @@ class FitState:
     best_running_loss: float = float('inf')
     streak: int = 0
     stopped: bool = False
+
+
+def early_stop_update(epoch: torch.Tensor, active: torch.Tensor,
+                      best: torch.Tensor, streak: torch.Tensor,
+                      config: JamieConfig):
+    """One epoch's early-stop bookkeeping on device tensors (jamie.py:
+    777-792, jamie_tpu/train/trainer.py:506-514): past `min_epochs`, an
+    epoch whose `active` loss improves on `best` by more than
+    `min_increment` (float32) resets the streak, any other adds one to it;
+    the fit stops once the streak reaches `max_steps_without_increment`
+    (with `use_early_stop`). Returns (best, streak, stop)."""
+    past_min = epoch > config.min_epochs
+    improved = (best - active) > config.min_increment
+    best = torch.where(past_min & improved, active, best)
+    streak = torch.where(past_min, torch.where(improved, 0, streak + 1),
+                         streak)
+    stop = (past_min & (streak >= config.max_steps_without_increment)
+            & bool(config.use_early_stop))
+    return best, streak, stop
+
+
+# Epochs that fits trained since the process started (or the caller cleared
+# it), by route: 'captured' (CUDA graphs), 'eager' (the eager body on one
+# device) and 'mesh' (the eager body on a mesh). A post-stop epoch, a no-op,
+# is not counted.
+epoch_routes: Counter = Counter()
+
+
+class _Chunk:
+    """A dispatched chunk's per-epoch outputs, (epochs, 7) float32 rows of
+    [epoch loss, the last batch's 4 weighted losses, stopped, ran]: on the
+    card copied to pinned host memory in one transfer behind an event, read
+    when the host gets to the chunk."""
+
+    def __init__(self, rows: torch.Tensor):
+        self.event = None
+        if rows.is_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            rows = host
+        self.rows = rows
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.rows.numpy()
+
+
+class _EagerEpochs:
+    """The plain version of the captured epoch: the epoch body run op by
+    op, its `not stopped` condition read on the host before each epoch. The
+    route on the CPU and on a mesh, and on the card with fit(eager=True)."""
+
+    def __init__(self, trainer: 'JamieTrainer'):
+        self.trainer = trainer
+        self.route = 'eager' if trainer.mesh is None else 'mesh'
+
+    def __call__(self) -> None:
+        tr = self.trainer
+        with torch.no_grad():
+            torch.logical_not(tr._stopped, out=tr._live)
+        if bool(tr._live):
+            tr._epoch_body()
+        tr._epoch_flags()
+
+    def settle(self, epochs_ran: int) -> None:
+        """Nothing to settle: a skipped epoch draws nothing."""
+
+    def close(self) -> None:
+        pass
+
+
+class _CapturedEpochs:
+    """An epoch as captured CUDA graphs: its start, one step, its end.
+
+    The granularity is one graph per step, replayed `len_dataloader` times
+    an epoch with a device step counter, plus a graph for the epoch's start
+    (the sampler draw into static index buffers, the counter to 0) and one
+    for its end (the accumulated step with `batch_step` off, the epoch
+    loss, the early-stop bookkeeping): jamie_tpu's `lax.scan` over the
+    steps of `_epoch_body`. A graph of the whole epoch would unroll its
+    steps, so its size and its capture time would grow with the step count
+    (the atlas trainer's 195 steps an epoch make some 160,000 nodes), where
+    these three take about as long to capture as one step, whatever the
+    step count. The host pays one graph launch a step, well inside the
+    step's device time.
+
+    Each graph is a body captured once per fit, run by an outer graph under
+    an IF conditional node on `not stopped` (`core/graphs.py`), so every
+    epoch after the early stop is a no-op on the device, as jamie_tpu's
+    `lax.cond` makes it; the end graph also writes the epoch's stop and ran
+    flags. Before capture, the epoch's start, one step and its end run
+    eagerly on the capture stream to warm up cuBLAS, the autograd thread
+    and the allocator, and to measure each part's Philox offset on the
+    trainer's generator; the state they changed is then put back. The
+    generator is registered with every graph. Each outer graph draws one
+    number from it so that its replay writes the generator's seed and
+    offset where the body's kernels read them (PyTorch writes them only for
+    a graph that draws), and the host then sets the offset to where the
+    eager part leaves it. A skipped epoch still advances the offset on the
+    host, so `settle` puts the generator where the epochs that ran leave
+    it. Nothing falls back: a failed capture or replay raises.
+    """
+
+    route = 'captured'
+
+    def __init__(self, trainer: 'JamieTrainer'):
+        from ..core import graphs
+        tr = self.trainer = trainer
+        dev, gen = tr.device, tr.generator
+        parts = (tr._epoch_start, tr._epoch_step, tr._epoch_end)
+        current = torch.cuda.current_stream(dev)
+        stream = torch.cuda.Stream(dev)
+        saved = [t.clone() for t in tr._device_state()]
+        rng = gen.get_state()
+        self.start_offset = gen.get_offset()
+        t0 = time.perf_counter()
+        stream.wait_stream(current)
+        incs = []
+        with torch.cuda.stream(stream):
+            for part in parts:
+                offset = gen.get_offset()
+                part()
+                incs.append(gen.get_offset() - offset)
+        current.wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        with torch.no_grad():
+            for t, v in zip(tr._device_state(), saved):
+                t.copy_(v)
+        gen.set_state(rng)
+        del saved
+        t1 = time.perf_counter()
+        self.graphs = []
+        nodes = kernels = 0
+        for part, inc in zip(parts, incs):
+            body = torch.cuda.CUDAGraph(keep_graph=True)
+            body.register_generator_state(gen)
+            with torch.cuda.graph(body, stream=stream):
+                part()
+            outer = torch.cuda.CUDAGraph()
+            outer.register_generator_state(gen)
+            with torch.cuda.graph(outer, stream=stream):
+                torch.rand(1, generator=gen, device=dev)
+                graphs.add_conditional(stream, body, tr._stopped, tr._live)
+                if part == tr._epoch_end:
+                    tr._epoch_flags()
+            reps = tr.len_dataloader if part == tr._epoch_step else 1
+            n, k = graphs.node_counts(body)
+            nodes, kernels = nodes + reps * n, kernels + reps * k
+            self.graphs.append((body, outer, inc, reps))
+        torch.cuda.synchronize(dev)
+        self.rng_step = sum(inc * reps for _, _, inc, reps in self.graphs)
+        tr.graph_stats = {
+            'route': self.route, 'warmup_s': t1 - t0,
+            'capture_s': time.perf_counter() - t1, 'nodes': nodes,
+            'kernel_nodes': kernels, 'steps_per_epoch': tr.len_dataloader,
+            'launches_per_epoch': sum(r for *_, r in self.graphs),
+            'rng_offset_per_epoch': self.rng_step}
+
+    def __call__(self) -> None:
+        gen = self.trainer.generator
+        for _, outer, inc, reps in self.graphs:
+            for _ in range(reps):
+                offset = gen.get_offset()
+                outer.replay()
+                gen.set_offset(offset + inc)
+
+    def settle(self, epochs_ran: int) -> None:
+        """The generator where `epochs_ran` epochs from the start leave it
+        (call with no chunk in flight that has yet to run)."""
+        self.trainer.generator.set_offset(self.start_offset
+                                          + epochs_ran * self.rng_step)
+
+    def close(self) -> None:
+        self.graphs = []
 
 
 class JamieTrainer:
@@ -272,6 +470,25 @@ class JamieTrainer:
             model_group=cm.axis_group(mesh, cm.MODEL), sharded=sharded)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.manual_seed)
+        # jamie_tpu's TrainState scalars on the device (the next epoch and
+        # the early-stop bookkeeping), an epoch's condition (not stopped)
+        # and its outputs (_Chunk's row)
+        dev = self.device
+        self._epoch_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._best = torch.full((), float('inf'), device=dev)
+        self._streak = torch.zeros((), dtype=torch.int64, device=dev)
+        self._stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self._live = torch.ones((), dtype=torch.bool, device=dev)
+        self._out = torch.zeros(7, device=dev)
+        # an epoch's static buffers: its batch indices, the step counter
+        # and the batch losses
+        self._idx = torch.zeros((2, self.len_dataloader, self.batch_size),
+                                dtype=torch.int64, device=dev)
+        self._step = torch.zeros((), dtype=torch.int64, device=dev)
+        self._losses = torch.zeros(self.len_dataloader, device=dev)
+        # the last fit's epoch route, with capture seconds and graph size
+        # on the captured route
+        self.graph_stats: Dict[str, object] = {}
 
     # ------------------------------------------------------------ P/F forms
     def _init_p(self, P) -> None:
@@ -455,8 +672,9 @@ class JamieTrainer:
         return self._batch_rows(0, idx0, lambda r: self.F[r][:, idx1])
 
     # ----------------------------------------------------------- batch step
-    def batch_loss(self, idx0, idx1, epoch_idx: int, noise=None):
-        """Weighted loss sum and its 4-vector for one batch, in train mode.
+    def batch_loss(self, idx0, idx1, epoch_idx, noise=None):
+        """Weighted loss sum and its 4-vector for one batch, in train mode;
+        `epoch_idx` is an int or the device epoch counter (`kl_anneal`).
         noise: optional per-modality reparameterization noise (the whole
         batch's rows). On a mesh these are this rank's rows' shares of the
         whole-batch means (`_report` sums them over 'data')."""
@@ -489,7 +707,7 @@ class JamieTrainer:
         vec = cm.all_reduce_plain(vec.detach(), self._split.group)
         return torch.sum(vec), vec
 
-    def train_step(self, idx0, idx1, epoch_idx: int, noise=None):
+    def train_step(self, idx0, idx1, epoch_idx, noise=None):
         """One batch: loss, gradients, clip, Adam. Returns (loss, vec)."""
         self.model.train()
         loss, vec = self.batch_loss(idx0, idx1, epoch_idx, noise)
@@ -575,10 +793,24 @@ class JamieTrainer:
             batch_stats={k: self._whole(v, k)
                          for k, v in self._stats().items()},
             mu=self._flat_whole(opt.mu), nu=self._flat_whole(opt.nu),
-            count=opt.count,
+            count=int(opt.count),
             rng=self.generator.get_state(), epoch=int(epoch),
             best_running_loss=float(best), streak=int(streak),
             stopped=bool(stopped))
+
+    def _snapshot(self) -> FitState:
+        """_capture with the device's epoch counter and bookkeeping."""
+        return self._capture(int(self._epoch_t), float(self._best),
+                             int(self._streak), bool(self._stopped))
+
+    def _device_state(self) -> List[torch.Tensor]:
+        """Every live tensor an epoch changes: the flat parameters and
+        gradient, Adam's moments and count, the BatchNorm stats, the epoch
+        counter and the bookkeeping."""
+        opt = self.optimizer
+        return [opt.flat, opt.grad, opt.mu, opt.nu, opt.count,
+                *self._stats().values(), self._epoch_t, self._best,
+                self._streak, self._stopped]
 
     @torch.no_grad()
     def _load_params(self, params, batch_stats) -> None:
@@ -603,8 +835,12 @@ class JamieTrainer:
         opt = self.optimizer
         opt.mu.copy_(self._flat_shard(state.mu))
         opt.nu.copy_(self._flat_shard(state.nu))
-        opt.count = int(state.count)
+        opt.count.fill_(int(state.count))
         self.generator.set_state(state.rng.cpu())
+        self._epoch_t.fill_(int(state.epoch))
+        self._best.fill_(float(state.best_running_loss))
+        self._streak.fill_(int(state.streak))
+        self._stopped.fill_(bool(state.stopped))
 
     def save_fit_state(self, path: str, state: FitState) -> None:
         """torch.save the state at `path`, resolved to an absolute path
@@ -625,113 +861,201 @@ class JamieTrainer:
                                      map_location='cpu', weights_only=True))
 
     # ------------------------------------------------------------------ fit
-    def _epoch(self, epoch: int):
-        """Train one epoch; (its L batch losses, the last batch's loss
-        vector) on the host, the epoch's one read."""
-        cfg = self.config
-        L = self.len_dataloader
+    def _epoch_body(self) -> None:
+        """One epoch on the device with no host read (jamie_tpu's
+        `_epoch_body`, trainer.py:457-530): its start, `len_dataloader`
+        steps and its end. The callers run it only while not stopped
+        (`_EagerEpochs`, `_CapturedEpochs`, which captures the three parts
+        as graphs)."""
+        self._epoch_start()
+        for _ in range(self.len_dataloader):
+            self._epoch_step()
+        self._epoch_end()
+
+    def _epoch_start(self) -> None:
+        """The epoch's sampler draw into the static index buffers, and the
+        step counter to 0."""
         idx0_all, idx1_all = self.epoch_sampler(self.generator)
-        losses, vec = [], None
-        for b in range(L):
-            if cfg.batch_step:
-                loss, vec = self.train_step(idx0_all[b], idx1_all[b], epoch)
-            else:   # gradients accumulate; one step per epoch
-                loss, vec = self.batch_loss(idx0_all[b], idx1_all[b], epoch)
-                loss.backward()
-                loss, vec = self._report(loss, vec)
-            losses.append(loss)
+        with torch.no_grad():
+            self._idx[0].copy_(idx0_all)
+            self._idx[1].copy_(idx1_all)
+            self._step.zero_()
+
+    def _epoch_step(self) -> None:
+        """Step `_step` of the epoch, read from the device counter: its
+        batch's loss and gradients, and Adam (or, with `batch_step` off, the
+        gradients accumulated); the batch loss into `_losses`, its loss
+        vector into `_out[1:5]` (the last batch's stays)."""
+        at = self._step.view(1)
+        idx0 = self._idx[0].index_select(0, at)[0]
+        idx1 = self._idx[1].index_select(0, at)[0]
+        if self.config.batch_step:
+            loss, vec = self.train_step(idx0, idx1, self._epoch_t)
+        else:   # gradients accumulate; one step per epoch (_epoch_end)
+            loss, vec = self.batch_loss(idx0, idx1, self._epoch_t)
+            loss.backward()
+            loss, vec = self._report(loss, vec)
+        with torch.no_grad():
+            self._losses.index_copy_(0, at, loss.view(1))
+            self._out[1:5] = vec
+            self._step.add_(1)
+
+    def _epoch_end(self) -> None:
+        """The epoch's one Adam step with `batch_step` off, its loss, the
+        early-stop bookkeeping from the device epoch counter, and the epoch
+        loss into `_out[0]`."""
+        cfg = self.config
         if not cfg.batch_step:
             self.optimizer.step()
-        host = torch.cat([torch.stack(losses), vec]).cpu().numpy()
-        return host[:L], host[L:]
+        with torch.no_grad():
+            epoch_loss = torch.sum(self._losses) / self.len_dataloader
+            active = (torch.min(self._losses) if cfg.batch_step
+                      else epoch_loss)
+            best, streak, stop = early_stop_update(
+                self._epoch_t, active, self._best, self._streak, cfg)
+            self._best.copy_(best)
+            self._streak.copy_(streak)
+            self._stopped.copy_(stop)
+            self._epoch_t.add_(1)
+            self._out[0] = epoch_loss
+
+    @torch.no_grad()
+    def _epoch_flags(self) -> None:
+        """The epoch's stop and ran flags into `_out[5:]`."""
+        self._out[5] = self._stopped
+        self._out[6] = self._live
+
+    def _epoch_runner(self, eager: bool = False):
+        """What runs one epoch from the live state: captured CUDA graphs on
+        the card without a mesh, else (and with `eager`) the eager body."""
+        self.model.train()
+        self.optimizer.zero_grad()
+        if eager or self.device.type != 'cuda' or self.mesh is not None:
+            runner = _EagerEpochs(self)
+            self.graph_stats = {'route': runner.route}
+            return runner
+        return _CapturedEpochs(self)
+
+    def _dispatch(self, runner, chunk: int) -> _Chunk:
+        """Enqueue `chunk` epochs and their outputs' copy to the host."""
+        rows = torch.empty((chunk, 7), device=self.device)
+        for k in range(chunk):
+            runner()
+            rows[k].copy_(self._out)
+        return _Chunk(rows)
+
+    def _chunk_fn(self, chunk: int):
+        """A function that dispatches `chunk` epochs from the live state
+        and returns their pending outputs (jamie_tpu's `_chunk_fn`; the
+        bench times it). Building it captures the epoch on the card."""
+        runner = self._epoch_runner()
+        return lambda: self._dispatch(runner, chunk)
 
     def fit(self, state: Optional[FitState] = None, seed: Optional[int] = None,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-            metrics_path: Optional[str] = None) -> FitState:
+            metrics_path: Optional[str] = None, eager: bool = False
+            ) -> FitState:
         """Run the training loop from `state` (a fresh `init_state(seed)`
         when None) up to `config.epoch_DNN` epochs; returns the final
         state, which the model also holds. `state` itself is copied in and
         stays valid.
 
-        Every `config.epoch_chunk` epochs (counted from the state's epoch)
-        closes a chunk: with `metrics_path`, one JSONL record of jamie_tpu's
-        keys (epoch range, loss means, seconds, device memory; an early
-        stop ends the last range at the epochs that ran); with
-        `checkpoint_dir` and `checkpoint_every`, a snapshot
-        `{checkpoint_dir}/epoch_{chunk end}` once `checkpoint_every` epochs
-        have passed since the last one. `config.dispatch_lookahead`, which
-        pipelines jamie_tpu's jitted chunks, has no meaning in this eager
-        loop and is ignored."""
+        The host dispatches chunks of `config.epoch_chunk` epochs (counted
+        from the state's epoch) and reads each chunk's per-epoch losses and
+        flags in one copy, keeping up to `config.dispatch_lookahead` more
+        chunks in flight (jamie_tpu's `_fit`, trainer.py:620-708). An epoch
+        after the early stop is a no-op on the device, so a chunk
+        dispatched after it has no epoch that ran and is dropped: the
+        history, prints, metrics and snapshots are those of sequential
+        dispatch. Each chunk the host reads closes with, given
+        `metrics_path`, one JSONL record of jamie_tpu's keys (epoch range,
+        loss means, seconds, device memory; an early stop ends the last
+        range at the epochs that ran) and, given `checkpoint_dir` and
+        `checkpoint_every`, a snapshot `{checkpoint_dir}/epoch_{chunk end}`
+        once `checkpoint_every` epochs have passed since the last one; a
+        snapshot needs the state at its chunk's end, so checkpointing
+        dispatches sequentially.
+
+        On the card without a mesh the epochs run as captured CUDA graphs
+        (`_CapturedEpochs`), captured once per fit; a failed capture or
+        replay raises. On the CPU, on a mesh (a rule of this port: the mesh
+        route keeps the eager body and sequential dispatch, and
+        `dispatch_lookahead` is inert there) and with `eager=True` (the
+        plain version the captured route is held to) the same epoch body
+        runs op by op."""
         with cm.rank0_stdout():
             return self._fit(state, seed, checkpoint_dir, checkpoint_every,
-                             metrics_path)
+                             metrics_path, eager)
 
     def _fit(self, state, seed, checkpoint_dir, checkpoint_every,
-             metrics_path) -> FitState:
+             metrics_path, eager) -> FitState:
         cfg = self.config
         self.loss_history: Dict[str, List[float]] = {n: [] for n in LOSS_NAMES}
         self.epoch_losses: List[float] = []
         self.epochs_run = 0
         state = self.init_state(seed) if state is None else state
         self._load(state)
-        epoch, streak, stopped = state.epoch, state.streak, state.stopped
-        best = np.float32(state.best_running_loss)
-        last_ckpt = epoch
+        checkpointing = bool(checkpoint_dir and checkpoint_every)
+        lookahead = (0 if checkpointing or self.mesh is not None
+                     else max(int(cfg.dispatch_lookahead), 0))
+        last_ckpt = dispatched = state.epoch
+        stop_seen = bool(state.stopped)
         metrics_f = (open(metrics_path, 'a')
                      if metrics_path and cm.is_rank0() else None)
         t0 = chunk_t0 = time.perf_counter()
-        self.model.train()
-        self.optimizer.zero_grad()
+        runner = None
+        inflight: deque = deque()
         try:
-            while epoch < cfg.epoch_DNN and not stopped:
-                start = epoch
-                chunk_end = min(start + cfg.epoch_chunk, cfg.epoch_DNN)
-                ep_losses, vecs = [], []
-                while epoch < chunk_end and not stopped:
-                    batch_losses, last_vec = self._epoch(epoch)
-                    epoch_loss = np.float32(np.sum(batch_losses)
-                                            / np.float32(self.len_dataloader))
-                    active = (np.min(batch_losses) if cfg.batch_step
-                              else epoch_loss)
-                    # Early stopping bookkeeping (jamie.py:777-792), in f32
-                    past_min = epoch > cfg.min_epochs
-                    improved = (best - active) > np.float32(cfg.min_increment)
-                    if past_min:
-                        if improved:
-                            best, streak = active, 0
-                        else:
-                            streak += 1
-                    stopped = (past_min
-                               and streak >= cfg.max_steps_without_increment
-                               and bool(cfg.use_early_stop))
-                    self._log_epoch(epoch, epoch_loss, last_vec)
-                    ep_losses.append(epoch_loss)
-                    vecs.append(last_vec)
-                    epoch += 1
+            while inflight or (dispatched < cfg.epoch_DNN and not stop_seen):
+                while (dispatched < cfg.epoch_DNN and not stop_seen
+                       and len(inflight) <= lookahead):
+                    if runner is None:
+                        runner = self._epoch_runner(eager)
+                    chunk = min(cfg.epoch_chunk, cfg.epoch_DNN - dispatched)
+                    inflight.append((dispatched, chunk,
+                                     self._dispatch(runner, chunk)))
+                    dispatched += chunk
+                start, chunk, pending = inflight.popleft()
+                rows = pending.result()
+                ran = rows[:, 6] > 0
+                if stop_seen and not ran.any():
+                    continue    # dispatched before the host saw the stop
+                for k in np.flatnonzero(ran):
+                    self._log_epoch(int(start + k), rows[k, 0], rows[k, 1:5])
+                epoch_routes[runner.route] += int(ran.sum())
+                end = start + chunk
                 if metrics_f is not None:
                     now = time.perf_counter()
+                    some = bool(ran.any())
                     metrics_f.write(json.dumps({
                         'epoch_start': start,
-                        'epoch_end': epoch,
-                        'epoch_loss_mean': float(np.mean(ep_losses)),
-                        'losses': {name: float(np.mean(np.stack(vecs)[:, j]))
-                                   for j, name in enumerate(LOSS_NAMES)},
+                        'epoch_end': start + int(ran.sum()),
+                        'epoch_loss_mean': (float(np.mean(rows[ran, 0]))
+                                            if some else None),
+                        'losses': ({name: float(np.mean(rows[ran, 1 + j]))
+                                    for j, name in enumerate(LOSS_NAMES)}
+                                   if some else {}),
                         'seconds': round(now - chunk_t0, 4),
                         'memory': device_memory_stats(self.device),
                     }) + '\n')
                     metrics_f.flush()
                     chunk_t0 = now
-                if (checkpoint_dir and checkpoint_every
-                        and chunk_end - last_ckpt >= checkpoint_every):
-                    self.save_fit_state(
-                        f'{checkpoint_dir}/epoch_{chunk_end}',
-                        self._capture(epoch, best, streak, stopped))
-                    last_ckpt = chunk_end
+                if checkpointing and end - last_ckpt >= checkpoint_every:
+                    runner.settle(self.epochs_run)
+                    self.save_fit_state(f'{checkpoint_dir}/epoch_{end}',
+                                        self._snapshot())
+                    last_ckpt = end
+                if rows[-1, 5] > 0:
+                    stop_seen = True
+            if runner is not None:
+                runner.settle(self.epochs_run)
         finally:
             if metrics_f is not None:
                 metrics_f.close()
+            if runner is not None:
+                runner.close()
         self.fit_seconds = time.perf_counter() - t0
-        return self._capture(epoch, best, streak, stopped)
+        return self._snapshot()
 
     def _log_epoch(self, epoch: int, epoch_loss, last_vec) -> None:
         """History and prints for one epoch (jamie.py:752-775)."""

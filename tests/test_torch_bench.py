@@ -145,6 +145,36 @@ def test_both_legs_print_one_json_line(monkeypatch):
     assert '"scglue_foscttm"' in err
 
 
+def test_one_pipeline_fit_at_a_seed():
+    """main(pipeline_kw={'manual_seed': s, 'reps': 1}) runs one pipeline
+    fit at that seed, keeps the record's keys, and names the seed and the
+    fit's epochs on the stderr progress line (a seed sweep is one such call
+    per seed)."""
+    seen = []
+    once = bench.scglue_pipeline_once
+
+    def spy(data, device=None, **kw):
+        seen.append(kw.get('manual_seed'))
+        return once(data, device, **kw)
+    out, err = io.StringIO(), io.StringIO()
+    data = synth.synthesize((90, 50), (90, 70), binarize1=0.05, cache=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench, 'scglue_pipeline_once', spy)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(device='cpu',
+                            train_kw=dict(data=_tiny_data(), **TINY_TRAIN),
+                            pipeline_kw=dict(data=data, manual_seed=5, reps=1,
+                                             **TINY_FIT))
+    assert rc == 0 and seen == [5]
+    rec = json.loads(out.getvalue())
+    assert set(rec['extra']) == EXTRA_KEYS
+    assert rec['extra']['scglue_pipeline_reps'] == 1
+    assert all(set(run) == RUN_KEYS for run in rec['extra']['runs'])
+    fits = [json.loads(line) for line in err.getvalue().splitlines()
+            if line.startswith('{"scglue_foscttm"')]
+    assert [(f['manual_seed'], f['epochs_run']) for f in fits] == [(5, 3)]
+
+
 def test_pipeline_error_keeps_the_train_record(monkeypatch):
     def boom(**_kw):
         raise RuntimeError('out of memory')

@@ -444,6 +444,59 @@ def test_resume_is_bit_exact_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize('case', ['diag', 'accumulate', 'hybrid_bf16'])
+def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
+    """On the card a fit trains through the captured epoch graphs, and
+    fit(eager=True) runs the same epoch body op by op: the two agree bit
+    for bit in epochs_run, loss_history, epoch_losses, the metrics records
+    (seconds and memory aside) and the final FitState, on a fit whose
+    early stop lands inside a chunk (epoch 8 of 5-9) with
+    dispatch_lookahead 3 and dropout on: 'diag' sampling, accumulated
+    gradients (batch_step off) with the identity sentinel, and a half-mask
+    hybrid prior with bfloat16 compute."""
+    import json
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    rng = np.random.RandomState(12)
+    n = 96
+    x = [rng.randn(n, d).astype(np.float32) for d in (30, 20)]
+    F = rng.rand(n, n).astype(np.float32)
+    P = {'diag': np.eye(n, dtype=np.float32), 'accumulate': 'identity',
+         'hybrid_bf16': (np.arange(n) % 2).astype(np.float32)}[case]
+    bf16 = case == 'hybrid_bf16'
+    cfg = JamieConfig(epoch_DNN=40, min_epochs=5, batch_size=32,
+                      epoch_chunk=5, log_DNN=1000, dispatch_lookahead=3,
+                      use_early_stop=True, max_steps_without_increment=2,
+                      min_increment=1e9, batch_step=case != 'accumulate',
+                      compute_dtype='bfloat16' if bf16 else 'float32')
+    out = {}
+    for eager in (False, True):
+        tr = JamieTrainer(cfg, CoupledVAE(
+            (30, 20), 8, dropout=0.3, compute_dtype=(
+                torch.bfloat16 if bf16 else torch.float32)), x, P, F,
+            device=cuda)
+        path = tmp_path / f'{eager}.jsonl'
+        state = tr.fit(metrics_path=str(path), eager=eager)
+        records = [{k: v for k, v in json.loads(line).items()
+                    if k not in ('seconds', 'memory')}
+                   for line in open(path)]
+        out[eager] = (state, tr.loss_history, tr.epoch_losses,
+                      tr.epochs_run, records, tr.graph_stats['route'])
+    (cs, ch, cl, cr, crec, croute), (es, eh, el, er, erec, eroute) = (
+        out[False], out[True])
+    assert (croute, eroute) == ('captured', 'eager')
+    assert cr == er == 9 and cs.stopped and cs.epoch == 9
+    assert ch == eh and cl == el and crec == erec
+    for name in ('params', 'mu', 'nu'):
+        assert torch.equal(getattr(cs, name), getattr(es, name)), name
+    assert torch.equal(cs.rng.cpu(), es.rng.cpu())
+    for k in cs.batch_stats:
+        assert torch.equal(cs.batch_stats[k], es.batch_stats[k]), k
+    for name in ('count', 'best_running_loss', 'streak'):
+        assert getattr(cs, name) == getattr(es, name), name
+
+
 def test_device_memory_stats_on_card(cuda):
     """jamie_tpu's keys from torch.cuda.memory_stats / mem_get_info."""
     from jamie_tpu_torch.core.timing import device_memory_stats
