@@ -12,8 +12,9 @@
    card could take (bound) and, for K3, one PyTorch call computing the same
    function (torch.cdist, which the port never calls). K3's MMA route and
    ptxas's report; a sweep of K1's block sizes; the device kernels that one
-   K1 call and one K3 call issue (torch.profiler), held to 1 for K1 and to
-   the wrapper's stated count for K3. The atlas path's K3 shapes too: self
+   K1 call and one K3 call issue (the kernel nodes of the call captured as a
+   CUDA graph), held to 3 for K1 (its kernel and its bias corrections) and
+   to the wrapper's stated count for K3. The atlas path's K3 shapes too: self
    sqrt on 2048-cell atlas landmark subsets (20,000 / 40,000 features) and
    one 2684-row block of the blocked FOSCTTM at 100,000 cells.
 4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
@@ -134,9 +135,21 @@
    device ops per step, eager and captured, at the bench train leg's, the
    scGLUE pipeline's and the 100,000-cell atlas trainer's shapes; one
    `train_capture:` line.
-25. A `kernels` JSON line (with each kernel's launches on the fit, bench,
-   time-and-memory and examples paths), the nvidia-smi line, and as the
-   last line {"ok": true, "device": {...}}.
+25. The captured solver loops (Q): every solver loop since step 4 (the
+   prime-dual iterations, FPS picks, the t-SNE bisection and optimizers,
+   both low-rank phases) ran as replays of a captured CUDA graph, but
+   phase K's mesh solves; then each loop's captured route held bit for
+   bit to its eager step on the card: prime-dual at 300^2, 1047^2, 2048^2,
+   3654^2 and 9190^2 (float32 and bfloat16 state, delay 50, 250
+   iterations in chunks of 100; the printed lines identical, K1 250 times
+   on each route), FPS on the 19,000-cell PCA-512 scores (2048 picks),
+   t-SNE at 1047 and 9190 cells (K3 twice an iteration), low-rank at 1047
+   cells; ms per step on each route, capture seconds, kernel nodes and
+   graph launches per step; one `solver_capture:` line (see
+   solver_capture_phase).
+26. A `kernels` JSON line (with each kernel's launches on the fit, bench,
+   time-and-memory, examples and captured-loop paths), the nvidia-smi
+   line, and as the last line {"ok": true, "device": {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
 It exits non-zero without a result when no CUDA device is visible or when
@@ -306,27 +319,35 @@ class KernelPhase:
         rs, cs = F.sum(1, keepdim=True), F.sum(0, keepdim=True)
         mm4, kx = r(m, n), r(m, n).to(m1_dtype)
         a = torch.tensor(0.8, device=dev)
-        i, eps, rho = 7, 1e-3, 10.0
+        # the step as the solver passes it: an int32 counter on the card,
+        # from which the wrapper and the plain version compute Adam's bias
+        # corrections there (torch.pow)
+        i = torch.tensor(7, dtype=torch.int32, device=dev)
+        eps, rho = 1e-3, 10.0
         if has_grad:
             name = 'pd_grad_update'
             args = (F, M1, M2, mm4, kx, Mu, Lam, S, rs, cs, a, i, eps, rho)
             kern, plain = K.fused_pd_grad_update, K.fused_pd_grad_update_plain
-            ins = (F, M1, M2, mm4, kx, rs, cs, a)
+            ins = (F, M1, M2, mm4, kx, rs, cs, a, i)
             flops = 22 * m * n
         else:
             name = 'pd_update'
             args = (F, M1, M2, mm4, i, eps)
             kern, plain = K.fused_pd_update, K.fused_pd_update_plain
-            ins = (F, M1, M2, mm4)
+            ins = (F, M1, M2, mm4, i)
             flops = 17 * m * n
         sl = slice(m - (plain_rows or m), m)
         # the operands indexed by row: F, M1, M2, mm4 (and K1's KxFKy, Mu
-        # and row sums), sliced to the last rows for the plain version
+        # and row sums), sliced to the last rows for the plain version;
+        # both versions update F, M1, M2 in place, so the plain version
+        # gets copies of them and runs first
         by_row = (0, 1, 2, 3, 4, 5, 8) if has_grad else (0, 1, 2, 3)
         plain_args = tuple(t[sl] if plain_rows and j in by_row else t
                            for j, t in enumerate(args))
-        got, want = kern(*args), plain(*plain_args)
-        got = tuple(t[sl] for t in got)
+        plain_args = tuple(t.clone() if j < 3 else t
+                           for j, t in enumerate(plain_args))
+        want = plain(*plain_args)
+        got = tuple(t[sl] for t in kern(*args))
         torch.cuda.synchronize()
         # Elementwise |kernel - plain| <= atol + rtol |plain|: rtol 1e-5 for
         # f32 outputs (division/sqrt order, FMA contraction); a bf16 M1' may
@@ -394,17 +415,16 @@ class KernelPhase:
 
 
 def device_kernels(torch, fn):
-    """Names of the device kernels one call of fn issues (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(('Memcpy', 'Memset'))]
+    """(kernel nodes, kernel wrapper launches by name) of one call of fn,
+    captured as a CUDA graph by core/graphs.StepGraph after its eager
+    warm-up call: every kernel the call enqueues is a node of the graph, so
+    the count does not depend on a profiler trace delivering its events."""
+    from jamie_tpu_torch.core import graphs
+    sg = graphs.StepGraph('device_kernels', fn, torch.cuda.current_device())
+    sg.run(1)
+    graphs.last_stats.pop('device_kernels', None)
+    graphs.loop_steps.pop('device_kernels/captured', None)
+    return sg.stats['kernel_nodes'], sg.stats['launches_per_step']
 
 
 def mma_route(lib_path):
@@ -2594,12 +2614,193 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
         fail('phase J analysis checks failed (see the analysis: line)')
 
 
+def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
+                         pd_sizes=(300, 1047, 2048, 3654, 9190),
+                         pd_iters=250, log_pd=100, delay=50,
+                         fps_landmarks=2048, tsne_cells=(1047, 9190),
+                         tsne_iters=(200, 100), lowrank_cells=1047,
+                         lowrank_epochs=2001):
+    """Q. The four solver loops that jamie_tpu compiles as fori_loops, each
+    replayed as a captured CUDA graph, against the same step run op by op
+    on the card (the loops' private eager argument), with the counts and
+    the loop steps by route at 0 before each run:
+
+    - prime-dual at each of pd_sizes (distance-shaped operands), float32
+      and bfloat16 state, the fit's 'default' precision, `delay` > 0 and
+      pd_iters iterations in chunks of log_pd (pd_iters is not a multiple
+      of it): F bit for bit, the printed lines identical, K1 pd_iters
+      times on both routes;
+    - FPS on fps_x (the 19,000-cell landmark fit's PCA-512 scores),
+      fps_landmarks picks: the same indices;
+    - t-SNE at each of tsne_cells (joint probabilities of two views made
+      on the card): the bisection of `_calibrate_beta`, `_tsne_optimize`
+      (output_dim 32, K3 twice an iteration) and `_tsne_single`, bit for
+      bit;
+    - low-rank on lowrank_cells distance-shaped operands, both phases at
+      lowrank_epochs steps: the factors of each phase and the binarized
+      output bit for bit.
+
+    ms per step on each route (a captured run's warm-up step and capture
+    left out), the capture and warm-up seconds, kernel nodes per step,
+    graph launches per step, the replays. One `solver_capture:` line.
+    Returns the kernel launches of the captured runs, by kernel."""
+    import contextlib
+    import importlib
+    import io
+    from unittest import mock
+
+    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.probes import distance_operand
+    from jamie_tpu_torch.solvers import landmark as LM
+    from jamie_tpu_torch.solvers import lowrank as LR
+    from jamie_tpu_torch.solvers import tsne as TS
+    pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
+    records, bad, captured_counts = [], [], {}
+
+    def run(case, loops, steps, fn, eager, want=None):
+        """fn() on one route, timed, with the counts at 0; the output and
+        the run's record (ms per step over the replays when captured)."""
+        ops.reset_launch_counts()
+        graphs.loop_steps.clear()
+        for loop in loops:
+            graphs.last_stats.pop(loop, None)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = [dict(graphs.last_stats.get(loop, {})) for loop in loops]
+        route = 'eager' if eager else 'captured'
+        extra = sum(st.get('warmup_s', 0) + st.get('capture_s', 0)
+                    for st in stats)
+        timed = steps - (0 if eager else len(loops))
+        rec = {'case': case, 'route': route, 'steps': steps,
+               'seconds': round(sec, 6),
+               'ms_per_step': (sec - extra) / max(timed, 1) * 1e3,
+               'launches': {k: v for k, v in counts.items() if v},
+               'loop_steps': dict(graphs.loop_steps)}
+        if not eager:
+            rec.update(
+                warmup_s=sum(st.get('warmup_s', 0) for st in stats),
+                capture_s=sum(st.get('capture_s', 0) for st in stats),
+                kernel_nodes_per_step=[st.get('kernel_nodes')
+                                       for st in stats],
+                nodes_per_step=[st.get('nodes') for st in stats],
+                graph_launches_per_step=(sum(st.get('replays', 0)
+                                             for st in stats) / steps),
+                replays=sum(st.get('replays', 0) for st in stats))
+            for k, v in counts.items():
+                captured_counts[k] = captured_counts.get(k, 0) + v
+        want_steps = {f'{loop}/{route}': s for loop, s in loops.items()}
+        if dict(graphs.loop_steps) != want_steps:
+            bad.append(f'{case} {route}: loop steps {dict(graphs.loop_steps)},'
+                       f' expected {want_steps}')
+        for k, v in (want or {}).items():
+            if counts[k] != v:
+                bad.append(f'{case} {route}: {k} launched {counts[k]} times, '
+                           f'expected {v}')
+        return out, buf.getvalue().splitlines(), rec
+
+    def pair(case, loops, steps, fn, want=None):
+        """Both routes of one case; holds the outputs (a tensor or a
+        sequence of them) bit for bit and records both."""
+        outs = []
+        for eager in (False, True):
+            out, lines, rec = run(case, loops, steps,
+                                  lambda: fn(eager), eager, want)
+            outs.append((out, lines))
+            records.append(rec)
+        (a, la), (b, lb) = outs
+        a = [a] if isinstance(a, torch.Tensor) else list(a)
+        b = [b] if isinstance(b, torch.Tensor) else list(b)
+        diff = max(float((x.float() - y.float()).abs().max())
+                   if x.numel() else 0.0 for x, y in zip(a, b))
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        records[-2]['bit_equal'] = records[-1]['bit_equal'] = equal
+        records[-2]['max_abs_diff'] = records[-1]['max_abs_diff'] = diff
+        if not equal:
+            bad.append(f'{case}: captured and eager differ by {diff}')
+        if la != lb:
+            bad.append(f'{case}: the printed lines differ: {la} vs {lb}')
+        return outs[0][0]
+
+    for n in pd_sizes:
+        Kx, Ky = distance_operand(n, 0, dev), distance_operand(n, 1, dev)
+        for state_dtype in ('float32', 'bfloat16'):
+            pair(f'prime_dual {n}x{n} state={state_dtype} delay={delay} '
+                 f'{pd_iters} iterations log_pd={log_pd}',
+                 {'prime_dual': pd_iters}, pd_iters,
+                 lambda eager: pdm.prime_dual(
+                     Kx, Ky, 32, 32, epoch_pd=pd_iters, log_pd=log_pd,
+                     delay=delay, state_dtype=state_dtype, device=dev,
+                     _eager=eager),
+                 {'fused_pd_grad_update': pd_iters})
+        del Kx, Ky
+        torch.cuda.empty_cache()
+
+    m = int(fps_x.shape[0])
+    pair(f'fps {m}x{int(fps_x.shape[1])} L={fps_landmarks}',
+         {'fps': fps_landmarks - 1}, fps_landmarks - 1,
+         lambda eager: LM._fps_indices_device(fps_x, 0, fps_landmarks,
+                                              eager=eager))
+
+    for n, iters in zip(tsne_cells, tsne_iters):
+        P = scglue_cells_probabilities(torch, dev, n=n)
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn(n, 50, generator=g, device=dev)
+        D = ops.pairwise_euclidean(x, None, squared=True)
+        pair(f'tsne_beta {n} cells, 50 bisection steps', {'tsne_beta': 50},
+             50, lambda eager: TS._calibrate_beta(D, 30.0, eager=eager))
+        Y = [1e-4 * torch.randn(n, 32, generator=g, device=dev)
+             for _ in range(2)]
+        pairs = np.arange(n)
+        pair(f'tsne {n} cells x 32, {iters} iterations', {'tsne': iters},
+             iters, lambda eager: TS._tsne_optimize(
+                 P[0], P[1], Y[0], Y[1], pairs, pairs, 10.0, iters,
+                 eager=eager),
+             {'pairwise_euclidean': 2 * iters})
+        pair(f'tsne_single {n} cells x 32, {iters} iterations',
+             {'tsne_single': iters}, iters,
+             lambda eager: TS._tsne_single(P[0], Y[0], iters, eager=eager),
+             {'pairwise_euclidean': iters})
+        del P, D, x, Y
+        torch.cuda.empty_cache()
+
+    Kx = distance_operand(lowrank_cells, 0, dev).cpu().numpy()
+    Ky = distance_operand(lowrank_cells, 1, dev).cpu().numpy()
+    real_optimize = LR._optimize
+
+    def lowrank(eager):
+        factors = []
+
+        def optimize(name, loss_fn, params, *a, **k):
+            real_optimize(name, loss_fn, params, *a, **k)
+            factors.extend(p.detach().clone() for p in params)
+        with mock.patch.object(LR, '_optimize', optimize):
+            out = LR.lowrank_corr(Kx, Ky, epochs=lowrank_epochs, device=dev,
+                                  _eager=eager)
+        return [out] + factors
+    pair(f'lowrank {lowrank_cells} cells, 2 x {lowrank_epochs} steps',
+         {'lowrank_cluster': lowrank_epochs, 'lowrank_cast': lowrank_epochs},
+         2 * lowrank_epochs, lowrank)
+
+    line = {'card': smi_line, 'runs': records}
+    print('solver_capture: ' + json.dumps(line, default=float), flush=True)
+    if bad:
+        fail('phase Q (the captured solver loops) failed: ' + '; '.join(bad))
+    return captured_counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this run needs a CUDA card')
     try:
         from jamie_tpu_torch import JAMIE, ops
+        from jamie_tpu_torch.core import graphs
         from jamie_tpu_torch.core.dtypes import MM_OUT_DTYPE_ON_CUDA
         from jamie_tpu_torch.ops import _build
         from jamie_tpu_torch.probes import snare_like
@@ -2693,13 +2894,16 @@ def main():
                 block=block, num_warps=warps))[0], 5)
         print(f'K1 sweep {m}x{n} M1=float32 (BLOCK/num_warps: device ms; '
               f'chosen {K.BLOCK}/{K.NUM_WARPS}): {sweep}', flush=True)
-    # One launch per call: the device kernels of one K1 call
+    # The device kernels of one K1 call with the solver's step counter:
+    # the one (m, n) pass and the bias corrections' pow and subtraction
     kern, args = k1_calls[(1047, 1047, torch.float32)]
-    names = device_kernels(torch, lambda: kern(*args))
-    print(f'device kernels per call: K1 1047x1047 {len(names)} {names}',
-          flush=True)
-    if len(names) != 1:
-        fail(f'one K1 call issued {len(names)} device kernels, expected 1')
+    n_k, launched = device_kernels(torch, lambda: kern(*args))
+    print(f'device kernels per call: K1 1047x1047 {n_k} (wrapper launches '
+          f'{launched})', flush=True)
+    if n_k != 3 or launched != {kern.__name__: 1}:
+        fail(f'one K1 call issued {n_k} device kernels and {launched} '
+             f'wrapper launches, expected its kernel once and 2 for its '
+             f'bias corrections')
     x_rna = torch.as_tensor(data[0], device=dev)
     x_atac = torch.as_tensor(data[1], device=dev)
     emb = [torch.randn(1047, 32, device=dev, generator=g) for _ in range(2)]
@@ -2707,17 +2911,17 @@ def main():
     kp.pairwise(x_atac, None, squared=False)         # geodesic base, ATAC
     from jamie_tpu_torch.ops import pairwise as P
     for xa, ya in ((x_atac, None), (x_rna, None)):
-        names = device_kernels(
+        n_k, launched = device_kernels(
             torch, lambda: P.pairwise_euclidean(xa, ya, squared=False))
         stated = P.device_kernels_per_call(xa, ya)
         m_, f_ = xa.shape
         splits = P.launch_plan(m_, m_, f_, P._num_sms(0))[1]
         print(f'device kernels per call: K3 {m_}x{m_}x{f_} self sqrt '
-              f'{len(names)} (stated {stated}, split-K {splits}) {names}',
-              flush=True)
-        if not 1 <= len(names) <= stated:
-            fail(f'one K3 call issued {len(names)} device kernels, stated '
-                 f'{stated}')
+              f'{n_k} (stated {stated}, split-K {splits}, wrapper launches '
+              f'{launched})', flush=True)
+        if not 1 <= n_k <= stated or launched != {'pairwise_euclidean': 1}:
+            fail(f'one K3 call issued {n_k} device kernels and {launched} '
+                 f'wrapper launches, stated {stated} and 1')
     kp.pairwise(emb[0], emb[1], squared=True)        # FOSCTTM / kNN
     kp.pairwise(emb[0], None, squared=True)          # t-SNE step, 1047 cells
     kp.pairwise(x_atac, None, squared=True)
@@ -2793,6 +2997,7 @@ def main():
     jm = JAMIE(**kw)
     ops.reset_launch_counts()
     T.epoch_routes.clear()
+    graphs.loop_steps.clear()
     t = time.perf_counter()
     integrated = jm.fit_transform(dataset=data)
     fit_s = time.perf_counter() - t
@@ -2929,6 +3134,24 @@ def main():
                         (list(jm.trainer.data), jm.P, jm.match_result[0]),
                         (X19, *layouts19))
     print(f'phase P: {time.perf_counter() - t:.1f} s', flush=True)
+
+    # Q. The captured solver loops against their eager steps. Every solver
+    # loop on the card since step 4 ran captured, but phase K's prime-dual
+    # solves (the mesh route runs its iterations op by op); the CPU
+    # references run on the 'cpu' route
+    steps = dict(graphs.loop_steps)
+    print(f'solver loop steps by route since step 4: {steps}', flush=True)
+    eager = {k: v for k, v in steps.items() if k.endswith('/eager')}
+    ran = {k.split('/')[0] for k in steps if k.endswith('/captured')}
+    loops = {'prime_dual', 'fps', 'tsne_beta', 'tsne', 'tsne_single',
+             'lowrank_cluster', 'lowrank_cast'}
+    if eager or ran != loops:
+        fail(f'solver loops ran {steps}: expected every step of '
+             f'{sorted(loops)} captured, and no other route but the mesh')
+    t = time.perf_counter()
+    path_counts['solver_capture'] = solver_capture_phase(
+        torch, ops, dev, smi_line, X19[0])
+    print(f'phase Q: {time.perf_counter() - t:.1f} s', flush=True)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

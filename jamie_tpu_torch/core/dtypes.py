@@ -23,6 +23,8 @@ Three rules the whole package follows:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # Whether this PyTorch build has the f32-result bf16 GEMM for CUDA tensors
@@ -65,10 +67,13 @@ def pin_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with both operands rounded to bf16 and an f32 result."""
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a @ b with both operands rounded to bf16 and an f32 result, written
+    into `out` (f32) when it is given."""
     if (a.is_cuda and MM_OUT_DTYPE_ON_CUDA and a.dim() == 2 and b.dim() == 2
             and not (a.requires_grad or b.requires_grad)):
         return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
-                        out_dtype=torch.float32)
-    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+                        out_dtype=torch.float32, out=out)
+    return torch.matmul(a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float(), out=out)

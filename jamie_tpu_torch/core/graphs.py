@@ -1,22 +1,36 @@
-"""Conditional nodes in captured CUDA graphs (`csrc/graph_cond.cu`).
+"""CUDA graphs for the port's device loops (`csrc/graph_cond.cu`).
 
-The trainer captures one epoch as a CUDA graph and replays it under an IF
-conditional node on `not stopped`, the counterpart of jamie_tpu's
-`lax.cond` over post-stop epochs (jamie_tpu/train/trainer.py:499-530).
-PyTorch's `CUDAGraph` does not capture conditional nodes itself, so
-`add_conditional` adds one, with a copy of an already captured graph as its
-body, to the graph that a stream is capturing. The library is built with
-nvcc on first use (`ops/_build.py`); nothing here runs on the CPU.
+jamie_tpu compiles each of its loops into one device program (a
+`lax.fori_loop` or `lax.scan`). The port's counterpart is a step captured
+once as a CUDA graph on static buffers and replayed from the host:
+
+- `StepGraph` captures a step callable (after one eager warm-up step on
+  the capture stream) and replays it `k` times, with the `torch.Generator`s
+  the step draws from registered; `steps_runner` picks it on the card and
+  the same step called eagerly elsewhere, so both routes run one function.
+- `count_launch` counts a kernel wrapper's launches, once per replay for a
+  launch inside a captured step.
+- `add_conditional` puts an IF conditional node into a capture, as the
+  trainer's epochs need (`train/trainer.py`): the counterpart of
+  jamie_tpu's `lax.cond` over post-stop epochs
+  (jamie_tpu/train/trainer.py:499-530). PyTorch's `CUDAGraph` does not
+  capture conditional nodes itself, so it adds one, with a copy of an
+  already captured graph as its body, to the graph that a stream is
+  capturing.
+- `node_counts` reports a kept graph's nodes and kernel nodes.
+
+The library is built with nvcc on first use (`ops/_build.py`); nothing
+here runs on the CPU but `count_launch` and the eager route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import time
+from collections import Counter
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-
-from ..ops import _build
 
 _lib = None
 
@@ -24,6 +38,7 @@ _lib = None
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
+        from ..ops import _build
         lib = _build.load('graph_cond')
         lib.cond_add.argtypes = [ctypes.c_void_p] * 4
         lib.cond_add.restype = ctypes.c_int
@@ -62,3 +77,148 @@ def node_counts(graph: torch.cuda.CUDAGraph) -> Tuple[int, int]:
     if rc != 0:
         raise RuntimeError(f'counting graph nodes failed: CUDA error {rc}')
     return int(nodes.value), int(kernels.value)
+
+
+# The kernel launches that a capture in progress has recorded, by wrapper
+# (None while nothing is captured).
+_capturing: Optional[Dict[Callable, int]] = None
+
+# Steps run by each device loop since the process started (or the caller
+# cleared it), by '{loop}/{route}': 'captured' (replayed graphs, the eager
+# warm-up step included), 'eager' (the step op by op on the card, which
+# only the loops' private `_eager` argument asks for), 'mesh' (op by op on
+# a device mesh) and 'cpu'.
+loop_steps: Counter = Counter()
+
+# The last runner of each loop's statistics, by loop name: its route and,
+# for a captured loop, the warm-up and capture seconds, the graph's nodes
+# and kernel nodes, the replays and the kernel launches per step.
+last_stats: Dict[str, dict] = {}
+
+
+def count_launch(fn: Callable) -> None:
+    """One launch of the kernel wrapper `fn`, added to `fn.launches` now,
+    or, inside a `StepGraph` capture, once for each replay of the graph."""
+    if _capturing is None:
+        fn.launches += 1
+    else:
+        _capturing[fn] = _capturing.get(fn, 0) + 1
+
+
+class StepGraph:
+    """A loop's step captured once as a CUDA graph and replayed.
+
+    `step` updates static buffers in place (the loop's state, a step
+    counter on the device) and reads nothing back to the host, so a replay
+    is one more step. The first `run` runs the step once eagerly on a side
+    stream (it builds the kernels and warms up cuBLAS and autograd on the
+    stream that captures, and it is the loop's first step), releases the
+    allocator's cache to the graph's pool, then captures the step on that
+    stream and replays it for the remaining steps. A generator in
+    `generators` is registered with the graph; PyTorch writes its seed and
+    offset to the device only for a graph whose own capture drew from it,
+    so the step must draw from it, and after each replay the host sets its
+    offset to where one eager step leaves it. Kernel wrappers that launch
+    inside the step are counted once per replay (`count_launch`). Nothing
+    falls back: a failed capture or replay raises.
+    """
+
+    route = 'captured'
+
+    def __init__(self, name: str, step: Callable[[], None], device,
+                 generators: Sequence[torch.Generator] = ()):
+        self.name, self.step = name, step
+        self.device = torch.device(device)
+        self.generators = list(generators)
+        self.graph = None
+        self.launches: Dict[Callable, int] = {}
+        self.increments = [0] * len(self.generators)
+        self.stats: dict = {'route': self.route}
+        last_stats[name] = self.stats
+
+    def run(self, k: int) -> None:
+        """k more steps of the loop."""
+        if k <= 0:
+            return
+        if self.graph is None:
+            self._capture()
+            k -= 1
+        self.replay(k)
+
+    def _capture(self) -> None:
+        global _capturing
+        dev, gens = self.device, self.generators
+        current = torch.cuda.current_stream(dev)
+        stream = torch.cuda.Stream(dev)
+        offsets = [g.get_offset() for g in gens]
+        t0 = time.perf_counter()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.step()
+        current.wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        loop_steps[f'{self.name}/{self.route}'] += 1
+        self.increments = [g.get_offset() - o for g, o in zip(gens, offsets)]
+        offsets = [g.get_offset() for g in gens]
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in gens:
+            graph.register_generator_state(g)
+        _capturing = {}
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.step()
+        finally:
+            self.launches, _capturing = _capturing, None
+        for g, o in zip(gens, offsets):
+            g.set_offset(o)
+        nodes, kernels = node_counts(graph)
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+        self.stats.update(
+            warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
+            nodes=nodes, kernel_nodes=kernels, graph_launches_per_step=1,
+            replays=0, launches_per_step={fn.__name__: c for fn, c
+                                          in self.launches.items()})
+
+    def replay(self, k: int) -> None:
+        """k replays of the captured step."""
+        gens = self.generators
+        for _ in range(k):
+            offsets = [g.get_offset() for g in gens]
+            self.graph.replay()
+            for g, o, inc in zip(gens, offsets, self.increments):
+                g.set_offset(o + inc)
+        for fn, c in self.launches.items():
+            fn.launches += c * k
+        self.stats['replays'] += k
+        loop_steps[f'{self.name}/{self.route}'] += k
+
+
+class EagerSteps:
+    """The plain version of a `StepGraph`: the same step, called op by op."""
+
+    def __init__(self, name: str, step: Callable[[], None], route: str):
+        self.name, self.step, self.route = name, step, route
+        self.stats = {'route': route}
+        last_stats[name] = self.stats
+
+    def run(self, k: int) -> None:
+        for _ in range(max(k, 0)):
+            self.step()
+        loop_steps[f'{self.name}/{self.route}'] += max(k, 0)
+
+
+def steps_runner(name: str, step: Callable[[], None], device,
+                 generators: Sequence[torch.Generator] = (),
+                 eager: bool = False, mesh: bool = False):
+    """What runs a loop's `step`: a `StepGraph` on the card, else (on the
+    CPU, on a device mesh, or with `eager`) the step called op by op."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not (eager or mesh):
+        return StepGraph(name, step, device, generators)
+    route = ('mesh' if mesh else 'eager' if device.type == 'cuda'
+             else 'cpu')
+    return EagerSteps(name, step, route)

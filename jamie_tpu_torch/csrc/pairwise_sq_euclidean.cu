@@ -389,8 +389,11 @@ CUresult encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int rows,
 
 // Error codes besides cudaError_t values: no driver entry point for
 // cuTensorMapEncodeTiled; a split-K factor that leaves a slice empty; a
-// tensor map the driver refused (ENCODE_FAILED + its CUresult).
-enum { NO_ENTRY_POINT = -1, BAD_SPLITS = -2, ENCODE_FAILED = -1000 };
+// device index past MAX_DEVICES; a tensor map the driver refused
+// (ENCODE_FAILED + its CUresult).
+enum { NO_ENTRY_POINT = -1, BAD_SPLITS = -2, BAD_DEVICE = -3,
+       ENCODE_FAILED = -1000 };
+constexpr int MAX_DEVICES = 64;
 
 // Dynamic shared memory per block of the main kernel (ptxas reports only
 // static shared memory).
@@ -416,10 +419,20 @@ extern "C" int pairwise_sq_euclidean_f32(const void* x, const void* y,
   if (r == CUDA_SUCCESS) r = encode(fn, &tmy, y, n, f);
   if (r != CUDA_SUCCESS) return ENCODE_FAILED - static_cast<int>(r);
 
-  cudaError_t err = cudaFuncSetAttribute(
-      pairwise_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  // The shared-memory attribute is set once per device, on the first call
+  // there, so that a later call may be captured into a CUDA graph.
+  static bool smem_set[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= MAX_DEVICES) return BAD_DEVICE;
+  if (!smem_set[device]) {
+    err = cudaFuncSetAttribute(pairwise_tf32x3_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[device] = true;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
   float* dst = static_cast<float*>(splits > 1 ? ws : out);

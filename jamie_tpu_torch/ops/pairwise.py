@@ -20,7 +20,12 @@ not 16-byte aligned (TMA needs both), and the split-K factor
 
 `pairwise_euclidean` runs the kernel for CUDA tensors and its plain
 PyTorch version `pairwise_euclidean_plain` for CPU tensors; any other input
-raises. `pairwise_euclidean.launches` counts kernel launches.
+raises. `pairwise_euclidean.launches` counts kernel launches (through
+`core/graphs.count_launch`, so a call captured into a CUDA graph counts
+once per replay). A call may be captured: the tensor maps hold the
+operands' addresses, and inside a capture the padded copies, the norms,
+the workspace and the output come from the graph's own memory, at the same
+addresses on every replay.
 `pairwise_euclidean_autograd` is the same function with an analytic
 backward (`_PairwiseEuclidean`), so a loss on the distances can be
 differentiated through the kernel.
@@ -35,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..core.graphs import count_launch
 
 TILE = 128           # output rows and columns per block (BM, BN in the source)
 K_STEP = 32          # features per pipeline stage (BK in the source)
@@ -42,7 +48,8 @@ MAX_SPLITS = 16
 MIN_STEPS_PER_SPLIT = 4
 
 _ERRORS = {-1: 'no driver entry point for cuTensorMapEncodeTiled',
-           -2: 'a split-K factor that leaves a feature slice empty'}
+           -2: 'a split-K factor that leaves a feature slice empty',
+           -3: 'a device index past the library\'s MAX_DEVICES'}
 
 
 def pairwise_euclidean_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None,
@@ -181,7 +188,7 @@ def pairwise_euclidean(x: torch.Tensor, y: Optional[torch.Tensor] = None,
                  if err <= -1000 else f'cudaError {err}'))
         raise RuntimeError(f'pairwise_sq_euclidean kernel launch failed: '
                            f'{what}')
-    pairwise_euclidean.launches += 1
+    count_launch(pairwise_euclidean)
     return out
 
 

@@ -85,8 +85,30 @@ def _pca_fit_randomized(X: torch.Tensor, n_components: int,
     return mean, (Ub / s).T @ B                    # (n_components, f)
 
 
+# The Gram route's rank cut, in eps of the largest eigenvalue. The float32
+# Gram's null-space eigenvalues came out within 1 eps of it (300 cells with
+# 150 repeated, SNARE-like 1047 x 3000); the smallest genuine ones of
+# SNARE-like RNA sit at 43 eps, and an n eps cut (n = 1047) zeroed 336 of
+# its 512 leading components.
+_GRAM_RANK_EPS = 8
+
+
 def _pca_fit_direct(X: torch.Tensor, n_components: int):
-    """Exact PCA (Gram route for tall-feature matrices)."""
+    """Exact PCA (Gram route for tall-feature matrices).
+
+    The n centred rows span at most n - 1 directions, fewer where rows
+    repeat, so with n_components near n (pca_dim at or above the cell
+    count, the Gram route) the last components lie in their null space:
+    their eigenvalues are rounding, and S^-1 U^T Xc would amplify that
+    rounding into columns that carry most of the standardized variance.
+    Such components are zero here, as an SVD gives them a zero singular
+    value and zero scores (sklearn's PCA in the reference JAMIE): those
+    from index n - 1 on and those whose eigenvalue is at most
+    _GRAM_RANK_EPS eps w_max, the float32 Gram's own rounding. jamie_tpu
+    keeps them
+    (`_pca_fit_direct`, preprocess.py:327-345), a fault not carried over:
+    whether its columns blow up depends on the rounding of the
+    eigenvalues."""
     n, f = X.shape
     mean = X.mean(0)
     Xc = X - mean
@@ -97,6 +119,10 @@ def _pca_fit_direct(X: torch.Tensor, n_components: int):
         U = U.flip(1)[:, :n_components]
         s = torch.sqrt(torch.clamp(w, min=1e-12))
         comps = (U / s).T @ Xc                     # (k, F)
+        # the centred null space
+        cut = _GRAM_RANK_EPS * torch.finfo(w.dtype).eps * w[0]
+        null = (w <= cut) | (torch.arange(len(w), device=w.device) >= n - 1)
+        comps = torch.where(null[:, None], 0.0, comps)
     else:
         _, V = torch.linalg.eigh(Xc.T @ Xc)
         comps = V.flip(1)[:, :n_components].T

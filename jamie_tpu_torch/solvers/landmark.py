@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core import mesh as cm
 from ..core import residency
 from ..core.dtypes import resolve_device
@@ -90,12 +91,17 @@ def _interp_weights(d2: torch.Tensor, k: int, n_landmarks: int):
     return a.scatter_(1, idx, w)
 
 
-def _fps_indices_device(x: torch.Tensor, first: int,
-                        n_landmarks: int) -> torch.Tensor:
+def _fps_indices_device(x: torch.Tensor, first: int, n_landmarks: int,
+                        eager: bool = False) -> torch.Tensor:
     """Farthest-point sampling (greedy 2-approx k-center cover): repeatedly
     add the cell farthest from the chosen set, by the Gram formula
-    sq + sq[nxt] - 2 x.x[nxt] and argmax's first index on ties. Each pick is
-    one mat-vec over x; the picks stay on x's device (no host sync)."""
+    sq + sq[nxt] - 2 x.x[nxt] and argmax's first index on ties. As
+    jamie_tpu's `fori_loop` (:61-82), one pick is one step on static
+    buffers with no host read: the argmax, its index written into the
+    (L,) index buffer at the device counter, one mat-vec over x for the
+    min-distance update. On the card the pick is captured once as a CUDA
+    graph and replayed for the L - 2 picks after the first (the warm-up);
+    on the CPU, and with `eager` on the card, it runs op by op."""
     sq = (x * x).sum(1)
 
     def dist_to(j: torch.Tensor) -> torch.Tensor:
@@ -103,14 +109,19 @@ def _fps_indices_device(x: torch.Tensor, first: int,
         return torch.clamp(sq + sq.index_select(0, j) - 2.0 * (x @ xj.T)[:, 0],
                            min=0.0)
 
-    nxt = torch.tensor([int(first)], dtype=torch.long, device=x.device)
-    picks = [nxt]
-    d = dist_to(nxt)
-    for _ in range(1, n_landmarks):
+    idx = torch.full((int(n_landmarks),), int(first), dtype=torch.long,
+                     device=x.device)
+    d = dist_to(idx[:1])
+    at = torch.ones((1,), dtype=torch.long, device=x.device)
+
+    def pick():
         nxt = torch.argmax(d).reshape(1)
-        picks.append(nxt)
-        d = torch.minimum(d, dist_to(nxt))
-    return torch.cat(picks)
+        idx.index_copy_(0, at, nxt)
+        torch.minimum(d, dist_to(nxt), out=d)
+        at.add_(1)
+    graphs.steps_runner('fps', pick, x.device, eager=eager).run(
+        int(n_landmarks) - 1)
+    return idx
 
 
 def _project_for_fps(arr, rng, dim: int = 256, chunk_rows: int = 8192,

@@ -8,13 +8,16 @@ parity. Two phases of `epochs` steps each, every step one
 optax's RMSprop (decay 0.9, g / sqrt(nu + 1e-8), nu from 0), then a top-k
 binarization of each row. The initial factors and the dropout-style masks
 come from a `torch.Generator` seeded with `seed` (jamie_tpu draws them
-from a jax key).
+from a jax key). jamie_tpu runs each phase as one `lax.fori_loop`; here
+each phase's step is captured once as a CUDA graph on the card and
+replayed (`core/graphs.StepGraph`), and runs op by op on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import graphs
 from ..core.dtypes import resolve_device
 
 _DECAY, _EPS = 0.9, 1e-8
@@ -42,18 +45,31 @@ def _rmsprop(params, grads, nus, lr: float) -> None:
             p.sub_(lr * g * torch.rsqrt(nu + _EPS))
 
 
-def _optimize(loss_fn, params, epochs: int, lr: float) -> None:
+def _optimize(name: str, loss_fn, params, epochs: int, lr: float, device,
+              generator=None, eager: bool = False) -> None:
+    """`epochs` steps of loss_fn's gradient and RMSprop on `params`, in
+    place: one step is jamie_tpu's `fori_loop` body (`torch.autograd.grad`
+    and the update). On the card the step is captured once as a CUDA graph
+    (its eager warm-up on the capture stream) and replayed, with
+    `generator`, which loss_fn draws its masks from, registered so each
+    replay draws new ones; on the CPU and with `eager` it runs op by op."""
     nus = [torch.zeros_like(p) for p in params]
-    for _ in range(epochs):
+
+    def step():
         loss = loss_fn(*params)
         _rmsprop(params, torch.autograd.grad(loss, params), nus, lr)
+    graphs.steps_runner(name, step, device, eager=eager,
+                        generators=() if generator is None else (generator,)
+                        ).run(int(epochs))
 
 
 def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
                  epochs: int = 10001, topk: int = 5, seed: int = 0,
-                 device=None) -> torch.Tensor:
+                 device=None, _eager: bool = False) -> torch.Tensor:
     """The (n, m) binarized correspondence on `device`: 1 at the `topk`
-    largest entries of each row of Tx^T F Ty (lowrank.py:75-93)."""
+    largest entries of each row of Tx^T F Ty (lowrank.py:75-93). Both
+    phases run captured on the card; `_eager` runs them op by op there,
+    the plain version chip_smoke.py holds the captured route to."""
     device = resolve_device(device)
     Kx = torch.as_tensor(Kx, dtype=torch.float32, device=device)
     Ky = torch.as_tensor(Ky, dtype=torch.float32, device=device)
@@ -71,14 +87,16 @@ def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
         mx = (uniform(n) > (1 - keep_prob)).float()
         my = (uniform(m) > (1 - keep_prob)).float()
         return _cluster_loss(Tx, Ty, Kx, Ky, mx, my)
-    _optimize(cluster, [Tx, Ty], epochs, 0.01)
+    _optimize('lowrank_cluster', cluster, [Tx, Ty], epochs, 0.01, device,
+              gen, _eager)
     Tx, Ty = Tx.detach(), Ty.detach()
 
     print('Casting')
     a = uniform(1).requires_grad_()
     F = uniform(dim, dim).requires_grad_()
-    _optimize(lambda a, F: _cast_loss(a, F, Tx, Ty, Kx, Ky), [a, F],
-              epochs, 0.1)
+    _optimize('lowrank_cast',
+              lambda a, F: _cast_loss(a, F, Tx, Ty, Kx, Ky), [a, F],
+              epochs, 0.1, device, eager=_eager)
     with torch.no_grad():
         corr = Tx.T @ F @ Ty
         idx = torch.topk(corr, min(topk, m), dim=1).indices

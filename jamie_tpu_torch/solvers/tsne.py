@@ -7,7 +7,13 @@ per dataset, then a paired t-SNE that embeds both datasets while pulling
 the Hungarian-matched pairs together; and `tsne_embed`, the preclass
 model_pca='tsne'.
 
-Each optimizer step is a few eager torch ops on the device. The squared
+jamie_tpu compiles each loop (the perplexity bisection, the paired and
+the single optimizer) into one `lax.fori_loop`; here each loop's step
+updates static buffers with its counter on the device, and on the card it
+is captured once as a CUDA graph and replayed (`core/graphs.StepGraph`);
+on the CPU, and on the card with the private `eager=True` of
+`_calibrate_beta`, `_tsne_optimize` and `_tsne_single`, the same step runs
+op by op. The squared
 distances of the embedding come from K3 (`ops/pairwise.pairwise_euclidean`
 with squared=True): on the card the CUDA kernel (3xTF32, float32-accurate,
 zero diagonal), on the CPU its plain version. jamie_tpu writes them as an
@@ -27,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.dtypes import resolve_device
 from ..ops.pairwise import pairwise_euclidean
 from ..train.trainer import adam_update
@@ -38,10 +45,14 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def _calibrate_beta(D: torch.Tensor, perplexity: float,
-                    tol_iters: int = 50) -> torch.Tensor:
+                    tol_iters: int = 50, eager: bool = False) -> torch.Tensor:
     """Per-row precision (beta) bisection hitting the target entropy, in
     tol_iters fixed steps; returns the row-normalized conditional P
-    (tsne.py:23-55). beta_min == 0 is the "unset" lower bound."""
+    (tsne.py:23-55). beta_min == 0 is the "unset" lower bound. One
+    bisection step updates (beta, beta_min, beta_max) in place, jamie_tpu's
+    `fori_loop` body; on the card it is captured as a CUDA graph and
+    replayed (`core/graphs.StepGraph`), on the CPU and with `eager` it runs
+    op by op."""
     n = D.shape[0]
     log_perp = torch.log(torch.tensor(float(perplexity), dtype=torch.float32,
                                       device=D.device))
@@ -56,16 +67,19 @@ def _calibrate_beta(D: torch.Tensor, perplexity: float,
     beta = torch.ones(n, dtype=torch.float32, device=D.device)
     beta_min = torch.zeros_like(beta)
     beta_max = torch.full_like(beta, math.inf)
-    for _ in range(tol_iters):
+
+    def bisect():
         H, _ = entropy_and_p(beta)
         too_high = H > log_perp          # entropy too high: increase beta
-        beta_min = torch.where(too_high, beta, beta_min)
-        beta_max = torch.where(too_high, beta_max, beta)
-        beta = torch.where(
+        beta_min.copy_(torch.where(too_high, beta, beta_min))
+        beta_max.copy_(torch.where(too_high, beta_max, beta))
+        beta.copy_(torch.where(
             too_high,
             torch.where(torch.isinf(beta_max), beta * 2, (beta + beta_max) / 2),
             torch.where(torch.isneginf(beta_min) | (beta_min == 0),
-                        beta / 2, (beta + beta_min) / 2))
+                        beta / 2, (beta + beta_min) / 2)))
+    graphs.steps_runner('tsne_beta', bisect, D.device, eager=eager).run(
+        int(tol_iters))
     return entropy_and_p(beta)[1]
 
 
@@ -83,32 +97,43 @@ def joint_probabilities(dist, perplexity: float = 30.0,
     return P.div_(P.sum())
 
 
-def _kl_grad(P: torch.Tensor, Y: torch.Tensor, exag: float) -> torch.Tensor:
+def _kl_grad(P: torch.Tensor, Y: torch.Tensor, exag) -> torch.Tensor:
     """Gradient of KL(exag P || Q) for the embedding Y (tsne.py:79-86):
-    4 (diag(PQ 1) - PQ) Y with PQ = (exag P - Q) num. Every intermediate
-    is (N, N) f32; the in-place steps are counted in
-    `NN_PASSES_PER_KL_GRAD`."""
+    4 (diag(PQ 1) - PQ) Y with PQ = (exag P - Q) num. `exag` is a float or
+    a 0-d tensor on Y's device. Every intermediate is (N, N) f32; the
+    in-place steps are counted in `NN_PASSES_PER_KL_GRAD`."""
     num = pairwise_euclidean(Y, None, squared=True)
     num.add_(1.0).reciprocal_()
     num.fill_diagonal_(0.0)
     QmP = torch.div(num, num.sum()).clamp_(min=1e-12)
-    QmP.sub_(P, alpha=exag).mul_(num)              # -PQ
+    if isinstance(exag, torch.Tensor):
+        QmP.addcmul_(P, -exag)
+    else:
+        QmP.sub_(P, alpha=exag)
+    QmP.mul_(num)                                  # -PQ
     return 4.0 * (QmP @ Y - QmP.sum(1, keepdim=True) * Y)
 
 
 # (N, N) f32 reads and writes of one _kl_grad call, counted from the code:
-# K3's output 1, add_ 2, reciprocal_ 2, sum 1, div 2, clamp_ 2, sub_ 3,
-# mul_ 3, the (N, N) x (N, dim) product 1, the row sums 1.
+# K3's output 1, add_ 2, reciprocal_ 2, sum 1, div 2, clamp_ 2, sub_ (or
+# addcmul_) 3, mul_ 3, the (N, N) x (N, dim) product 1, the row sums 1.
 NN_PASSES_PER_KL_GRAD = 18
 
 
 def _tsne_optimize(P1, P2, Y1, Y2, pairs_x, pairs_y, align_weight: float,
                    n_iters: int, exaggeration_iters: int = 250,
-                   lr: float = 0.5, exaggeration: float = 12.0):
+                   lr: float = 0.5, exaggeration: float = 12.0,
+                   eager: bool = False):
     """Paired t-SNE, KL(P1||Q1) + KL(P2||Q2) + the pair alignment, with
     Adam (tsne.py:69-112). The early exaggeration anneals linearly from
     `exaggeration` to 1 over exaggeration_iters; both embeddings are
-    mean-centred every step. Returns new (Y1, Y2) tensors."""
+    mean-centred every step. Returns new (Y1, Y2) tensors.
+
+    One iteration is jamie_tpu's `fori_loop` body on static buffers: the
+    step counter lives on the device, the exaggeration and Adam's bias
+    corrections are computed from it there, and nothing is read back. On
+    the card it is captured once as a CUDA graph (K3's launches with it)
+    and replayed; on the CPU and with `eager` it runs op by op."""
     n1, d = Y1.shape
     flat = torch.cat([Y1.reshape(-1), Y2.reshape(-1)]).float()
     Y1 = flat[:n1 * d].view(n1, d)
@@ -119,31 +144,45 @@ def _tsne_optimize(P1, P2, Y1, Y2, pairs_x, pairs_y, align_weight: float,
                          device=flat.device)
     scale = 2.0 * float(align_weight) / px.shape[0]
     mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
-    for i in range(int(n_iters)):
-        frac = min(max(i / max(exaggeration_iters, 1), 0.0), 1.0)
+    i = torch.zeros((), dtype=torch.int32, device=flat.device)
+    window = float(max(exaggeration_iters, 1))
+
+    def iteration():
+        frac = torch.clamp(i.float() / window, 0.0, 1.0)
         exag = exaggeration + (1.0 - exaggeration) * frac
         g1 = _kl_grad(P1, Y1, exag)
         g2 = _kl_grad(P2, Y2, exag)
         diff = (Y1[px] - Y2[py]).mul_(scale)
         g1.index_add_(0, px, diff)
         g2.index_add_(0, py, diff, alpha=-1)
+        i.add_(1)
         adam_update(flat, torch.cat([g1.reshape(-1), g2.reshape(-1)]), mu,
-                    nu, i + 1, lr)
+                    nu, i, lr)
         Y1.sub_(Y1.mean(0))
         Y2.sub_(Y2.mean(0))
+    graphs.steps_runner('tsne', iteration, flat.device, eager=eager).run(
+        int(n_iters))
     return Y1, Y2
 
 
 def _tsne_single(P, Y, n_iters: int, exaggeration_iters: int = 250,
-                 lr: float = 0.5):
+                 lr: float = 0.5, eager: bool = False):
     """Single-dataset t-SNE with Adam and a hard 12x early exaggeration
-    for the first exaggeration_iters steps (tsne.py:115-141)."""
+    for the first exaggeration_iters steps (tsne.py:115-141), its switch a
+    `where` on the device step counter; captured on the card as
+    `_tsne_optimize` is."""
     Y = Y.float().clone()
     mu, nu = torch.zeros_like(Y), torch.zeros_like(Y)
-    for i in range(int(n_iters)):
-        adam_update(Y, _kl_grad(P, Y, 12.0 if i < exaggeration_iters
-                                else 1.0), mu, nu, i + 1, lr)
+    i = torch.zeros((), dtype=torch.int32, device=Y.device)
+
+    def iteration():
+        exag = torch.where(i < exaggeration_iters, 12.0, 1.0)
+        g = _kl_grad(P, Y, exag)
+        i.add_(1)
+        adam_update(Y, g, mu, nu, i, lr)
         Y.sub_(Y.mean(0))
+    graphs.steps_runner('tsne_single', iteration, Y.device,
+                        eager=eager).run(int(n_iters))
     return Y
 
 

@@ -33,12 +33,17 @@ def _rand(dev, *shape, seed=0):
     return torch.rand(*shape, device=dev, generator=g)
 
 
+@pytest.mark.parametrize('device_step', [False, True])
 @pytest.mark.parametrize('m1_dtype', [torch.float32, torch.bfloat16])
 # 1047^2 and 1000x1037 are not multiples of the kernel's BLOCK; 1 x n and
 # m x 1 put every entry in one row or one column
 @pytest.mark.parametrize('shape', [(24, 136), (1047, 1047), (1000, 1037),
                                    (1037, 1037), (1, 1047), (1037, 1)])
-def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype):
+def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype,
+                                             device_step):
+    """The step as a host int (copied to the card by the wrapper) or as
+    the solver passes it, an int32 counter on the card, from which the
+    plain version computes its bias corrections with torch.pow."""
     m, n = shape
     F, M2, mm4 = (_rand(cuda, m, n, seed=s) for s in (1, 2, 3))
     M1 = (_rand(cuda, m, n, seed=4) - 0.5).to(m1_dtype)
@@ -46,11 +51,14 @@ def test_pd_grad_update_kernel_matches_plain(cuda, shape, m1_dtype):
     Mu, Lam, S = _rand(cuda, m, 1, seed=6), _rand(cuda, n, 1, seed=7), \
         _rand(cuda, n, 1, seed=8)
     args = (F, M1, M2, mm4, kx, Mu, Lam, S, F.sum(1, keepdim=True),
-            F.sum(0, keepdim=True), torch.tensor(0.7, device=cuda), 7, 1e-3,
-            10.0)
+            F.sum(0, keepdim=True), torch.tensor(0.7, device=cuda),
+            torch.tensor(7, dtype=torch.int32, device=cuda) if device_step
+            else 7, 1e-3, 10.0)
+    # both write F, M1, M2 in place: the plain version updates copies
+    plain_args = tuple(t.clone() if j < 3 else t for j, t in enumerate(args))
     ops.reset_launch_counts()
     got = pd_update.fused_pd_grad_update(*args)
-    want = pd_update.fused_pd_grad_update_plain(*args)
+    want = pd_update.fused_pd_grad_update_plain(*plain_args)
     torch.cuda.synchronize()
     assert pd_update.fused_pd_grad_update.launches == 1
     assert got[1].dtype == m1_dtype
@@ -77,22 +85,26 @@ def test_dense_solve_past_520m_entries_matches_plain(cuda, monkeypatch,
 
     def k1(F, M1, M2, mm4, KxFKy, Mu, Lam, S, rowsum, colsum, a, i, eps,
            rho):
+        # both update in place: the plain version first, on copies of the
+        # rows it checks
+        want = pd_update.fused_pd_grad_update_plain(
+            F[rows].clone(), M1[rows].clone(), M2[rows].clone(), mm4[rows],
+            KxFKy[rows], Mu[rows], Lam, S, rowsum[rows], colsum, a, i, eps,
+            rho)
         got = real(F, M1, M2, mm4, KxFKy, Mu, Lam, S, rowsum, colsum, a, i,
                    eps, rho)
-        want = pd_update.fused_pd_grad_update_plain(
-            F[rows], M1[rows], M2[rows], mm4[rows], KxFKy[rows], Mu[rows],
-            Lam, S, rowsum[rows], colsum, a, i, eps, rho)
         for g, w in zip(got, want):
             rtol = 8e-3 if w.dtype == torch.bfloat16 else 1e-5
             torch.testing.assert_close(
                 g[rows].float(), w.float(), rtol=rtol,
                 atol=1e-6 * float(w.float().abs().max()))
-        checked.append(i)
+        checked.append(int(i))
         return got
     monkeypatch.setattr(pdm, 'fused_pd_grad_update', k1)
     ops.reset_launch_counts()
+    # the eager route: the checks read the host inside each iteration
     F = pdm.prime_dual(Kx, Ky, dx=32, dy=32, epoch_pd=3, log_pd=3,
-                       state_dtype=state_dtype, device=cuda)
+                       state_dtype=state_dtype, device=cuda, _eager=True)
     assert checked == [1, 2, 3]
     assert pd_update.fused_pd_grad_update.launches == 3
     assert F.shape == (n, n) and bool(torch.isfinite(F).all())
@@ -104,9 +116,10 @@ def test_pd_update_kernel_matches_plain(cuda, shape):
     F, M2, grad = (_rand(cuda, *shape, seed=s) for s in (1, 2, 3))
     M1 = _rand(cuda, *shape, seed=4) - 0.5
     ops.reset_launch_counts()
+    want = pd_update.fused_pd_update_plain(F.clone(), M1.clone(), M2.clone(),
+                                           grad, 7, 1e-3)
     got = pd_update.fused_pd_update(F, M1, M2, grad, 7, 1e-3)
     assert pd_update.fused_pd_update.launches == 1
-    want = pd_update.fused_pd_update_plain(F, M1, M2, grad, 7, 1e-3)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5,
                                    atol=1e-6 * float(w.abs().max()))
@@ -651,3 +664,102 @@ def test_mesh_shards_run_k1_and_k3(nccl_mesh):
     assert F.shape == (301, 301)
     assert float((F.cpu() - F_cpu).abs().max()) <= 1e-4 * float(
         F_cpu.abs().max())
+
+
+# ----------------------------------------------- captured solver loops
+def _steps(name):
+    from jamie_tpu_torch.core import graphs
+    return {k.split('/')[1]: v for k, v in graphs.loop_steps.items()
+            if k.startswith(name + '/')}
+
+
+@pytest.mark.parametrize('precision,state_dtype', [
+    ('default', 'float32'), ('default', 'bfloat16'), ('highest', 'float32')])
+def test_prime_dual_captured_matches_eager(cuda, capsys, precision,
+                                           state_dtype):
+    """The captured iteration replayed against the same iteration run op
+    by op on the card: F bit for bit, the printed lines identical, K1
+    launched once per iteration on both routes (the replays counted), with
+    delay 7 and 45 iterations in chunks of 10 (the last one 5)."""
+    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.probes import distance_operand
+    pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
+    Kx, Ky = distance_operand(300, 0, cuda), distance_operand(300, 1, cuda)
+    kw = dict(epoch_pd=45, log_pd=10, delay=7, precision=precision,
+              state_dtype=state_dtype, device=cuda)
+    outs = []
+    for eager in (False, True):
+        graphs.loop_steps.clear()
+        ops.reset_launch_counts()
+        F = pdm.prime_dual(Kx, Ky, 32, 32, _eager=eager, **kw)
+        torch.cuda.synchronize()
+        assert pd_update.fused_pd_grad_update.launches == 45
+        assert _steps('prime_dual') == {'eager' if eager else 'captured': 45}
+        outs.append((F, capsys.readouterr().out.splitlines()))
+    stats = graphs.last_stats['prime_dual']
+    assert stats['route'] == 'eager'
+    assert outs[0][1] == outs[1][1] and len(outs[0][1]) == 4
+    assert torch.equal(outs[0][0], outs[1][0])
+
+
+def test_fps_captured_matches_eager_and_cpu(cuda):
+    """One pick per replay: the same indices as the eager picks on the
+    card and as the CPU's."""
+    x = torch.randn(3000, 64, generator=torch.Generator().manual_seed(4))
+    got = landmark._fps_indices_device(x.to(cuda), 17, 256)
+    assert _steps('fps').get('captured', 0) >= 255
+    eager = landmark._fps_indices_device(x.to(cuda), 17, 256, eager=True)
+    cpu = landmark._fps_indices_device(x, 17, 256)
+    assert torch.equal(got.cpu(), eager.cpu())
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_tsne_loops_captured_match_eager(cuda):
+    """_calibrate_beta, _tsne_optimize (K3 twice a replay, counted) and
+    _tsne_single captured against their eager steps: bit for bit."""
+    from jamie_tpu_torch.solvers import tsne
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(300, 8, generator=g, device=cuda)
+    D = pairwise.pairwise_euclidean(x, None, squared=True)
+    betas = [tsne._calibrate_beta(D, 20.0, eager=e) for e in (False, True)]
+    assert torch.equal(*betas)
+    P = tsne.joint_probabilities(D.sqrt(), 20.0, device=cuda)
+    Y0 = [1e-4 * torch.randn(300, 2, generator=g, device=cuda)
+          for _ in range(2)]
+    pairs = np.arange(300)
+    runs = []
+    for eager in (False, True):
+        ops.reset_launch_counts()
+        runs.append(tsne._tsne_optimize(P, P, *Y0, pairs, pairs, 10.0, 30,
+                                        exaggeration_iters=12, eager=eager))
+        assert pairwise.pairwise_euclidean.launches == 60
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    singles = [tsne._tsne_single(P, Y0[0], 30, exaggeration_iters=12,
+                                 eager=e) for e in (False, True)]
+    assert torch.equal(*singles)
+
+
+def test_lowrank_captured_matches_eager(cuda):
+    """Both low-rank phases captured (the masks drawn in the graph from the
+    registered generator) against their eager steps: the binarized
+    correspondence identical, and the generator's draws after the
+    clustering phase too (the casting phase's initial a and F)."""
+    from jamie_tpu_torch.solvers import lowrank as lr
+    rng = np.random.RandomState(2)
+    xs = rng.randn(80, 4)
+    K = ((xs[:, None] - xs[None]) ** 2).sum(-1)
+    outs = [lr.lowrank_corr(K, K[::-1, ::-1].copy(), dim=6, epochs=60,
+                            device=cuda, _eager=e) for e in (False, True)]
+    assert torch.equal(*outs)
+    assert _steps('lowrank_cluster').get('captured', 0) >= 60
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads the host cannot be captured: the loop raises, and
+    nothing runs in its place."""
+    from jamie_tpu_torch.core import graphs
+    x = torch.ones(4, device=cuda)
+    runner = graphs.steps_runner('bad', lambda: x.add_(float(x.sum())), cuda)
+    with pytest.raises(RuntimeError):
+        runner.run(3)

@@ -41,7 +41,9 @@ def _state(seed, m1_bf16):
 
 
 def _torch_state(st, m1_bf16):
-    t = {k: torch.as_tensor(v) for k, v in st.items()}
+    # copies: the port's update writes F, M1, M2 in place, and jax may
+    # still read the same host arrays
+    t = {k: torch.tensor(v) for k, v in st.items()}
     if m1_bf16:
         t['M1'] = t['M1'].bfloat16()
         t['KxFKy'] = t['KxFKy'].bfloat16()

@@ -149,3 +149,25 @@ def test_item_11_routes_raise(monkeypatch):
     np.testing.assert_array_equal(
         ours, jl._select_landmarks(x, 8, 'fps', np.random.RandomState(0)))
     assert residency.route_counts['fps_jl_sketch'] == 1
+
+
+@pytest.mark.parametrize('n_landmarks', [2, 17, 55])
+def test_fps_pick_step_matches_reference(n_landmarks):
+    """One pick per step of the device loop (argmax, the index written at
+    the device counter, the min-distance update), run L - 1 times, against
+    jamie_tpu's fori_loop, exactly: from the one-step loop to every
+    distinct row of the data; rows 0-4 are repeated as rows 55-59 (equal
+    distances tie), and both packages pick the first index on ties. Past
+    the 55 distinct rows every distance is a rounding residue of zero, and
+    the two packages' Gram sums round differently."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(60, 7).astype(np.float32)
+    x[55:] = x[:5]
+    for first in (0, 31):
+        ours = tl._fps_indices_device(torch.as_tensor(x), first, n_landmarks)
+        ref = jl._fps_indices_device(jnp.asarray(x), first, n_landmarks)
+        assert ours.dtype == torch.long and ours.shape == (n_landmarks,)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+        again = tl._fps_indices_device(torch.as_tensor(x), first,
+                                       n_landmarks, eager=True)
+        np.testing.assert_array_equal(again.numpy(), ours.numpy())

@@ -107,3 +107,54 @@ def test_estimator_corr_method_jamie(synthetic_pair):
         (F,) = jm.match()
     assert F.shape == (40, 40)
     np.testing.assert_array_equal(F.sum(1).numpy(), np.full(40, 5.0))
+
+
+@pytest.mark.parametrize('topk', [1, 3])
+def test_lowrank_corr_properties_match_reference(topk):
+    """Both packages' binarized correspondences on the same distances:
+    (n, m), only 0 and 1, `topk` ones in every row. The two random streams
+    differ (a jax key against a torch.Generator), so the ones themselves
+    are not compared."""
+    from jamie_tpu.solvers.lowrank import lowrank_corr as jax_lowrank_corr
+    Kx, Ky = _sym(14, 9), _sym(10, 10)
+    ref = np.asarray(jax_lowrank_corr(Kx, Ky, dim=4, epochs=40, topk=topk))
+    ours = lr.lowrank_corr(Kx, Ky, dim=4, epochs=40, topk=topk,
+                           device='cpu').numpy()
+    for out in (ref, ours):
+        assert out.shape == (14, 10)
+        assert set(np.unique(out)) == {0.0, 1.0}
+        np.testing.assert_array_equal(out.sum(1), np.full(14, float(topk)))
+
+
+def test_optimize_steps_draw_new_masks_in_the_step():
+    """The clustering step draws its masks inside the step from the
+    registered generator (what a captured replay draws anew on the card):
+    every step draws new ones, kept at keep_prob on average (as jamie_tpu's
+    fold_in of the step number gives), and 30 steps of `_optimize` equal a
+    hand-written loop of loss, autograd and RMSprop from the same
+    generator, the factors and the generator's state exactly."""
+    Kx = torch.as_tensor(_sym(40, 3), dtype=torch.float32)
+    outs = []
+    for by_hand in (False, True):
+        gen = torch.Generator().manual_seed(2)
+        T = torch.rand(3, 40, generator=gen).requires_grad_()
+        masks = []
+
+        def loss(T):
+            m = (torch.rand(40, generator=gen) > 0.65).float()
+            masks.append(m)
+            return lr._cluster_loss(T, T.detach() * 0.5, Kx, Kx, m, m)
+        if by_hand:
+            nu = torch.zeros_like(T)
+            for _ in range(30):
+                lr._rmsprop([T], torch.autograd.grad(loss(T), [T]), [nu],
+                            0.01)
+        else:
+            lr._optimize('test', loss, [T], 30, 0.01, 'cpu', gen)
+        outs.append((T.detach().clone(), gen.get_state(), masks))
+    (t1, s1, m1), (t2, s2, m2) = outs
+    torch.testing.assert_close(t1, t2, rtol=0, atol=0)
+    assert torch.equal(s1, s2)
+    assert len(m1) == 30 and all(not torch.equal(a, b)
+                                 for a, b in zip(m1, m1[1:]))
+    assert abs(float(torch.stack(m1).mean()) - 0.35) < 0.05

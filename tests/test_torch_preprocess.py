@@ -156,3 +156,49 @@ def test_nonlinear_preclass_round_trips_through_dict(method):
         {k: np.asarray(v) for k, v in jpre.to_dict().items()}, device='cpu')
     np.testing.assert_allclose(tpre.transform(x), np.asarray(jpre.transform(x)),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_pca_null_component_is_zero_not_amplified():
+    """pca_dim at or above the cell count (JAMIE's default 512 on the
+    MMD-MA sim shape's 300 cells: clamped to 300): the 300 centred rows
+    span 299 directions, and the Gram route's 300th component is the null
+    space; with each of the first 150 rows repeated, they span 149, and
+    the null space is the last 151. The port zeroes it, so each modality's
+    standardized fit sample is the float64 SVD's (centred scores U S,
+    scalar-standardized, the columns past the rank 0): its column norms
+    (the singular values) within 1e-2 relative, and the 32 leading
+    columns (the latent rank, clear eigengaps; the noise floor's
+    components rotate freely between libraries) within 1e-3 of the
+    largest entry, up to sign. Kept, S^-1 U^T Xc amplified the null
+    components' rounding into columns carrying most of the standardized
+    variance (the port did so on the 2000-feature modality, jamie_tpu on
+    the 1000-feature one). A genuine small component is kept."""
+    from jamie_tpu_torch.synth import synthesize
+    for x in synthesize((300, 2000), (300, 1000), cache=False):
+        x = np.asarray(x)
+        for data, rank in ((x, 299), (np.concatenate([x[:150]] * 2), 149)):
+            with pytest.warns(UserWarning, match='PCA dim'):
+                pre = tp.Preprocessor.fit(data, pca_dim=512, device='cpu')
+            got = np.asarray(pre.transform_fit(), np.float64)
+            assert got.shape == (300, 300)
+            # zero scores, shifted only by the scalar standardization's mean
+            assert np.ptp(got[:, rank:]) == 0.0 and abs(got[0, 299]) < 1e-6
+            xc = np.asarray(data, np.float64)
+            xc = xc - xc.mean(0)
+            u, s, _ = np.linalg.svd(xc, full_matrices=False)
+            ref = u * s
+            ref[:, rank:] = 0.0
+            ref = (ref - ref.mean()) / ref.std()
+            norms = [np.linalg.norm(a[:, :rank] - a[0, 299], axis=0)
+                     for a in (got, ref)]
+            np.testing.assert_allclose(norms[0], norms[1], rtol=1e-2)
+            top = got[:, :32] * np.sign((got[:, :32] * ref[:, :32]).sum(0))
+            np.testing.assert_allclose(top, ref[:, :32], rtol=0,
+                                       atol=1e-3 * np.abs(ref).max())
+    # a spectrum falling to 43 eps of its top (SNARE-like RNA at PCA-512):
+    # every component is genuine and kept
+    from jamie_tpu_torch.synth import make_snare_like
+    rna = make_snare_like()[0][0]
+    got = np.asarray(tp.Preprocessor.fit(rna, pca_dim=512,
+                                         device='cpu').transform_fit())
+    assert got.shape == (1047, 512) and np.ptp(got, axis=0).min() > 0.0

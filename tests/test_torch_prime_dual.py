@@ -88,3 +88,93 @@ def test_invalid_arguments_raise(kw):
     Kx, Ky = _kernels(8, 8)
     with pytest.raises(ValueError):
         prime_dual(Kx, Ky, 1, 1, epoch_pd=1, device='cpu', **kw)
+
+
+def _random_carry(m, n, bf16_state, seed=7):
+    """A nonzero solver state, the same values for both packages: F, S, Mu,
+    Lambda, M1, M2, a, FKy, KxFKy (M1, FKy, KxFKy bf16-representable when
+    the state is bf16)."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    big = lambda a: (torch.as_tensor(f32(a)).bfloat16().float().numpy()
+                     if bf16_state else f32(a))
+    F = f32(rng.rand(m, n) * 0.05)
+    return [F, f32(rng.rand(n, 1) * 0.1), f32(rng.randn(m, 1) * 0.1),
+            f32(rng.randn(n, 1) * 0.1), big(rng.randn(m, n) * 0.01),
+            f32(rng.rand(m, n) * 1e-3), f32(0.9), big(rng.rand(m, n)),
+            big(rng.rand(m, n))]
+
+
+@pytest.mark.parametrize('precision,state_dtype,use_pallas,tol', [
+    ('highest', 'float32', False, 1e-5),
+    ('highest', 'float32', True, 1e-5),
+    ('default', 'float32', False, 1e-5),
+    ('default', 'bfloat16', False, 2 ** -7),
+])
+def test_step_matches_run_chunk(precision, state_dtype, use_pallas, tol):
+    """The port's shared step (`_iteration`, the function the card
+    captures) run 7 times from step 3 with delay 6 against jamie_tpu's
+    `_run_chunk` over the same 7 iterations from the same nonzero state:
+    the device counter's bias corrections and the delay gate switching
+    inside the chunk. Held per array at `tol` of its largest entry: f32
+    summation order (and torch.pow against jnp.power in the bias
+    corrections, an ulp at most) for f32 state; a bf16 store may land one
+    bf16 ulp (2^-8 relative) away, so 2^-7 for bf16 state."""
+    import jax.numpy as jnp
+    from jamie_tpu.solvers.prime_dual import _run_chunk
+    pdm = __import__('importlib').import_module(
+        'jamie_tpu_torch.solvers.prime_dual')
+    Kx, Ky = _kernels(28, 20)
+    bf16_state = state_dtype == 'bfloat16'
+    carry = _random_carry(28, 20, bf16_state)
+    kdt = jnp.bfloat16 if (bf16_state and precision == 'default') \
+        else jnp.float32
+    N = 28.0
+    jx, jy = jnp.asarray(Kx / N).astype(kdt), jnp.asarray(Ky / N).astype(kdt)
+    tr = jnp.sum(jnp.asarray(Kx / N) * jnp.asarray(Kx / N).T)
+    jcarry = tuple(jnp.asarray(c).astype(jnp.bfloat16)
+                   if bf16_state and j in (4, 7, 8) else jnp.asarray(c)
+                   for j, c in enumerate(carry))
+    ref = _run_chunk(jcarry, jnp.asarray(3, jnp.int32), jx, jy, tr, 7, 10.0,
+                     1e-3, 6, precision, use_pallas, None, 0, state_dtype)
+
+    bf16_mm = pdm._BF16_PRECISIONS[precision]
+    tKx, tKy, ttr, st, _ = pdm.init_state(Kx, Ky, 6, 5, state_dtype,
+                                          bf16_mm, torch.device('cpu'))
+    names = ('F', 'S', 'Mu', 'Lambda', 'M1', 'M2', 'a', 'FKy', 'KxFKy')
+    for name, c in zip(names, carry):
+        st[name].copy_(torch.as_tensor(c))
+    st['colsum'].copy_(st['F'].sum(0, keepdim=True))
+    st['i'].fill_(3)
+    step = pdm._iteration(tKx, tKy, ttr, st, pdm._matmul(bf16_mm), 10.0,
+                          1e-3, 6, lambda t: t, lambda t: t, None)
+    for _ in range(7):
+        step()
+    assert int(st['i']) == 10
+    for name, r in zip(names, ref):
+        r = np.asarray(r, np.float32)
+        ours = st[name].float().numpy()
+        np.testing.assert_allclose(ours, r.reshape(ours.shape), rtol=0,
+                                   atol=tol * float(np.abs(r).max()),
+                                   err_msg=name)
+
+
+def test_printed_lines_agree_with_delay_and_a_partial_chunk():
+    """epoch_pd 45 with log_pd 10 (the last chunk is 5 iterations and
+    prints nothing) and delay 12 (the gate flips inside the second chunk):
+    the printed lines are jamie_tpu's, character for character, and F
+    agrees at test_highest_precision_matches's tolerance."""
+    Kx, Ky = _kernels(32, 28)
+    outs, Fs = [], []
+    for fn, kw in ((jax_prime_dual, {'use_pallas': False}),
+                   (prime_dual, {'device': 'cpu'})):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            Fs.append(np.asarray(fn(Kx, Ky, dx=6, dy=5, epoch_pd=45,
+                                    log_pd=10, delay=12,
+                                    precision='highest', **kw)))
+        outs.append(buf.getvalue().splitlines())
+    assert [line.split(']')[0] for line in outs[1]] == [
+        f'epoch:[{i}/45' for i in (10, 20, 30, 40)]
+    assert outs[0] == outs[1]
+    np.testing.assert_allclose(Fs[1], Fs[0], rtol=1e-4, atol=1e-6)

@@ -187,3 +187,48 @@ def test_estimator_tsne_fit_matches_reference(case, monkeypatch):
         np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5 * ref.max())
     f_ref, f_ours = jj.test_closer(jout), tj.test_closer(tout)
     assert abs(f_ours - f_ref) < 0.1, (f_ours, f_ref)
+
+
+@pytest.mark.parametrize('window,iters', [(0, 6), (7, 12), (40, 12)])
+def test_device_counter_exaggeration_matches_reference(joint, window, iters):
+    """The exaggeration computed from the device step counter: annealed
+    (`_tsne_optimize`) and hard-switched (`_tsne_single`) with the window
+    empty, ending inside the run and past it, against jamie_tpu's
+    fori_loops from the same initial embeddings at
+    test_tsne_optimize_matches_reference's tolerance (1e-4 of the
+    largest coordinate)."""
+    _, (P1, P2), _ = joint
+    n = P1.shape[0]
+    Y1, Y2 = _init(n, 2, 5)
+    perm = np.random.RandomState(4).permutation(n)
+    ref = jt._tsne_optimize(jnp.asarray(P1), jnp.asarray(P2), jnp.asarray(Y1),
+                            jnp.asarray(Y2), jnp.asarray(np.arange(n)),
+                            jnp.asarray(perm), 10.0, iters,
+                            exaggeration_iters=window, exaggeration=6.0)
+    ours = tt._tsne_optimize(torch.as_tensor(P1), torch.as_tensor(P2),
+                             torch.as_tensor(Y1), torch.as_tensor(Y2),
+                             np.arange(n), perm, 10.0, iters,
+                             exaggeration_iters=window, exaggeration=6.0)
+    for o, r in zip(ours, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(o.numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max())
+    ref = np.asarray(jt._tsne_single(jnp.asarray(P1), jnp.asarray(Y1), iters,
+                                     exaggeration_iters=window))
+    ours = tt._tsne_single(torch.as_tensor(P1), torch.as_tensor(Y1), iters,
+                           exaggeration_iters=window).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('tol_iters', [1, 7])
+def test_calibrate_beta_step_count_matches_reference(joint, tol_iters):
+    """The bisection step replayed tol_iters times (the graph's replay
+    count on the card) against jamie_tpu's fori_loop of as many steps, at
+    test_calibrate_beta_matches_reference's 1e-6 of the largest entry."""
+    D = joint[0][1] ** 2
+    ref = np.asarray(jt._calibrate_beta(jnp.asarray(D), 15.0,
+                                        tol_iters=tol_iters))
+    ours = tt._calibrate_beta(torch.as_tensor(D), 15.0,
+                              tol_iters=tol_iters).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6 * ref.max())
