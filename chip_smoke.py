@@ -137,16 +137,19 @@
    `train_capture:` line.
 25. The captured solver loops (Q): every solver loop since step 4 (the
    prime-dual iterations, FPS picks, the t-SNE bisection and optimizers,
-   both low-rank phases) ran as replays of a captured CUDA graph, but
+   both low-rank phases, UMAP's sigma bisection and layout epochs, MMD-MA's
+   batched optimizer) ran as replays of a captured CUDA graph, but
    phase K's mesh solves; then each loop's captured route held bit for
    bit to its eager step on the card: prime-dual at 300^2, 1047^2, 2048^2,
    3654^2 and 9190^2 (float32 and bfloat16 state, delay 50, 250
    iterations in chunks of 100; the printed lines identical, K1 250 times
    on each route), FPS on the 19,000-cell PCA-512 scores (2048 picks),
    t-SNE at 1047 and 9190 cells (K3 twice an iteration), low-rank at 1047
-   cells; ms per step on each route, capture seconds, kernel nodes and
-   graph launches per step; one `solver_capture:` line (see
-   solver_capture_phase).
+   cells, the UMAP bisection on the 1047-cell data's kNN distances, the
+   UMAP layout at 1047 x 512 and 9190 x 512, MMD-MA on the 1047-cell data
+   (36 runs, 200 iterations); ms per step on each route, capture seconds,
+   kernel nodes, graph launches per step and the device peak; one
+   `solver_capture:` line (see solver_capture_phase).
 26. A `kernels` JSON line (with each kernel's launches on the fit, bench,
    time-and-memory, examples and captured-loop paths), the nvidia-smi
    line, and as the last line {"ok": true, "device": {...}}.
@@ -2438,6 +2441,7 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
     from scipy.sparse.csgraph import connected_components
 
     from jamie_tpu_torch import compare, figures, nn_funcs, utils
+    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.models.baselines import predict_nn
     from jamie_tpu_torch.ops.pairwise import pairwise_euclidean_plain
     from jamie_tpu_torch.preprocess import Preprocessor
@@ -2487,9 +2491,13 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                           launches=counts[name])
                for name, r in results.items()}
     print(f'compare: {smi_line} | ' + json.dumps(summary), flush=True)
+    mm = graphs.last_stats.get('mmdma', {})
     print(f'compare: MMD-MA {mmdma_iters} iterations, '
           f'{secs["MMD-MA"] / mmdma_iters * 1e3:.4f} ms per iteration '
-          f'(36 runs batched, setup and scoring included); FOSCTTM off '
+          f'(36 runs batched, setup, scoring, warm-up and capture included; '
+          f'route {mm.get("route")}, warm-up {mm.get("warmup_s")} s, capture '
+          f'{mm.get("capture_s")} s, {mm.get("kernel_nodes")} kernel nodes '
+          f'an iteration); FOSCTTM off '
           f'jamie_tpu\'s {off} (limit {COMPARE_FOSCTTM_TOL}); UnionCom K1 '
           f'{uc["fused_pd_grad_update"]} (expected {epoch_pd}), K3 '
           f'{uc["pairwise_euclidean"]} (at least {k3_min}); raw LMA raised: '
@@ -2614,13 +2622,15 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
         fail('phase J analysis checks failed (see the analysis: line)')
 
 
-def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
+def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
                          pd_sizes=(300, 1047, 2048, 3654, 9190),
                          pd_iters=250, log_pd=100, delay=50,
                          fps_landmarks=2048, tsne_cells=(1047, 9190),
                          tsne_iters=(200, 100), lowrank_cells=1047,
-                         lowrank_epochs=2001):
-    """Q. The four solver loops that jamie_tpu compiles as fori_loops, each
+                         lowrank_epochs=2001, umap_k=15,
+                         layout_cells=((1047, 100), (9190, 50)),
+                         layout_dim=512, mmdma_iters=200):
+    """Q. The solver loops that jamie_tpu compiles as fori_loops, each
     replayed as a captured CUDA graph, against the same step run op by op
     on the card (the loops' private eager argument), with the counts and
     the loop steps by route at 0 before each run:
@@ -2638,22 +2648,35 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
       bit;
     - low-rank on lowrank_cells distance-shaped operands, both phases at
       lowrank_epochs steps: the factors of each phase and the binarized
-      output bit for bit.
+      output bit for bit;
+    - UMAP's sigma bisection (64 steps) on the kNN distances (k = umap_k)
+      of data[0], the 1047-cell first modality: rho and sigma bit for bit;
+    - UMAP's layout at each (cells, epochs) of layout_cells, layout_dim
+      wide (phase E's preclass width), neg_rate 5, the fuzzy graph of
+      data[0] at 1047 cells and of 50-dimensional normal points at 9190:
+      the layout bit for bit (the partners drawn from one seed each route);
+    - MMD-MA's batched optimizer through mmdma_embed on `data` with its
+      default grid (36 runs, output_dim 32), mmdma_iters iterations: every
+      run's embeddings and MMD and the selected pair bit for bit (the host
+      setup and selection inside the timed span).
 
     ms per step on each route (a captured run's warm-up step and capture
     left out), the capture and warm-up seconds, kernel nodes per step,
-    graph launches per step, the replays. One `solver_capture:` line.
-    Returns the kernel launches of the captured runs, by kernel."""
+    graph launches per step, the replays, the device peak. One
+    `solver_capture:` line. Returns the kernel launches of the captured
+    runs, by kernel."""
     import contextlib
     import importlib
     import io
     from unittest import mock
 
+    from jamie_tpu_torch import compare
     from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.probes import distance_operand
     from jamie_tpu_torch.solvers import landmark as LM
     from jamie_tpu_torch.solvers import lowrank as LR
     from jamie_tpu_torch.solvers import tsne as TS
+    from jamie_tpu_torch.solvers import umap as U
     pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
     records, bad, captured_counts = [], [], {}
 
@@ -2666,11 +2689,13 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
             graphs.last_stats.pop(loop, None)
         buf = io.StringIO()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         counts = ops.launch_counts()
         stats = [dict(graphs.last_stats.get(loop, {})) for loop in loops]
         route = 'eager' if eager else 'captured'
@@ -2681,7 +2706,8 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
                'seconds': round(sec, 6),
                'ms_per_step': (sec - extra) / max(timed, 1) * 1e3,
                'launches': {k: v for k, v in counts.items() if v},
-               'loop_steps': dict(graphs.loop_steps)}
+               'loop_steps': dict(graphs.loop_steps),
+               'peak_gib': peak / 2 ** 30}
         if not eager:
             rec.update(
                 warmup_s=sum(st.get('warmup_s', 0) for st in stats),
@@ -2786,6 +2812,49 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x,
     pair(f'lowrank {lowrank_cells} cells, 2 x {lowrank_epochs} steps',
          {'lowrank_cluster': lowrank_epochs, 'lowrank_cast': lowrank_epochs},
          2 * lowrank_epochs, lowrank)
+    del Kx, Ky
+
+    def fuzzy(x):
+        """W of umap_embed on the rows of x, and their kNN distances."""
+        d = ops.pairwise_euclidean(x, None, squared=False)
+        knn = -torch.topk(-d.fill_diagonal_(math.inf), umap_k, dim=1)[0]
+        return U._fuzzy_graph(d, umap_k), knn
+    x0 = torch.as_tensor(np.asarray(data[0], np.float32), device=dev)
+    n0 = int(x0.shape[0])
+    W0, knn = fuzzy(x0)
+    pair(f'umap_sigma {n0} cells k={umap_k}, 64 bisection steps',
+         {'umap_sigma': 64}, 64,
+         lambda eager: U._smooth_knn(knn, 64, eager=eager))
+    a, b = U.fit_ab()
+    for n, epochs in layout_cells:
+        g = torch.Generator(device=dev).manual_seed(n)
+        W = (W0 if n == n0 else
+             fuzzy(torch.randn(n, 50, generator=g, device=dev))[0])
+        Y0 = torch.randn(n, layout_dim, generator=g, device=dev)
+        Y0 *= 10.0 / Y0.abs().max()
+        pair(f'umap_layout {n} x {layout_dim}, {epochs} epochs, neg_rate 5',
+             {'umap_layout': epochs}, epochs,
+             lambda eager: U._optimize_layout(
+                 W, Y0, torch.Generator(device=dev).manual_seed(0), epochs,
+                 a, b, neg_rate=5, eager=eager))
+        del W, Y0
+    del W0, knn, x0
+    torch.cuda.empty_cache()
+
+    real_mmdma = compare._mmdma_opt
+
+    def mmdma(eager):
+        runs = []
+
+        def opt(*a, **k):
+            runs.extend(real_mmdma(*a, **k))
+            return runs[-3:]
+        with mock.patch.object(compare, '_mmdma_opt', opt):
+            emb = compare.mmdma_embed(data, n_iters=mmdma_iters, device=dev,
+                                      _eager=eager)
+        return [torch.as_tensor(e) for e in emb] + runs
+    pair(f'mmdma {n0} cells, 36 runs x 32, {mmdma_iters} iterations',
+         {'mmdma': mmdma_iters}, mmdma_iters, mmdma)
 
     line = {'card': smi_line, 'runs': records}
     print('solver_capture: ' + json.dumps(line, default=float), flush=True)
@@ -3144,13 +3213,14 @@ def main():
     eager = {k: v for k, v in steps.items() if k.endswith('/eager')}
     ran = {k.split('/')[0] for k in steps if k.endswith('/captured')}
     loops = {'prime_dual', 'fps', 'tsne_beta', 'tsne', 'tsne_single',
-             'lowrank_cluster', 'lowrank_cast'}
+             'lowrank_cluster', 'lowrank_cast', 'umap_sigma', 'umap_layout',
+             'mmdma'}
     if eager or ran != loops:
         fail(f'solver loops ran {steps}: expected every step of '
              f'{sorted(loops)} captured, and no other route but the mesh')
     t = time.perf_counter()
     path_counts['solver_capture'] = solver_capture_phase(
-        torch, ops, dev, smi_line, X19[0])
+        torch, ops, dev, smi_line, X19[0], data)
     print(f'phase Q: {time.perf_counter() - t:.1f} s', flush=True)
 
     # 8. The kernels line, the device line, the result

@@ -12,7 +12,8 @@ squared distances come from K3 (`ops/distances.py`), with the neighbour
 selection on the host as in jamie_tpu; the eigen, Cholesky and triangular
 solves are `torch.linalg` on the device; MMD-MA's hyperparameter grid x
 restart batch (jax's vmap) is a leading batch dimension of plain tensors,
-optimized by one optax-style Adam with autograd. UnionCom is this package's
+optimized by one optax-style Adam with autograd, its iteration captured as
+a CUDA graph on the card and replayed (jamie_tpu's `fori_loop`). UnionCom is this package's
 own `JAMIE(project_mode='tsne')`, through K1 and K3.
 
 Deliberate deviation: where the f32 Cholesky of LMA's (and CCA's)
@@ -31,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .core import graphs
 from .core.dtypes import resolve_device
 from .nn_funcs import _symmetric_knn_adjacency
 from .ops.distances import pairwise_distance
@@ -181,14 +183,21 @@ def _rbf_mmd2(X: torch.Tensor, Y: torch.Tensor,
 
 
 def _mmdma_opt(K1, K2, a1, a2, sigma, lambda1, lambda2, output_dim: int,
-               n_iters: int, lr: float = 1e-4):
+               n_iters: int, lr: float = 1e-4, _eager: bool = False):
     """MMD-MA (Liu & Noble 2019): learn alpha_i so that K_i alpha_i match in
     MMD, with orthogonality and distortion penalties, for a batch of runs
     at once: a1 (B, n1, p), a2 (B, n2, p), and sigma, lambda1, lambda2 (B,)
     tensors. Each run's loss depends on its own slice only, so the gradient
     of the summed loss is every run's own gradient, and one optax.adam(lr)
     (b1 0.9, b2 0.999, eps 1e-8; elementwise) steps them all. Returns the
-    embeddings (B, n, p) and each run's final MMD term."""
+    embeddings (B, n, p) and each run's final MMD term.
+
+    One iteration is jamie_tpu's `fori_loop` body on static buffers (the
+    params, leaves that require grad, and their moments): the gradient by
+    autograd, then Adam with its bias corrections from an int32 step
+    counter on the device. On the card it is captured once as a CUDA graph
+    and replayed (`core/graphs.StepGraph`); on the CPU and with `_eager`
+    it runs op by op."""
     n1, n2 = K1.shape[0], K2.shape[0]
     I_p = torch.eye(output_dim, device=K1.device)
 
@@ -205,11 +214,16 @@ def _mmdma_opt(K1, K2, a1, a2, sigma, lambda1, lambda2, output_dim: int,
 
     params = [a.detach().clone().requires_grad_(True) for a in (a1, a2)]
     moments = [(torch.zeros_like(a), torch.zeros_like(a)) for a in params]
-    for step in range(1, n_iters + 1):
+    count = torch.zeros(1, dtype=torch.int32, device=K1.device)
+
+    def step():
         grads = torch.autograd.grad(loss_fn(*params), params)
+        count.add_(1)
         with torch.no_grad():
             for a, g, (mu, nu) in zip(params, grads, moments):
-                adam_update(a, g, mu, nu, step, lr)
+                adam_update(a, g, mu, nu, count, lr)
+    graphs.steps_runner('mmdma', step, K1.device, eager=_eager).run(
+        int(n_iters))
     with torch.no_grad():
         E1, E2 = K1 @ params[0], K2 @ params[1]
         return E1, E2, _rbf_mmd2(E1, E2, sigma)
@@ -221,7 +235,8 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
                 sigma_scales: Sequence[float] = (0.25, 1.0, 4.0),
                 lambda1_grid: Sequence[float] = (1e-2, 1e-3),
                 lambda2_grid: Sequence[float] = (1e-3, 1e-4),
-                init=None, device=None) -> List[np.ndarray]:
+                init=None, device=None,
+                _eager: bool = False) -> List[np.ndarray]:
     """MMD-MA on row-normalized linear kernels, matching the notebooks'
     preparation (scGEM.ipynb cell 17: d /= ||d||_row; K = d d^T;
     max_iterations=10001).
@@ -234,7 +249,10 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
     past 512). The initial a1 and a2, U[0, 1) * 1e-2 of shapes (B, n_i, p),
     come from a CPU `torch.Generator` seeded with `seed` (so the card and
     the CPU start alike), or from `init` = (a1, a2), host arrays or CPU
-    tensors."""
+    tensors. The host work (the kernels, the draws, the median heuristic,
+    the selection) stays outside the optimization, as in jamie_tpu; the
+    optimization runs captured on the card, and `_eager` runs it op by op
+    there, the plain version chip_smoke.py holds the captured route to."""
     device = resolve_device(device)
     Ks = []
     for d in dataset:
@@ -266,7 +284,7 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
     sigmas, l1s, l2s = (torch.tensor(col, dtype=torch.float32, device=device)
                         for col in zip(*grid))
     E1, E2, _ = _mmdma_opt(Ks[0], Ks[1], a1, a2, sigmas, l1s, l2s, p,
-                           int(n_iters))
+                           int(n_iters), _eager=_eager)
     # Selection must use a COMMON bandwidth: each run's own final MMD is
     # not comparable across sigmas (as sigma grows every kernel value
     # tends to 1 and MMD to 0 regardless of alignment), so every run's

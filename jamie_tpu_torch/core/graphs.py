@@ -8,11 +8,13 @@ once as a CUDA graph on static buffers and replayed from the host:
   the capture stream) and replays it `k` times, with the `torch.Generator`s
   the step draws from registered; `steps_runner` picks it on the card and
   the same step called eagerly elsewhere, so both routes run one function.
+  The solver loops, UMAP's, MMD-MA's and the trainer's epochs all capture
+  through it.
 - `count_launch` counts a kernel wrapper's launches, once per replay for a
   launch inside a captured step.
 - `add_conditional` puts an IF conditional node into a capture, as the
-  trainer's epochs need (`train/trainer.py`): the counterpart of
-  jamie_tpu's `lax.cond` over post-stop epochs
+  trainer's epochs need (`StepGraph(cond=...)`, `train/trainer.py`): the
+  counterpart of jamie_tpu's `lax.cond` over post-stop epochs
   (jamie_tpu/train/trainer.py:499-530). PyTorch's `CUDAGraph` does not
   capture conditional nodes itself, so it adds one, with a copy of an
   already captured graph as its body, to the graph that a stream is
@@ -110,27 +112,46 @@ class StepGraph:
 
     `step` updates static buffers in place (the loop's state, a step
     counter on the device) and reads nothing back to the host, so a replay
-    is one more step. The first `run` runs the step once eagerly on a side
-    stream (it builds the kernels and warms up cuBLAS and autograd on the
-    stream that captures, and it is the loop's first step), releases the
-    allocator's cache to the graph's pool, then captures the step on that
-    stream and replays it for the remaining steps. A generator in
-    `generators` is registered with the graph; PyTorch writes its seed and
-    offset to the device only for a graph whose own capture drew from it,
-    so the step must draw from it, and after each replay the host sets its
-    offset to where one eager step leaves it. Kernel wrappers that launch
-    inside the step are counted once per replay (`count_launch`). Nothing
-    falls back: a failed capture or replay raises.
+    is one more step. `capture` (or the first `run`) runs the step once
+    eagerly on a side stream (it builds the kernels and warms up cuBLAS and
+    autograd on the stream that captures, and it is the loop's first
+    step), releases the allocator's cache to the graph's pool, then
+    captures the step on that stream; `run` replays it for the remaining
+    steps. Given `restore`, the tensors that the step changes, the warm-up
+    is put back instead (those tensors and the generators' states) and is
+    no step of the loop.
+
+    A generator in `generators` is registered with the graph; PyTorch
+    writes its seed and offset to the device only for a graph whose own
+    capture drew from it, so the step must draw from it, and after each
+    replay the host sets its offset to where one eager step leaves it
+    (`increments`).
+
+    Given `cond` = (stopped, live), two 0-d bool tensors on the card, the
+    step is the body of an IF conditional node (`add_conditional`) in an
+    outer graph, which draws one number from each generator (so that its
+    replay writes their seed and offset where the body's kernels read
+    them), runs the body only while not stopped, and then runs `tail`,
+    whether the body ran or not. Its replays are not counted in
+    `loop_steps`: the device decides whether the step ran.
+
+    Kernel wrappers that launch inside the step are counted once per
+    replay (`count_launch`). Nothing falls back: a failed capture or replay
+    raises.
     """
 
     route = 'captured'
 
     def __init__(self, name: str, step: Callable[[], None], device,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 restore: Optional[Sequence[torch.Tensor]] = None,
+                 cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 tail: Optional[Callable[[], None]] = None):
         self.name, self.step = name, step
         self.device = torch.device(device)
         self.generators = list(generators)
-        self.graph = None
+        self.restore, self.cond, self.tail = restore, cond, tail
+        self.graph = self.body = None
         self.launches: Dict[Callable, int] = {}
         self.increments = [0] * len(self.generators)
         self.stats: dict = {'route': self.route}
@@ -141,42 +162,74 @@ class StepGraph:
         if k <= 0:
             return
         if self.graph is None:
-            self._capture()
-            k -= 1
+            self.capture()
+            k -= self.restore is None
         self.replay(k)
 
-    def _capture(self) -> None:
-        global _capturing
+    def _warmup(self, stream: torch.cuda.Stream) -> None:
+        """One eager step on `stream`, with each generator's increment;
+        given `restore`, what it changed is then put back."""
         dev, gens = self.device, self.generators
-        current = torch.cuda.current_stream(dev)
-        stream = torch.cuda.Stream(dev)
+        saved = (None if self.restore is None
+                 else [t.clone() for t in self.restore])
+        states = [g.get_state() for g in gens]
         offsets = [g.get_offset() for g in gens]
-        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(dev)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             self.step()
         current.wait_stream(stream)
         torch.cuda.synchronize(dev)
-        loop_steps[f'{self.name}/{self.route}'] += 1
         self.increments = [g.get_offset() - o for g, o in zip(gens, offsets)]
+        if saved is None:
+            if self.cond is None:
+                loop_steps[f'{self.name}/{self.route}'] += 1
+            return
+        with torch.no_grad():
+            for t, v in zip(self.restore, saved):
+                t.copy_(v)
+        for g, st in zip(gens, states):
+            g.set_state(st)
+
+    def capture(self) -> None:
+        """The warm-up step and the capture, once."""
+        global _capturing
+        if self.graph is not None:
+            return
+        dev, gens = self.device, self.generators
+        stream = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        self._warmup(stream)
         offsets = [g.get_offset() for g in gens]
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        body = torch.cuda.CUDAGraph(keep_graph=True)
         for g in gens:
-            graph.register_generator_state(g)
+            body.register_generator_state(g)
         _capturing = {}
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(body, stream=stream):
                 self.step()
         finally:
             self.launches, _capturing = _capturing, None
+        nodes, kernels = node_counts(body)
+        if self.cond is None:
+            body.instantiate()
+            self.graph = body
+        else:
+            outer = torch.cuda.CUDAGraph()
+            for g in gens:
+                outer.register_generator_state(g)
+            with torch.cuda.graph(outer, stream=stream):
+                for g in gens:
+                    torch.rand(1, generator=g, device=dev)
+                add_conditional(stream, body, *self.cond)
+                if self.tail is not None:
+                    self.tail()
+            self.body, self.graph = body, outer
         for g, o in zip(gens, offsets):
             g.set_offset(o)
-        nodes, kernels = node_counts(graph)
-        graph.instantiate()
         torch.cuda.synchronize(dev)
-        self.graph = graph
         self.stats.update(
             warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
             nodes=nodes, kernel_nodes=kernels, graph_launches_per_step=1,
@@ -194,7 +247,8 @@ class StepGraph:
         for fn, c in self.launches.items():
             fn.launches += c * k
         self.stats['replays'] += k
-        loop_steps[f'{self.name}/{self.route}'] += k
+        if self.cond is None:
+            loop_steps[f'{self.name}/{self.route}'] += k
 
 
 class EagerSteps:

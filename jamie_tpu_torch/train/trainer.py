@@ -301,21 +301,15 @@ class _CapturedEpochs:
     step count. The host pays one graph launch a step, well inside the
     step's device time.
 
-    Each graph is a body captured once per fit, run by an outer graph under
-    an IF conditional node on `not stopped` (`core/graphs.py`), so every
-    epoch after the early stop is a no-op on the device, as jamie_tpu's
-    `lax.cond` makes it; the end graph also writes the epoch's stop and ran
-    flags. Before capture, the epoch's start, one step and its end run
-    eagerly on the capture stream to warm up cuBLAS, the autograd thread
-    and the allocator, and to measure each part's Philox offset on the
-    trainer's generator; the state they changed is then put back. The
-    generator is registered with every graph. Each outer graph draws one
-    number from it so that its replay writes the generator's seed and
-    offset where the body's kernels read them (PyTorch writes them only for
-    a graph that draws), and the host then sets the offset to where the
-    eager part leaves it. A skipped epoch still advances the offset on the
-    host, so `settle` puts the generator where the epochs that ran leave
-    it. Nothing falls back: a failed capture or replay raises.
+    Each part is a `core/graphs.StepGraph` with the trainer's generator
+    registered, its body under an IF conditional node on `not stopped`, so
+    every epoch after the early stop is a no-op on the device, as
+    jamie_tpu's `lax.cond` makes it; the end's graph also writes the
+    epoch's stop and ran flags. Each part's eager warm-up is put back (the
+    trainer's `_device_state` and the generator), so the fit starts from
+    its state. A skipped epoch still advances the generator's offset on
+    the host, so `settle` puts the generator where the epochs that ran
+    leave it. Nothing falls back: a failed capture or replay raises.
     """
 
     route = 'captured'
@@ -323,63 +317,35 @@ class _CapturedEpochs:
     def __init__(self, trainer: 'JamieTrainer'):
         from ..core import graphs
         tr = self.trainer = trainer
-        dev, gen = tr.device, tr.generator
-        parts = (tr._epoch_start, tr._epoch_step, tr._epoch_end)
-        current = torch.cuda.current_stream(dev)
-        stream = torch.cuda.Stream(dev)
-        saved = [t.clone() for t in tr._device_state()]
-        rng = gen.get_state()
-        self.start_offset = gen.get_offset()
-        t0 = time.perf_counter()
-        stream.wait_stream(current)
-        incs = []
-        with torch.cuda.stream(stream):
-            for part in parts:
-                offset = gen.get_offset()
-                part()
-                incs.append(gen.get_offset() - offset)
-        current.wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        with torch.no_grad():
-            for t, v in zip(tr._device_state(), saved):
-                t.copy_(v)
-        gen.set_state(rng)
-        del saved
-        t1 = time.perf_counter()
-        self.graphs = []
-        nodes = kernels = 0
-        for part, inc in zip(parts, incs):
-            body = torch.cuda.CUDAGraph(keep_graph=True)
-            body.register_generator_state(gen)
-            with torch.cuda.graph(body, stream=stream):
-                part()
-            outer = torch.cuda.CUDAGraph()
-            outer.register_generator_state(gen)
-            with torch.cuda.graph(outer, stream=stream):
-                torch.rand(1, generator=gen, device=dev)
-                graphs.add_conditional(stream, body, tr._stopped, tr._live)
-                if part == tr._epoch_end:
-                    tr._epoch_flags()
-            reps = tr.len_dataloader if part == tr._epoch_step else 1
-            n, k = graphs.node_counts(body)
-            nodes, kernels = nodes + reps * n, kernels + reps * k
-            self.graphs.append((body, outer, inc, reps))
-        torch.cuda.synchronize(dev)
-        self.rng_step = sum(inc * reps for _, _, inc, reps in self.graphs)
+        self.start_offset = tr.generator.get_offset()
+        restore = tr._device_state()
+        self.parts = []
+        for name, part, reps in (
+                ('epoch_start', tr._epoch_start, 1),
+                ('epoch_step', tr._epoch_step, tr.len_dataloader),
+                ('epoch_end', tr._epoch_end, 1)):
+            g = graphs.StepGraph(
+                name, part, tr.device, (tr.generator,), restore=restore,
+                cond=(tr._stopped, tr._live),
+                tail=tr._epoch_flags if name == 'epoch_end' else None)
+            g.capture()
+            self.parts.append((g, reps))
+        stats = [(g.stats, reps) for g, reps in self.parts]
+        self.rng_step = sum(g.increments[0] * reps for g, reps in self.parts)
         tr.graph_stats = {
-            'route': self.route, 'warmup_s': t1 - t0,
-            'capture_s': time.perf_counter() - t1, 'nodes': nodes,
-            'kernel_nodes': kernels, 'steps_per_epoch': tr.len_dataloader,
-            'launches_per_epoch': sum(r for *_, r in self.graphs),
+            'route': self.route,
+            'warmup_s': sum(st['warmup_s'] for st, _ in stats),
+            'capture_s': sum(st['capture_s'] for st, _ in stats),
+            'nodes': sum(reps * st['nodes'] for st, reps in stats),
+            'kernel_nodes': sum(reps * st['kernel_nodes']
+                                for st, reps in stats),
+            'steps_per_epoch': tr.len_dataloader,
+            'launches_per_epoch': sum(reps for _, reps in stats),
             'rng_offset_per_epoch': self.rng_step}
 
     def __call__(self) -> None:
-        gen = self.trainer.generator
-        for _, outer, inc, reps in self.graphs:
-            for _ in range(reps):
-                offset = gen.get_offset()
-                outer.replay()
-                gen.set_offset(offset + inc)
+        for g, reps in self.parts:
+            g.replay(reps)
 
     def settle(self, epochs_ran: int) -> None:
         """The generator where `epochs_ran` epochs from the start leave it
@@ -388,7 +354,7 @@ class _CapturedEpochs:
                                           + epochs_ran * self.rng_step)
 
     def close(self) -> None:
-        self.graphs = []
+        self.parts = []
 
 
 class JamieTrainer:

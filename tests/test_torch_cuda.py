@@ -755,11 +755,91 @@ def test_lowrank_captured_matches_eager(cuda):
     assert _steps('lowrank_cluster').get('captured', 0) >= 60
 
 
-def test_failed_capture_raises(cuda):
-    """A step that reads the host cannot be captured: the loop raises, and
-    nothing runs in its place."""
+def test_umap_captured_matches_eager(cuda):
+    """umap_embed with its bisection and its layout epochs captured (the
+    negative partners drawn in the graph from the registered generator)
+    against `_eager=True`: the embedding bit for bit, every step on its
+    route."""
     from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.solvers import umap
+    rng = np.random.RandomState(1)
+    X = np.vstack([rng.randn(150, 12), rng.randn(150, 12) + 6.0]).astype(
+        np.float32)
+    outs = []
+    for eager in (False, True):
+        graphs.loop_steps.clear()
+        outs.append(umap.umap_embed(X, 8, n_epochs=60, seed=3, device=cuda,
+                                    _eager=eager))
+        route = 'eager' if eager else 'captured'
+        assert _steps('umap_sigma') == {route: 64}
+        assert _steps('umap_layout') == {route: 60}
+    assert np.isfinite(outs[0]).all()
+    np.testing.assert_array_equal(*outs)
+
+
+def test_mmdma_captured_matches_eager(cuda):
+    """_mmdma_opt's autograd + Adam step captured against the same step op
+    by op on the card, over a batch of 4 runs: embeddings and MMD bit for
+    bit."""
+    from jamie_tpu_torch import compare
+    g = torch.Generator().manual_seed(0)
+    x = [torch.randn(120, f, generator=g) for f in (10, 7)]
+    Ks = [(v / v.norm(dim=1, keepdim=True)).to(cuda) for v in x]
+    Ks = [v @ v.T for v in Ks]
+    a = [(torch.rand(4, 120, 6, generator=g) * 1e-2).to(cuda)
+         for _ in range(2)]
+    hyper = [torch.tensor(v, device=cuda) for v in (
+        [0.1, 0.3, 0.6, 1.2], [1e-2, 1e-3, 1e-2, 1e-3],
+        [1e-3, 1e-4, 1e-4, 1e-3])]
+    outs = [compare._mmdma_opt(*Ks, *a, *hyper, 6, 40, _eager=e)
+            for e in (False, True)]
+    assert _steps('mmdma') == {'captured': 40, 'eager': 40}
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that reads the host cannot be captured: the loop raises, and
+    nothing runs in its place. So for a bare step and for each of the
+    UMAP bisection, the UMAP layout and MMD-MA with a host read put into
+    its step: the warm-up step runs, the capture raises. The inputs are
+    made first: a failed capture leaves the default CUDA generator unable
+    to draw."""
+    from jamie_tpu_torch import compare
+    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.solvers import umap
+    g = torch.Generator().manual_seed(0)
+    knn = torch.rand(50, 15, generator=g).sort(1).values.to(cuda)
+    Y = torch.randn(50, 4, generator=g).to(cuda)
+    W = torch.rand(50, 50, generator=g).to(cuda)
+    a = torch.rand(2, 30, 3, generator=g).to(cuda)
+    K = torch.eye(30, device=cuda)
+    s = torch.ones(2, device=cuda)
     x = torch.ones(4, device=cuda)
     runner = graphs.steps_runner('bad', lambda: x.add_(float(x.sum())), cuda)
     with pytest.raises(RuntimeError):
         runner.run(3)
+
+    def reads_host(fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            float(args[1].sum())
+            return out
+        return wrapped
+    graphs.loop_steps.clear()
+    with monkeypatch.context() as m:
+        m.setattr(umap, '_weight_sum', reads_host(umap._weight_sum))
+        with pytest.raises(RuntimeError):
+            umap._smooth_knn(knn, 10)
+    with monkeypatch.context() as m:
+        m.setattr(umap, '_repulsion', reads_host(umap._repulsion))
+        with pytest.raises(RuntimeError):
+            umap._optimize_layout(W, Y, torch.Generator(device=cuda), 10,
+                                  1.5, 0.9)
+    with monkeypatch.context() as m:
+        m.setattr(compare, 'adam_update', reads_host(compare.adam_update))
+        with pytest.raises(RuntimeError):
+            compare._mmdma_opt(K, K, a, a, s, s, s, 3, 10)
+    # each ran its eager warm-up step, then the capture raised
+    for loop in ('umap_sigma', 'umap_layout', 'mmdma'):
+        assert _steps(loop) == {'captured': 1}

@@ -121,3 +121,105 @@ def test_estimator_umap_preclass_end_to_end():
     assert emb[0].shape == (40, 32) and np.isfinite(emb[0]).all()
     imp = jm.modal_predict(d1, 0)
     assert imp.shape == (40, 15) and np.isfinite(imp).all()
+
+
+# ------------------------------------------ the loops' shared steps (CPU)
+def _steps(name):
+    from jamie_tpu_torch.core import graphs
+    return {k.split('/')[1]: v for k, v in graphs.loop_steps.items()
+            if k.startswith(name + '/')}
+
+
+@pytest.mark.parametrize('iters', [1, 7, 64])
+def test_smooth_knn_steps_match_reference(iters):
+    """The bisection's shared step `iters` times on the 'cpu' route: rho
+    exactly, sigma within 1e-5 relative of jamie_tpu's after as many
+    fori_loop steps."""
+    from jamie_tpu_torch.core import graphs
+    rng = np.random.RandomState(5)
+    knn_d = np.sort(np.abs(rng.randn(40, 15)), axis=1).astype(np.float32)
+    rho_r, sigma_r = (np.asarray(a) for a in ju._smooth_knn(
+        jnp.asarray(knn_d), iters=iters))
+    graphs.loop_steps.clear()
+    rho, sigma = (a.numpy() for a in tu._smooth_knn(torch.as_tensor(knn_d),
+                                                     iters=iters))
+    assert _steps('umap_sigma') == {'cpu': iters}
+    np.testing.assert_array_equal(rho, rho_r)
+    np.testing.assert_allclose(sigma, sigma_r, rtol=1e-5)
+
+
+@pytest.mark.parametrize('n_epochs', [7, 500])
+def test_layout_alpha_matches_reference_exactly(n_epochs, monkeypatch):
+    """Every epoch's float32 learning rate, from the int32 device counter,
+    equals jamie_tpu's lr0 (1 - i / n_epochs) in its jitted fori_loop bit
+    for bit (lr0 0.7: the product after the fused subtraction too)."""
+    import jax
+    seen = []
+    real = tu._alpha
+
+    def record(i, rcp, lr0):
+        out = real(i, rcp, lr0)
+        seen.append(out.clone())
+        return out
+    monkeypatch.setattr(tu, '_alpha', record)
+    W = torch.zeros(5, 5)
+    Y0 = torch.as_tensor(np.random.RandomState(0).randn(5, 2),
+                         dtype=torch.float32)
+    tu._optimize_layout(W, Y0, torch.Generator(), n_epochs, 1.5, 0.9,
+                        neg_rate=0, lr0=0.7)
+
+    def body(i, out):
+        return out.at[i].set(0.7 * (1.0 - i / n_epochs))
+    want = np.asarray(jax.jit(lambda: jax.lax.fori_loop(
+        0, n_epochs, body, jnp.zeros(n_epochs, jnp.float32)))())
+    got = torch.stack(seen).numpy()
+    assert got.dtype == np.float32 and got.shape == (n_epochs,)
+    np.testing.assert_array_equal(got, want)
+
+
+def _layout_case(n=30, dim=3):
+    X = _points(n, 6, seed=6)
+    W = torch.as_tensor(np.asarray(ju._fuzzy_graph(
+        jnp.asarray(jax_distance(X, 'euclidean')), 8)))
+    Y0 = torch.as_tensor((3.0 * np.random.RandomState(7).randn(n, dim))
+                         .astype(np.float32))
+    return W, Y0
+
+
+def test_optimize_layout_negatives_are_seeded_and_match_float64():
+    """neg_rate 5 on the CPU: a seed reproduces the layout, another seed
+    changes it, every epoch is one step of the shared loop; one epoch with
+    the partners the generator drew matches a float64 transcription of
+    jamie_tpu's body (umap.py:126-147) within 1e-5 of the largest
+    coordinate."""
+    from jamie_tpu_torch.core import graphs
+    W, Y0 = _layout_case()
+    a, b = tu.fit_ab()
+
+    def run(seed, epochs):
+        return tu._optimize_layout(W, Y0, torch.Generator().manual_seed(seed),
+                                   epochs, a, b, neg_rate=5)
+    graphs.loop_steps.clear()
+    e1 = run(3, 20)
+    assert _steps('umap_layout') == {'cpu': 20}
+    np.testing.assert_array_equal(e1.numpy(), run(3, 20).numpy())
+    assert not np.allclose(e1.numpy(), run(4, 20).numpy(), atol=1e-5)
+    assert torch.equal(Y0, _layout_case()[1])     # the input is not written
+
+    n = Y0.shape[0]
+    idx = torch.randint(0, n, (n, 5),
+                        generator=torch.Generator().manual_seed(3)).numpy()
+    Y, Wd = Y0.numpy().astype(np.float64), W.numpy().astype(np.float64)
+    sq = (Y * Y).sum(1)
+    d2 = np.maximum(sq[:, None] + sq[None, :] - 2.0 * Y @ Y.T, 1e-12)
+    att = (-2.0 * a * b * d2 ** (b - 1.0)) / (a * d2 ** b + 1.0)
+    lim = 4.0 / np.sqrt(d2)
+    C = np.clip(att * Wd, -lim, lim)
+    g = C.sum(1)[:, None] * Y - C @ Y
+    diffn = Y[:, None, :] - Y[idx]
+    d2n = np.maximum((diffn * diffn).sum(-1), 1e-12)
+    rep = 2.0 * b / ((0.001 + d2n) * (a * d2n ** b + 1.0))
+    want = Y + 1.0 * (g + np.clip(rep[:, :, None] * diffn, -4.0, 4.0).sum(1))
+    got = run(3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
