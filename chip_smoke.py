@@ -84,8 +84,12 @@
 19. The mesh path (K): a world-size-1 NCCL group through a FileStore,
    the step-4 fit again through JAMIE(mesh=create_mesh((1,), ('data',)))
    and through a (1, 1) data x model mesh, counts at 0 (K1 2000, K3 >= 2),
-   FOSCTTM and embeddings against step 4's; a 2048^2 mesh prime-dual solve
-   against the unsharded one; one `mesh:` line; the group destroyed.
+   every iteration and epoch captured with its NCCL collectives, FOSCTTM
+   and embeddings against step 4's, and each fit's eager twin (every loop
+   op by op) bit-equal to it; a 2048^2 mesh prime-dual solve captured and
+   eager, bit-equal, against the unsharded one; the mesh trainer's ms per
+   step on both routes at phase P's 1047- and 9190-cell shapes; one
+   `mesh:` line; the group destroyed.
 20. The card's route thresholds (L): JAMIE() with no corr_landmarks on
    24,000 SNARE-shaped cells per side (576M entries) at full width,
    euclidean distances, epoch_pd cut to 50 and epoch_DNN to 2, counts at
@@ -121,8 +125,9 @@
    features (K1 300, a rank-2048 LowRankF, FOSCTTM under 0.5, LTA above
    chance); K1 and K3 against their plain versions at these shapes first;
    one `examples:` line.
-24. The captured trainer (P): every epoch since step 4 but phase K's (the
-   mesh route trains eagerly) trained captured; then the trainer's epochs
+24. The captured trainer (P): every epoch since step 4 trained captured,
+   on one device or on phase K's mesh, but those of phase K's eager twins;
+   then the trainer's epochs
    replayed as CUDA graphs held bit for bit to its eager epoch body
    (fit(eager=True)) on full-width fits of the 1047-cell data (the default
    'diag' fit, batch_step=False, the half-mask hybrid prior, the identity
@@ -138,8 +143,9 @@
 25. The captured solver loops (Q): every solver loop since step 4 (the
    prime-dual iterations, FPS picks, the t-SNE bisection and optimizers,
    both low-rank phases, UMAP's sigma bisection and layout epochs, MMD-MA's
-   batched optimizer) ran as replays of a captured CUDA graph, but
-   phase K's mesh solves; then each loop's captured route held bit for
+   batched optimizer) ran as replays of a captured CUDA graph, phase K's
+   mesh solves with their collectives, but the iterations of phase K's
+   eager twins; then each loop's captured route held bit for
    bit to its eager step on the card: prime-dual at 300^2, 1047^2, 2048^2,
    3654^2 and 9190^2 (float32 and bfloat16 state, delay 50, 250
    iterations in chunks of 100; the printed lines identical, K1 250 times
@@ -159,6 +165,7 @@ It exits non-zero without a result when no CUDA device is visible or when
 the jamie_tpu_torch package is not next to it.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -1506,45 +1513,114 @@ def workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line, epochs=20,
           flush=True)
 
 
+@contextlib.contextmanager
+def eager_loops():
+    """A context in which every device loop runs its plain version, op by
+    op: the steps that `core/graphs.steps_runner` would capture and the
+    trainer's epochs (what `_eager=True` and fit(eager=True) select)."""
+    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    runner, epochs = graphs.steps_runner, JamieTrainer._epoch_runner
+    graphs.steps_runner = lambda *a, **k: runner(*a, **{**k, 'eager': True})
+    JamieTrainer._epoch_runner = lambda tr, eager=False: epochs(tr, True)
+    try:
+        yield
+    finally:
+        graphs.steps_runner, JamieTrainer._epoch_runner = runner, epochs
+
+
 def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
-               phases, smi_line, kw, n_pd=2048, epoch_pd=2000):
+               phases, smi_line, kw, n_pd=2048, epoch_pd=2000,
+               timing_cells=9190, timing_dim=512,
+               timing_epochs=((10, 50), (3, 10))):
     """K. The mesh path at world size 1: a world-size-1 NCCL group started
     through a FileStore (core.mesh.create_mesh), the 1047-cell fit of phase
     4 (same data, same config) through JAMIE(mesh=...) on a ('data',) mesh
     and on a (1, 1) ('data', 'model') mesh, each with the counts at 0: K1
-    epoch_pd and K3 >= 2 launches on the sharded path, FOSCTTM within
-    MESH_FOSCTTM_TOL of the unsharded fit's and the embeddings within
-    MESH_EMBED_RTOL / MESH_EMBED_ATOL of them; then an n_pd^2 prime-dual
-    solve on the mesh against the unsharded solve. One `mesh:` line. The
-    group is destroyed on the way out, so no later phase sees it."""
+    epoch_pd and K3 >= 2 launches on the sharded path, every prime-dual
+    iteration and epoch on the 'mesh_captured' route (CUDA graphs with the
+    NCCL collectives inside), FOSCTTM within MESH_FOSCTTM_TOL of the
+    unsharded fit's and the embeddings within MESH_EMBED_RTOL /
+    MESH_EMBED_ATOL of them; then each fit once more with every loop op by
+    op (`eager_loops`), which must give the same embeddings bit for bit.
+    Then an n_pd^2 prime-dual solve on the mesh, captured and with
+    `_eager=True` (bit-equal), against the unsharded solve. Then the mesh
+    trainer's ms per step, captured and eager, at phase P's bench shape
+    (the fit's 1047 PCA-512 cells, batch 512, 2 steps an epoch) and its
+    scGLUE shape (timing_cells random PCA-512 cells, 17 steps). One
+    `mesh:` line, with the routes the phase's loops took. The group is
+    destroyed on the way out, so no later phase sees it. Returns the
+    epochs and prime-dual steps that the eager twins ran on the 'mesh'
+    route."""
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.core import mesh as cm
+    from jamie_tpu_torch.models import CoupledVAE
     from jamie_tpu_torch.ops.distances import pairwise_distance
     from jamie_tpu_torch.solvers.prime_dual import prime_dual
+    from jamie_tpu_torch.train import trainer as T
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    t_phase = time.perf_counter()
     line = {'unsharded': {'seconds': round(fit_s, 3), 'phases': phases,
                           'foscttm': foscttm}}
     bad = []
+    twins = {'epochs': 0, 'pd_steps': 0}
+
+    def routes():
+        return (dict(T.epoch_routes),
+                {k: v for k, v in graphs.loop_steps.items()
+                 if k.startswith('prime_dual/')})
+
+    def delta(before, after):
+        return [{k: v - b.get(k, 0) for k, v in a.items()
+                 if v != b.get(k, 0)} for b, a in zip(before, after)]
+    meshes = {}
     try:
         for name, shape, axes in (('data', (1,), ('data',)),
                                   ('data_model', (1, 1), ('data', 'model'))):
-            mesh = cm.create_mesh(shape, axes)
-            jm = JAMIE(mesh=mesh, **kw)
-            ops.reset_launch_counts()
-            t = time.perf_counter()
-            emb = jm.fit_transform(dataset=data)
-            secs = time.perf_counter() - t
-            counts = ops.launch_counts()
+            mesh = meshes[name] = cm.create_mesh(shape, axes)
+            runs = {}
+            for route in ('captured', 'eager'):
+                jm = JAMIE(mesh=mesh, **kw)
+                before = routes()
+                ops.reset_launch_counts()
+                t = time.perf_counter()
+                if route == 'captured':
+                    emb = jm.fit_transform(dataset=data)
+                else:
+                    with eager_loops():
+                        emb = jm.fit_transform(dataset=data)
+                secs = time.perf_counter() - t
+                runs[route] = dict(emb=emb, jm=jm, seconds=secs,
+                                   counts=ops.launch_counts(),
+                                   routes=delta(before, routes()))
+            cap, eag = runs['captured'], runs['eager']
+            jm, emb, counts = cap['jm'], cap['emb'], cap['counts']
             f = jm.test_closer(emb)
             err = max(float(np.abs(a - b).max())
                       for a, b in zip(emb, integrated))
             close = all(np.allclose(a, b, rtol=MESH_EMBED_RTOL,
                                     atol=MESH_EMBED_ATOL)
                         for a, b in zip(emb, integrated))
+            twin = max(float(np.abs(a - b).max())
+                       for a, b in zip(emb, eag['emb']))
+            epochs, steps = cap['routes']
+            e_epochs, e_steps = eag['routes']
+            twins['epochs'] += e_epochs.get('mesh', 0)
+            twins['pd_steps'] += e_steps.get('prime_dual/mesh', 0)
             line[name] = {'mesh': dict(zip(mesh.mesh_dim_names,
                                            mesh.mesh.shape)),
                           'backend': torch.distributed.get_backend(),
-                          'seconds': round(secs, 3),
-                          'phases': jm.phase_timings, 'launches': counts,
-                          'foscttm': f, 'max_abs_embed_diff': err}
+                          'seconds': round(cap['seconds'], 3),
+                          'eager_seconds': round(eag['seconds'], 3),
+                          'phases': jm.phase_timings,
+                          'eager_phases': eag['jm'].phase_timings,
+                          'launches': counts, 'foscttm': f,
+                          'max_abs_embed_diff': err,
+                          'max_abs_eager_twin_diff': twin,
+                          'routes': cap['routes'],
+                          'eager_routes': eag['routes'],
+                          'graphs': jm.trainer.graph_stats}
             if counts['fused_pd_grad_update'] != jm.config.epoch_pd:
                 bad.append(f'{name}: K1 launched '
                            f'{counts["fused_pd_grad_update"]} times')
@@ -1553,7 +1629,21 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
             if not (abs(f - foscttm) <= MESH_FOSCTTM_TOL and close):
                 bad.append(f'{name}: FOSCTTM {f} vs {foscttm}, embeddings '
                            f'max |diff| {err}')
-        # The prime-dual solve alone at the landmark solve's size
+            if twin != 0.0:
+                bad.append(f'{name}: captured and eager fits differ by '
+                           f'{twin}')
+            if (epochs != {'mesh_captured': jm.trainer.epochs_run}
+                    or steps != {'prime_dual/mesh_captured':
+                                 jm.config.epoch_pd}):
+                bad.append(f'{name}: the captured fit ran {epochs} epochs '
+                           f'and {steps} iterations by route')
+            if (e_epochs != {'mesh': eag['jm'].trainer.epochs_run}
+                    or e_steps != {'prime_dual/mesh': jm.config.epoch_pd}):
+                bad.append(f'{name}: the eager twin ran {e_epochs} epochs '
+                           f'and {e_steps} iterations by route')
+            del runs, cap, eag
+        # The prime-dual solve alone at the landmark solve's size, on the
+        # (1, 1) mesh: captured, op by op, and unsharded
         g = torch.Generator(device=dev).manual_seed(5)
         xs = [torch.randn(n_pd, dim, device=dev, generator=g)
               for dim in (64, 48)]
@@ -1563,27 +1653,81 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
         F_plain = prime_dual(Kx, Ky, **pd_kw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t
-        ops.reset_launch_counts()
-        t = time.perf_counter()
-        F_mesh = prime_dual(Kx, Ky, mesh=mesh, **pd_kw)
-        torch.cuda.synchronize()
-        mesh_s = time.perf_counter() - t
-        k1 = ops.launch_counts()['fused_pd_grad_update']
+        solves = {}
+        for route in ('captured', 'eager'):
+            before = routes()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            F_mesh = prime_dual(Kx, Ky, mesh=mesh, _eager=route == 'eager',
+                                **pd_kw)
+            torch.cuda.synchronize()
+            solves[route] = dict(
+                F=F_mesh, s=time.perf_counter() - t,
+                K1=ops.launch_counts()['fused_pd_grad_update'],
+                steps=delta(before, routes())[1],
+                stats=dict(graphs.last_stats['prime_dual']))
+        F_mesh = solves['captured']['F']
         d_f = float((F_mesh - F_plain).abs().max())
+        d_twin = float((F_mesh - solves['eager']['F']).abs().max())
+        twins['pd_steps'] += solves['eager']['steps'].get('prime_dual/mesh',
+                                                           0)
         limit = MESH_PD_REL * float(F_plain.abs().max())
-        line['prime_dual'] = {'shape': [n_pd, n_pd], 'epoch_pd': epoch_pd,
-                              'max_abs_dF': d_f, 'limit': limit,
-                              'mesh_s': round(mesh_s, 3),
-                              'plain_s': round(plain_s, 3), 'K1': k1}
-        if not (d_f <= limit and k1 == epoch_pd):
+        k1 = [solves[r]['K1'] for r in ('captured', 'eager')]
+        line['prime_dual'] = {
+            'shape': [n_pd, n_pd], 'epoch_pd': epoch_pd, 'max_abs_dF': d_f,
+            'limit': limit, 'max_abs_eager_twin_dF': d_twin,
+            'mesh_s': round(solves['captured']['s'], 3),
+            'mesh_eager_s': round(solves['eager']['s'], 3),
+            'plain_s': round(plain_s, 3), 'K1': k1,
+            'steps': [solves[r]['steps'] for r in ('captured', 'eager')],
+            'capture': solves['captured']['stats']}
+        if not (d_f <= limit and d_twin == 0.0
+                and k1 == [epoch_pd, epoch_pd]
+                and solves['captured']['steps']
+                == {'prime_dual/mesh_captured': epoch_pd}):
             bad.append(f'prime_dual {n_pd}^2: max |dF| {d_f} (limit '
-                       f'{limit}), K1 {k1}')
+                       f'{limit}), eager twin {d_twin}, K1 {k1}, steps '
+                       f'{line["prime_dual"]["steps"]}')
+        del Kx, Ky, xs, F_plain, F_mesh, solves
+
+        # The mesh trainer's steps at phase P's bench and scGLUE shapes, on
+        # the ('data',) mesh
+        mesh = meshes['data']
+        cfg = JamieConfig(epoch_DNN=10 ** 6, min_epochs=2500,
+                          use_early_stop=False, log_DNN=10 ** 6)
+        X = [x.detach() for x in jm.trainer.data]
+        n, dims = int(X[0].shape[0]), tuple(int(x.shape[1]) for x in X)
+        timing = {}
+        tr = JamieTrainer(cfg, CoupledVAE(dims, 32, matmul_bf16=True), X,
+                          np.eye(n, dtype=np.float32),
+                          np.zeros((n, n), np.float32), device=dev,
+                          mesh=mesh)
+        timing[f'bench_{n}'] = step_timing(torch, tr, timing_epochs[0])
+        del tr
+        m, d = timing_cells, timing_dim
+        g = torch.Generator(device=dev).manual_seed(0)
+        Xs = [torch.randn(m, d, device=dev, generator=g) for _ in range(2)]
+        Fs = torch.rand(m, m, device=dev, generator=g)
+        tr = JamieTrainer(cfg, CoupledVAE((d, d), 32, matmul_bf16=True), Xs,
+                          'identity', Fs, device=dev, mesh=mesh)
+        timing[f'scglue_{m}'] = step_timing(torch, tr, timing_epochs[1])
+        del tr, Xs, Fs, X, jm
+        torch.cuda.empty_cache()
+        line['ms_per_step'] = timing
+        for key, t_s in timing.items():
+            if not (t_s['captured'].get('graph_nodes_per_step')
+                    and t_s['eager']['ms_per_step'] > 0):
+                bad.append(f'{key}: the mesh trainer did not time both '
+                           f'routes: {t_s}')
     finally:
         cm.destroy_group()
+    line['eager_twins'] = twins
+    line['phase_s'] = round(time.perf_counter() - t_phase, 3)
     line['card'] = smi_line
     print('mesh: ' + json.dumps(line, default=float), flush=True)
     if bad:
         fail('phase K (the mesh path) failed: ' + '; '.join(bad))
+    return twins
 
 
 def thresholds_phase(torch, JAMIE, ops, dev, smi_line, n=24_000,
@@ -2274,7 +2418,7 @@ def step_timing(torch, tr, epochs):
                       'idle_share': idle, 'device_ops_per_step': ops_n / L,
                       'epochs_timed': n_ep, 'build_s': build_s}
         st = tr.graph_stats
-        if st['route'] == 'captured':
+        if st['route'] in ('captured', 'mesh_captured'):
             out[route].update(
                 graph_launches_per_step=st['launches_per_epoch'] / L,
                 graph_nodes_per_step=st['nodes'] / L,
@@ -2665,7 +2809,6 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     graph launches per step, the replays, the device peak. One
     `solver_capture:` line. Returns the kernel launches of the captured
     runs, by kernel."""
-    import contextlib
     import importlib
     import io
     from unittest import mock
@@ -3176,9 +3319,12 @@ def main():
     # J. The analysis and baseline modules
     compare_phase(torch, ops, data, labels, dev, smi_line)
     # K. The mesh path at world size 1, against the fit of step 4
-    mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
-               jm.phase_timings, smi_line,
-               dict(epoch_DNN=20, min_epochs=10, use_early_stop=False))
+    t = time.perf_counter()
+    twins = mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm,
+                       fit_s, jm.phase_timings, smi_line,
+                       dict(epoch_DNN=20, min_epochs=10,
+                            use_early_stop=False))
+    print(f'phase K: {time.perf_counter() - t:.1f} s', flush=True)
     # L. The card's route thresholds: a dense fit past 520M entries
     thresholds_phase(torch, JAMIE, ops, dev, smi_line)
     # M-N. The benchmark harnesses at the published shapes
@@ -3190,12 +3336,15 @@ def main():
     t = time.perf_counter()
     path_counts['examples'] = examples_phase(torch, ops, kp, dev, smi_line)
     print(f'phase O: {time.perf_counter() - t:.1f} s', flush=True)
-    # Every epoch since step 4 trained captured but phase K's (the mesh
-    # route keeps the eager body)
+    # Every epoch since step 4 trained captured, on one device or on the
+    # mesh, but those of phase K's eager twins
     routes = dict(T.epoch_routes)
     print(f'epochs by route since step 4: {routes}', flush=True)
-    if routes.get('eager') or not routes.get('captured'):
-        fail(f'epochs ran eagerly on one card: {routes}')
+    if (routes.get('eager') or not routes.get('captured')
+            or not routes.get('mesh_captured')
+            or routes.get('mesh', 0) != twins['epochs']):
+        fail(f'epochs by route {routes}: expected every epoch captured but '
+             f"the {twins['epochs']} of phase K's eager twins")
 
     # P. The captured trainer against its eager epoch body
     t = time.perf_counter()
@@ -3205,9 +3354,9 @@ def main():
     print(f'phase P: {time.perf_counter() - t:.1f} s', flush=True)
 
     # Q. The captured solver loops against their eager steps. Every solver
-    # loop on the card since step 4 ran captured, but phase K's prime-dual
-    # solves (the mesh route runs its iterations op by op); the CPU
-    # references run on the 'cpu' route
+    # loop on the card since step 4 ran captured, phase K's mesh solves
+    # with their collectives, but the iterations of phase K's eager twins;
+    # the CPU references run on the 'cpu' route
     steps = dict(graphs.loop_steps)
     print(f'solver loop steps by route since step 4: {steps}', flush=True)
     eager = {k: v for k, v in steps.items() if k.endswith('/eager')}
@@ -3215,9 +3364,12 @@ def main():
     loops = {'prime_dual', 'fps', 'tsne_beta', 'tsne', 'tsne_single',
              'lowrank_cluster', 'lowrank_cast', 'umap_sigma', 'umap_layout',
              'mmdma'}
-    if eager or ran != loops:
+    mesh_steps = {k: v for k, v in steps.items() if k.endswith('/mesh')}
+    if (eager or ran != loops or not steps.get('prime_dual/mesh_captured')
+            or mesh_steps != {'prime_dual/mesh': twins['pd_steps']}):
         fail(f'solver loops ran {steps}: expected every step of '
-             f'{sorted(loops)} captured, and no other route but the mesh')
+             f'{sorted(loops)} captured, the mesh solves too, but the '
+             f"{twins['pd_steps']} of phase K's eager twins")
     t = time.perf_counter()
     path_counts['solver_capture'] = solver_capture_phase(
         torch, ops, dev, smi_line, X19[0], data)

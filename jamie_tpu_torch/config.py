@@ -12,8 +12,8 @@ mean what they mean in jamie_tpu: the trainer dispatches `epoch_chunk`
 epochs at a time (on the card as replays of captured CUDA graphs),
 reads each chunk's losses once, and keeps `dispatch_lookahead`
 chunks in flight past the one it reads; a chunk is also the step of the
-`metrics_path` log and of `checkpoint_every`. The mesh route dispatches
-sequentially, so `dispatch_lookahead` is inert there only.
+`metrics_path` log and of `checkpoint_every`; on a device mesh as on one
+device.
 """
 
 from __future__ import annotations
@@ -117,8 +117,7 @@ class JamieConfig:
     # k+1..k+1+L. Post-stop epochs are no-ops on the card (a conditional
     # node), so the <= L chunks dispatched after an early stop cost ~0.
     # 0 = fully sequential (also forced whenever checkpoint_every is set,
-    # because mid-fit snapshots need the state at the processed boundary,
-    # and on a mesh, where it is inert).
+    # because mid-fit snapshots need the state at the processed boundary).
     dispatch_lookahead: int = 3
     mesh_shape: Optional[Tuple[int, ...]] = None   # None -> all ranks on 'data'
     mesh_axis_names: Tuple[str, ...] = ('data',)

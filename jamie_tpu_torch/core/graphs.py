@@ -9,7 +9,8 @@ once as a CUDA graph on static buffers and replayed from the host:
   the step draws from registered; `steps_runner` picks it on the card and
   the same step called eagerly elsewhere, so both routes run one function.
   The solver loops, UMAP's, MMD-MA's and the trainer's epochs all capture
-  through it.
+  through it, on one device and on a device mesh, where the step's NCCL
+  collectives are captured with it (`core/mesh.py`).
 - `count_launch` counts a kernel wrapper's launches, once per replay for a
   launch inside a captured step.
 - `add_conditional` puts an IF conditional node into a capture, as the
@@ -33,6 +34,8 @@ from collections import Counter
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from . import mesh as cm
 
 _lib = None
 
@@ -87,9 +90,10 @@ _capturing: Optional[Dict[Callable, int]] = None
 
 # Steps run by each device loop since the process started (or the caller
 # cleared it), by '{loop}/{route}': 'captured' (replayed graphs, the eager
-# warm-up step included), 'eager' (the step op by op on the card, which
+# warm-up step included), 'mesh_captured' (the same on a device mesh, its
+# collectives in the graph), 'eager' (the step op by op on the card, which
 # only the loops' private `_eager` argument asks for), 'mesh' (op by op on
-# a device mesh) and 'cpu'.
+# a device mesh: on the CPU, or on the card with `_eager`) and 'cpu'.
 loop_steps: Counter = Counter()
 
 # The last runner of each loop's statistics, by loop name: its route and,
@@ -135,19 +139,33 @@ class StepGraph:
     whether the body ran or not. Its replays are not counted in
     `loop_steps`: the device decides whether the step ran.
 
+    With `mesh`, the step's collectives on a device mesh (NCCL, which
+    captures its kernels from 2.9.6 on: `core/mesh.require_graph_nccl`) are
+    captured with it, and the route is 'mesh_captured'. The eager warm-up
+    makes each process group's first NCCL call, which creates its
+    communicator, so no capture does. Its captures use
+    capture_error_mode='thread_local': under 'global', a CUDA call that
+    another thread makes during the capture invalidates it, and
+    ProcessGroupNCCL's watchdog thread queries the events of earlier
+    collectives (the warm-up's) at any time. A host read in the capturing
+    thread still raises, as on one device, whose captures keep 'global'.
+
     Kernel wrappers that launch inside the step are counted once per
     replay (`count_launch`). Nothing falls back: a failed capture or replay
     raises.
     """
 
-    route = 'captured'
-
     def __init__(self, name: str, step: Callable[[], None], device,
                  generators: Sequence[torch.Generator] = (),
                  restore: Optional[Sequence[torch.Tensor]] = None,
                  cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 tail: Optional[Callable[[], None]] = None):
+                 tail: Optional[Callable[[], None]] = None,
+                 mesh: bool = False):
+        if mesh:
+            cm.require_graph_nccl()
         self.name, self.step = name, step
+        self.route = 'mesh_captured' if mesh else 'captured'
+        self.error_mode = 'thread_local' if mesh else 'global'
         self.device = torch.device(device)
         self.generators = list(generators)
         self.restore, self.cond, self.tail = restore, cond, tail
@@ -208,7 +226,8 @@ class StepGraph:
             body.register_generator_state(g)
         _capturing = {}
         try:
-            with torch.cuda.graph(body, stream=stream):
+            with torch.cuda.graph(body, stream=stream,
+                                  capture_error_mode=self.error_mode):
                 self.step()
         finally:
             self.launches, _capturing = _capturing, None
@@ -220,7 +239,8 @@ class StepGraph:
             outer = torch.cuda.CUDAGraph()
             for g in gens:
                 outer.register_generator_state(g)
-            with torch.cuda.graph(outer, stream=stream):
+            with torch.cuda.graph(outer, stream=stream,
+                                  capture_error_mode=self.error_mode):
                 for g in gens:
                     torch.rand(1, generator=g, device=dev)
                 add_conditional(stream, body, *self.cond)
@@ -268,11 +288,12 @@ class EagerSteps:
 def steps_runner(name: str, step: Callable[[], None], device,
                  generators: Sequence[torch.Generator] = (),
                  eager: bool = False, mesh: bool = False):
-    """What runs a loop's `step`: a `StepGraph` on the card, else (on the
-    CPU, on a device mesh, or with `eager`) the step called op by op."""
+    """What runs a loop's `step`: a `StepGraph` on the card, on one device
+    or (`mesh`, its collectives captured too) on a device mesh; else (on
+    the CPU, or with `eager`) the step called op by op."""
     device = torch.device(device)
-    if device.type == 'cuda' and not (eager or mesh):
-        return StepGraph(name, step, device, generators)
+    if device.type == 'cuda' and not eager:
+        return StepGraph(name, step, device, generators, mesh=mesh)
     route = ('mesh' if mesh else 'eager' if device.type == 'cuda'
              else 'cpu')
     return EagerSteps(name, step, route)

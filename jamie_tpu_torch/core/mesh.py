@@ -30,12 +30,19 @@ The autograd-aware collectives come in two conventions:
 
 `torch.distributed.nn.functional.all_gather` is not used: its backward
 fails on a DeviceMesh sub-group ("Global rank 0 is not part of group").
+
+On the card the mesh loops (the prime-dual iteration, the trainer's
+epochs) capture these collectives into CUDA graphs with the rest of their
+step (`core/graphs.StepGraph(mesh=True)`). They qualify because they read
+nothing on the host and their shapes are fixed by the Split, never by the
+data; NCCL must be 2.9.6 or later (`require_graph_nccl`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 import shutil
@@ -58,6 +65,25 @@ _REDUCE_SCATTER = getattr(dist, 'reduce_scatter_single', None) \
 
 # The temporary directory of a world-size-1 group this module started
 _OWN_GROUP_DIR: List[str] = []
+
+# The first NCCL whose collectives a CUDA graph can capture
+NCCL_GRAPH_VERSION = (2, 9, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _nccl_version() -> tuple:
+    return tuple(torch.cuda.nccl.version())
+
+
+def require_graph_nccl() -> None:
+    """Raise RuntimeError unless PyTorch's NCCL can be captured in a CUDA
+    graph (NCCL_GRAPH_VERSION); the version is read once a process."""
+    found = _nccl_version()
+    if found < NCCL_GRAPH_VERSION:
+        raise RuntimeError(
+            f'the mesh loops capture their NCCL collectives in CUDA graphs, '
+            f'which needs NCCL {".".join(map(str, NCCL_GRAPH_VERSION))} or '
+            f'later; PyTorch has NCCL {".".join(map(str, found))}')
 
 
 def _backend(device_type: str) -> str:

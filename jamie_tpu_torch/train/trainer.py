@@ -17,10 +17,12 @@ in device tensors, with no host read. On the card its start, one step and
 its end are captured once per fit as CUDA graphs and replayed under a
 conditional node on `not stopped` (`_CapturedEpochs`), so every epoch
 after the stop is a no-op on the device, as jamie_tpu's `lax.cond` makes
-it; on the CPU and on a mesh the same body runs eagerly. The host dispatches `epoch_chunk` epochs at a time,
-reads each chunk's losses and flags in one copy and keeps up to
-`dispatch_lookahead` chunks in flight (jamie_tpu's `_fit`, :620-708);
-logging happens there, and a chunk dispatched after the stop is dropped.
+it; on a mesh the same graphs hold the step's collectives, and on the CPU
+the same body runs eagerly. The host dispatches `epoch_chunk` epochs at a
+time, reads each chunk's losses and flags in one copy and keeps up to
+`dispatch_lookahead` chunks in flight (jamie_tpu's `_fit`, :620-708), on a
+mesh too; logging happens there, and a chunk dispatched after the stop is
+dropped.
 
 A fit's complete state is a `FitState` (jamie_tpu's `TrainState`,
 :64-73): the flat parameters and BatchNorm stats, the Adam moments and
@@ -50,9 +52,10 @@ On a device mesh (`mesh=`, a `core.mesh` DeviceMesh; jamie_tpu's
   the one seeded generator and keeps its own rows of the batch, so a
   sharded fit follows the unsharded fit's random stream. A batch row may
   live on another rank: each rank fills the rows it owns into a zero
-  buffer and a reduce-scatter hands every rank its batch rows (an
-  all-reduce where every rank needs all of them, as for the column side of
-  a low-rank F); the (B0, B1) blocks of P and F take the same route;
+  buffer (a `where` over the whole batch, no host read) and a
+  reduce-scatter hands every rank its batch rows (an all-reduce where every
+  rank needs all of them, as for the column side of a low-rank F); the
+  (B0, B1) blocks of P and F take the same route;
 - the model is placed by `CoupledVAE.shard_` (BatchNorm over the whole
   batch, tensor parallelism on the 'model' axis by tp_wide_threshold);
   each rank's loss is its rows' share of the whole-batch means, the
@@ -159,7 +162,11 @@ class FlatClipAdam:
         (a bool mask over the flat vector) marks the parameters sharded
         over `model_group`, whose squares the clip's norm sums over it."""
         self.data_group, self.model_group = data_group, model_group
-        self.sharded = sharded
+        # the replicated and the sharded entries' positions, found once: a
+        # boolean index in the step would read the host
+        self.split = (None if sharded is None else
+                      (torch.nonzero(~sharded).squeeze(1),
+                       torch.nonzero(sharded).squeeze(1)))
         self.params = list(params)
         self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
         self.grad = torch.zeros_like(self.flat)
@@ -183,12 +190,15 @@ class FlatClipAdam:
         g = self.grad
         if self.data_group is not None:
             torch.distributed.all_reduce(g, group=self.data_group)
-        if self.sharded is None:
+        if self.split is None:
             norm = torch.linalg.vector_norm(g)
         else:
             sq = g * g
-            norm = torch.sqrt(sq[~self.sharded].sum() + cm.all_reduce_plain(
-                sq[self.sharded].sum(), self.model_group))
+            rep, tp = self.split
+            norm = torch.sqrt(sq.index_select(0, rep).sum()
+                              + cm.all_reduce_plain(
+                                  sq.index_select(0, tp).sum(),
+                                  self.model_group))
         g = torch.where(norm < self.MAX_NORM, g, g / norm * self.MAX_NORM)
         self.count.add_(1)
         adam_update(self.flat, g, self.mu, self.nu, self.count, self.lr,
@@ -234,9 +244,10 @@ def early_stop_update(epoch: torch.Tensor, active: torch.Tensor,
 
 
 # Epochs that fits trained since the process started (or the caller cleared
-# it), by route: 'captured' (CUDA graphs), 'eager' (the eager body on one
-# device) and 'mesh' (the eager body on a mesh). A post-stop epoch, a no-op,
-# is not counted.
+# it), by route: 'captured' (CUDA graphs), 'mesh_captured' (CUDA graphs on a
+# mesh, collectives inside), 'eager' (the eager body on one device) and
+# 'mesh' (the eager body on a mesh). A post-stop epoch, a no-op, is not
+# counted.
 epoch_routes: Counter = Counter()
 
 
@@ -265,7 +276,8 @@ class _Chunk:
 class _EagerEpochs:
     """The plain version of the captured epoch: the epoch body run op by
     op, its `not stopped` condition read on the host before each epoch. The
-    route on the CPU and on a mesh, and on the card with fit(eager=True)."""
+    route on the CPU (one device or a gloo mesh), and on the card with
+    fit(eager=True)."""
 
     def __init__(self, trainer: 'JamieTrainer'):
         self.trainer = trainer
@@ -310,13 +322,18 @@ class _CapturedEpochs:
     its state. A skipped epoch still advances the generator's offset on
     the host, so `settle` puts the generator where the epochs that ran
     leave it. Nothing falls back: a failed capture or replay raises.
-    """
 
-    route = 'captured'
+    On a mesh the parts hold the step's collectives (`StepGraph(mesh=
+    True)`, route 'mesh_captured'), also inside the IF node's body. Every
+    rank replays the same graphs and takes the same branch: `_stopped`
+    comes from the all-reduced losses (`_epoch_end`).
+    """
 
     def __init__(self, trainer: 'JamieTrainer'):
         from ..core import graphs
         tr = self.trainer = trainer
+        mesh = tr.mesh is not None
+        self.route = 'mesh_captured' if mesh else 'captured'
         self.start_offset = tr.generator.get_offset()
         restore = tr._device_state()
         self.parts = []
@@ -327,7 +344,8 @@ class _CapturedEpochs:
             g = graphs.StepGraph(
                 name, part, tr.device, (tr.generator,), restore=restore,
                 cond=(tr._stopped, tr._live),
-                tail=tr._epoch_flags if name == 'epoch_end' else None)
+                tail=tr._epoch_flags if name == 'epoch_end' else None,
+                mesh=mesh)
             g.capture()
             self.parts.append((g, reps))
         stats = [(g.stats, reps) for g, reps in self.parts]
@@ -558,14 +576,20 @@ class JamieTrainer:
         row indices) gives the values of rows this rank holds. Without a
         mesh, take(idx). On a mesh each rank fills the rows it owns into a
         zero buffer of the batch, then a reduce-scatter over 'data' gives it
-        its own batch rows, or (whole=True) an all-reduce every row."""
+        its own batch rows, or (whole=True) an all-reduce every row.
+
+        The buffer has static shapes and reads nothing on the host, so a
+        CUDA graph can capture it: take() gets the whole batch, with the
+        rows of other ranks clamped to local row 0, and a `where` (not a
+        product, which would let a non-finite row through) keeps the rows
+        this rank owns."""
         if self.mesh is None:
             return take(idx)
         start, b = self._blocks[i]
         own = (idx >= start) & (idx < start + b)
-        vals = take(idx[own] - start)
-        buf = vals.new_zeros((idx.shape[0],) + tuple(vals.shape[1:]))
-        buf[own] = vals
+        vals = take(torch.where(own, idx - start, 0))
+        keep = own.view((-1,) + (1,) * (vals.dim() - 1))
+        buf = torch.where(keep, vals, 0)
         if whole:
             return cm.all_reduce_plain(buf, self._split.group)
         return cm.reduce_scatter_plain(buf, self._split)
@@ -881,6 +905,10 @@ class JamieTrainer:
                 self._epoch_t, active, self._best, self._streak, cfg)
             self._best.copy_(best)
             self._streak.copy_(streak)
+            # On a mesh the losses are the all-reduced sums (`_report`), so
+            # `stop` is the same on every rank: each takes the same branch
+            # of the captured IF node, whose body holds collectives that a
+            # rank skipping it would leave the others waiting in
             self._stopped.copy_(stop)
             self._epoch_t.add_(1)
             self._out[0] = epoch_loss
@@ -893,10 +921,10 @@ class JamieTrainer:
 
     def _epoch_runner(self, eager: bool = False):
         """What runs one epoch from the live state: captured CUDA graphs on
-        the card without a mesh, else (and with `eager`) the eager body."""
+        the card, on a mesh too, else (and with `eager`) the eager body."""
         self.model.train()
         self.optimizer.zero_grad()
-        if eager or self.device.type != 'cuda' or self.mesh is not None:
+        if eager or self.device.type != 'cuda':
             runner = _EagerEpochs(self)
             self.graph_stats = {'route': runner.route}
             return runner
@@ -942,13 +970,13 @@ class JamieTrainer:
         snapshot needs the state at its chunk's end, so checkpointing
         dispatches sequentially.
 
-        On the card without a mesh the epochs run as captured CUDA graphs
-        (`_CapturedEpochs`), captured once per fit; a failed capture or
-        replay raises. On the CPU, on a mesh (a rule of this port: the mesh
-        route keeps the eager body and sequential dispatch, and
-        `dispatch_lookahead` is inert there) and with `eager=True` (the
-        plain version the captured route is held to) the same epoch body
-        runs op by op."""
+        On the card the epochs run as captured CUDA graphs
+        (`_CapturedEpochs`), captured once per fit, on a mesh with their
+        collectives inside; a failed capture or replay raises. On the CPU
+        and with `eager=True` (the plain version the captured route is held
+        to) the same epoch body runs op by op. A mesh dispatches as one
+        device does: every rank reads the same rows (from all-reduced
+        losses), so every rank dispatches the same chunks."""
         with cm.rank0_stdout():
             return self._fit(state, seed, checkpoint_dir, checkpoint_every,
                              metrics_path, eager)
@@ -962,8 +990,8 @@ class JamieTrainer:
         state = self.init_state(seed) if state is None else state
         self._load(state)
         checkpointing = bool(checkpoint_dir and checkpoint_every)
-        lookahead = (0 if checkpointing or self.mesh is not None
-                     else max(int(cfg.dispatch_lookahead), 0))
+        lookahead = 0 if checkpointing else max(int(cfg.dispatch_lookahead),
+                                                0)
         last_ckpt = dispatched = state.epoch
         stop_seen = bool(state.stopped)
         metrics_f = (open(metrics_path, 'a')

@@ -8,9 +8,9 @@ calls it at the defaults (precision 'default': bf16 operands, f32 result;
 f32 state) on distance-shaped operands (`probes.distance_operand`, seeds 0
 and 1), timed from the call to a synchronize after a 10-iteration solve
 of the same shape has built everything. Then the 2048^2 solve of
-chip_smoke.py's phase K on a world-size-1 ('data',) mesh, whose loop runs
-op by op, beside the same solve without the mesh. Prints the card's name
-and power limit, then one JSON line.
+chip_smoke.py's phase K on a world-size-1 ('data',) mesh, captured with its
+collectives and op by op (`_eager=True`), beside the same solve without
+the mesh. Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -62,7 +62,9 @@ def main(argv=None):
         out['mesh'] = {'size': n,
                        'plain_s': timed_solve(Kx, Ky, args.epoch_pd),
                        'mesh_s': timed_solve(Kx, Ky, args.epoch_pd,
-                                             mesh=mesh)}
+                                             mesh=mesh),
+                       'mesh_eager_s': timed_solve(Kx, Ky, args.epoch_pd,
+                                                   mesh=mesh, _eager=True)}
     finally:
         cm.destroy_group()
     print(json.dumps(out), flush=True)

@@ -666,6 +666,102 @@ def test_mesh_shards_run_k1_and_k3(nccl_mesh):
         F_cpu.abs().max())
 
 
+@pytest.mark.parametrize('precision,state_dtype', [
+    ('default', 'float32'), ('highest', 'bfloat16')])
+def test_mesh_prime_dual_captured_matches_eager(nccl_mesh, capsys,
+                                                precision, state_dtype):
+    """The mesh iteration captured with its NCCL collectives against the
+    same iteration op by op (`_eager=True`) on a one-rank NCCL mesh: F bit
+    for bit, the printed lines identical, K1 counted once per replay (45
+    launches on each route), every step on its route."""
+    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.probes import distance_operand
+    pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
+    dev = torch.device('cuda')
+    Kx, Ky = distance_operand(300, 0, dev), distance_operand(300, 1, dev)
+    kw = dict(epoch_pd=45, log_pd=10, delay=7, precision=precision,
+              state_dtype=state_dtype, mesh=nccl_mesh)
+    outs = []
+    for eager in (False, True):
+        graphs.loop_steps.clear()
+        ops.reset_launch_counts()
+        F = pdm.prime_dual(Kx, Ky, 32, 32, _eager=eager, **kw)
+        torch.cuda.synchronize()
+        assert pd_update.fused_pd_grad_update.launches == 45
+        assert _steps('prime_dual') == {'mesh' if eager
+                                        else 'mesh_captured': 45}
+        outs.append((F, capsys.readouterr().out.splitlines()))
+    assert outs[0][1] == outs[1][1] and len(outs[0][1]) == 4
+    assert torch.equal(outs[0][0], outs[1][0])
+
+
+def test_landmark_mesh_solve_runs_captured(nccl_mesh):
+    """The landmark solve on a one-rank NCCL mesh goes through the captured
+    mesh iteration (prime_dual(mesh=...)) and gives the unsharded
+    factors bit for bit."""
+    from jamie_tpu_torch.core import graphs
+    x, y = _pair(600, 50, 30, seed=0)
+    kw = dict(n_landmarks=128, k_interp=8, epoch_pd=100, verbose=False,
+              seed=5, factor_layout='dense', device='cuda')
+    graphs.loop_steps.clear()
+    F_mesh = landmark.landmark_correspondence(x, y, mesh=nccl_mesh, **kw)
+    assert _steps('prime_dual') == {'mesh_captured': 100}
+    F = landmark.landmark_correspondence(x, y, **kw)
+    assert torch.equal(F_mesh.u, F.u) and torch.equal(F_mesh.v, F.v)
+
+
+@pytest.mark.parametrize('shape', [(1,), (1, 1)])
+def test_mesh_fit_captured_equals_eager_on_card(cuda, tmp_path, shape):
+    """A fit on a one-rank NCCL mesh, ('data',) and (1, 1) ('data',
+    'model'), trains through the captured epoch graphs with the
+    collectives inside them (under the IF node too) and equals
+    fit(eager=True) bit for bit: epochs_run, history, metrics records and
+    the final FitState, over an early stop inside a chunk with
+    dispatch_lookahead 3 and dropout on."""
+    import json
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.core import mesh as cm
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    rng = np.random.RandomState(12)
+    n = 96
+    x = [rng.randn(n, d).astype(np.float32) for d in (30, 20)]
+    F = rng.rand(n, n).astype(np.float32)
+    cfg = JamieConfig(epoch_DNN=40, min_epochs=5, batch_size=32,
+                      epoch_chunk=5, log_DNN=1000, dispatch_lookahead=3,
+                      use_early_stop=True, max_steps_without_increment=2,
+                      min_increment=1e9)
+    mesh = cm.create_mesh(shape, ('data', 'model')[:len(shape)],
+                          device_type='cuda')
+    try:
+        out = {}
+        for eager in (False, True):
+            tr = JamieTrainer(cfg, CoupledVAE((30, 20), 8, dropout=0.3), x,
+                              np.eye(n, dtype=np.float32), F, device=cuda,
+                              mesh=mesh)
+            path = tmp_path / f'{eager}.jsonl'
+            state = tr.fit(metrics_path=str(path), eager=eager)
+            records = [{k: v for k, v in json.loads(line).items()
+                        if k not in ('seconds', 'memory')}
+                       for line in open(path)]
+            out[eager] = (state, tr.loss_history, tr.epoch_losses,
+                          tr.epochs_run, records, tr.graph_stats['route'])
+    finally:
+        cm.destroy_group()
+    (cs, ch, cl, cr, crec, croute), (es, eh, el, er, erec, eroute) = (
+        out[False], out[True])
+    assert (croute, eroute) == ('mesh_captured', 'mesh')
+    assert cr == er and cs.stopped and cr % 5 != 0
+    assert ch == eh and cl == el and crec == erec
+    for name in ('params', 'mu', 'nu'):
+        assert torch.equal(getattr(cs, name), getattr(es, name)), name
+    assert torch.equal(cs.rng.cpu(), es.rng.cpu())
+    for k in cs.batch_stats:
+        assert torch.equal(cs.batch_stats[k], es.batch_stats[k]), k
+    for name in ('count', 'best_running_loss', 'streak'):
+        assert getattr(cs, name) == getattr(es, name), name
+
+
 # ----------------------------------------------- captured solver loops
 def _steps(name):
     from jamie_tpu_torch.core import graphs
@@ -801,10 +897,10 @@ def test_mmdma_captured_matches_eager(cuda):
 def test_failed_capture_raises(cuda, monkeypatch):
     """A step that reads the host cannot be captured: the loop raises, and
     nothing runs in its place. So for a bare step and for each of the
-    UMAP bisection, the UMAP layout and MMD-MA with a host read put into
-    its step: the warm-up step runs, the capture raises. The inputs are
-    made first: a failed capture leaves the default CUDA generator unable
-    to draw."""
+    UMAP bisection, the UMAP layout, MMD-MA, the mesh prime-dual and the
+    mesh trainer with a host read put into its step: the warm-up step
+    runs, the capture raises. The inputs are made first: a failed capture
+    leaves the default CUDA generator unable to draw."""
     from jamie_tpu_torch import compare
     from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.solvers import umap
@@ -843,3 +939,37 @@ def test_failed_capture_raises(cuda, monkeypatch):
     # each ran its eager warm-up step, then the capture raised
     for loop in ('umap_sigma', 'umap_layout', 'mmdma'):
         assert _steps(loop) == {'captured': 1}
+
+    # the mesh loops: a host read put in front of the first collective of
+    # the prime-dual iteration and of the trainer's step (so no NCCL call
+    # is left in a broken capture) makes each capture raise
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.core import mesh as cm
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.solvers.prime_dual import prime_dual
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    def reads_host_first(fn):
+        def wrapped(x, *args):
+            float(x.sum())
+            return fn(x, *args)
+        return wrapped
+    xs = [torch.randn(64, d, generator=g) for d in (12, 9)]
+    mesh = cm.create_mesh((1,), ('data',), device_type='cuda')
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(cm, 'all_reduce_plain',
+                      reads_host_first(cm.all_reduce_plain))
+            with pytest.raises(RuntimeError):
+                prime_dual(K, K, 3, 3, epoch_pd=5, verbose=False,
+                           mesh=mesh)
+        cfg = JamieConfig(epoch_DNN=3, batch_size=32, log_DNN=1000)
+        tr = JamieTrainer(cfg, CoupledVAE((12, 9), 8), xs, 'identity',
+                          'zeros', device=cuda, mesh=mesh)
+        with monkeypatch.context() as m:
+            m.setattr(cm, 'reduce_scatter_plain',
+                      reads_host_first(cm.reduce_scatter_plain))
+            with pytest.raises(RuntimeError):
+                tr.fit()
+    finally:
+        cm.destroy_group()
+    assert _steps('prime_dual') == {'mesh_captured': 1}

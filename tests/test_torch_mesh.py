@@ -9,21 +9,30 @@ jamie_tpu at its top (the test bodies and fixtures do), and every worker
 checks that neither was imported. Each spawn runs several checks and
 returns their results; the tests hold them to the references."""
 
+import contextlib
+import functools
 import glob
 import importlib
+import io
+import json
 import os
+import tempfile
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from jamie_tpu_torch import JAMIE
 from jamie_tpu_torch.config import JamieConfig
+from jamie_tpu_torch.core import graphs
 from jamie_tpu_torch.core import mesh as cm
 from jamie_tpu_torch.models.convert import (load_flax_variables,
                                             to_flax_variables)
 from jamie_tpu_torch.models.coupled_vae import CoupledVAE
 from jamie_tpu_torch.ops.distances import pairwise_distance
+from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
+from jamie_tpu_torch.ops.sparse import SparseRows
 from jamie_tpu_torch.train.trainer import JamieTrainer
 
 # the submodule: jamie_tpu_torch.solvers binds the function prime_dual
@@ -125,6 +134,172 @@ def _step(mesh, ref, tp_wide_threshold):
                                         if v is not None}
 
 
+# ------------------------------------------- capturable mesh steps
+class _NoHostRead(TorchDispatchMode):
+    """Raises on an op that reads a tensor on the host or sizes its output
+    from the data (a boolean index is a nonzero): the CPU's stand-in for
+    "a CUDA graph can capture this step"."""
+
+    READS = {'nonzero', '_local_scalar_dense', 'is_nonzero', 'masked_select'}
+    INDEXED = {'index', 'index_put', 'index_put_', '_index_put_impl_'}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket.__name__
+        if name in self.READS or (name in self.INDEXED and any(
+                t is not None and t.dtype == torch.bool for t in args[1])):
+            raise RuntimeError(f'host read in a mesh step: {func}')
+        return func(*args, **(kwargs or {}))
+
+
+def _batch_rows_masked(tr, i, idx, take, whole=False):
+    """The batch-row exchange by boolean-mask indexing (the trainer's
+    before its mesh loop was captured): the reference of its buffer."""
+    start, b = tr._blocks[i]
+    own = (idx >= start) & (idx < start + b)
+    vals = take(idx[own] - start)
+    buf = vals.new_zeros((idx.shape[0],) + tuple(vals.shape[1:]))
+    buf[own] = vals
+    if whole:
+        return cm.all_reduce_plain(buf, tr._split.group)
+    return cm.reduce_scatter_plain(buf, tr._split)
+
+
+def _form_trainers(mesh, inf_row=False):
+    """A trainer on the mesh for each P and F form, 40 rows a modality
+    (10 a rank on 4 ranks), batch 16; with `inf_row`, modality 0's row 10
+    is infinite: rank 1's local row 0, where the other ranks' rows are
+    clamped."""
+    n, k = 40, 3
+    rng = np.random.RandomState(11)
+    data = [rng.randn(n, d).astype(np.float32) for d in (12, 9)]
+    if inf_row:
+        data[0][10] = np.inf
+    dense = rng.rand(n, n).astype(np.float32)
+    P = dense * (dense > 0.7)
+    rows, cols = np.nonzero(P)
+    half = (np.arange(n) % 2).astype(np.float32)
+    lm = [np.stack([rng.choice(8, k, replace=False) for _ in range(n)])
+          for _ in range(2)]
+    forms = {
+        'dense_dense': (P, dense),
+        'sparse_sparse': (SparseRows.from_coo(rows, cols, P[rows, cols],
+                                              (n, n)),
+                          SparseRows.top_k(dense, 4)),
+        'identity_lowrank': ('identity', LowRankF(
+            rng.rand(n, 5), rng.rand(n, 5), device='cpu')),
+        'mask_landmark': (half, SparseLandmarkF(
+            lm[0], rng.rand(n, k), lm[1], rng.rand(n, k), rng.rand(8, 8),
+            device='cpu')),
+        'dense_zeros': (P, 'zeros'),
+    }
+    cfg = JamieConfig(batch_size=16, output_dim=5, dropout=0.0)
+    return {name: JamieTrainer(cfg, CoupledVAE((12, 9), 5, dropout=0.0),
+                               data, Pf, Ff, device='cpu', mesh=mesh)
+            for name, (Pf, Ff) in forms.items()}
+
+
+def _batch_blocks(tr, idx0, idx1):
+    """Every block `batch_loss` exchanges: x0, x1, P_sub, F_sub."""
+    return (tr._batch_rows(0, idx0, lambda r: tr.data[0][r]),
+            tr._batch_rows(1, idx1, lambda r: tr.data[1][r]),
+            tr._p_sub(idx0, idx1), tr._f_sub(idx0, idx1))
+
+
+def _batch_rows_checks(mesh):
+    """Per form and batch: whether the static exchange equals the masked
+    one bit for bit, whether x0 is finite and whether the batch holds the
+    infinite row, and whether the guard catches the masked exchange."""
+    rng = np.random.RandomState(12)
+    batches = {  # 'rank0_only': ranks 1-3 own no row of either side
+        'spread': (rng.randint(0, 40, 16), rng.randint(0, 40, 16)),
+        'rank0_only': (rng.randint(0, 10, 16), rng.randint(0, 10, 16)),
+        'rank3_only': (rng.randint(11, 40, 16), rng.randint(30, 40, 16)),
+    }
+    out = {}
+    for name, tr in _form_trainers(mesh, inf_row=True).items():
+        for tag, (i0, i1) in batches.items():
+            idx0, idx1 = torch.as_tensor(i0), torch.as_tensor(i1)
+            got = _batch_blocks(tr, idx0, idx1)
+            tr._batch_rows = functools.partial(_batch_rows_masked, tr)
+            want = _batch_blocks(tr, idx0, idx1)
+            try:
+                with _NoHostRead():
+                    _batch_blocks(tr, idx0, idx1)
+                caught = False
+            except RuntimeError:
+                caught = True
+            del tr._batch_rows
+            out[(name, tag)] = dict(
+                equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+                finite=bool(torch.isfinite(got[0]).all()),
+                inf_row=bool((idx0 == 10).any()), caught=caught)
+    return out
+
+
+def _guarded_epoch(tr):
+    """One epoch's three parts under _NoHostRead; the epoch's losses."""
+    tr._load(tr.init_state())
+    tr.model.train()
+    tr.optimizer.zero_grad()
+    with _NoHostRead():
+        tr._epoch_start()
+        for _ in range(tr.len_dataloader):
+            tr._epoch_step()
+        tr._epoch_end()
+        tr._epoch_flags()
+    return tr._out.clone()
+
+
+def _guarded_prime_dual(mesh, Kx, Ky, dx, dy, **kw):
+    """prime_dual on the mesh with every iteration under _NoHostRead (the
+    host reads of the log lines stay outside), and the same solve
+    unguarded."""
+    def runner(name, step, device, generators=(), eager=False,
+               mesh=False):
+        def guarded():
+            with _NoHostRead():
+                step()
+        return graphs.EagerSteps(name, guarded, 'mesh')
+    plain = pd.prime_dual(Kx, Ky, dx, dy, device='cpu', mesh=mesh, **kw)
+    real = pd.graphs.steps_runner
+    pd.graphs.steps_runner = runner
+    try:
+        guarded = pd.prime_dual(Kx, Ky, dx, dy, device='cpu', mesh=mesh,
+                                **kw)
+    finally:
+        pd.graphs.steps_runner = real
+    return guarded, plain
+
+
+STOP_KW = dict(epoch_DNN=40, min_epochs=5, batch_size=16, epoch_chunk=5,
+               log_DNN=1, use_early_stop=True, max_steps_without_increment=2,
+               min_increment=1e9, dropout=0.3)
+
+
+def _lookahead_fits(mesh):
+    """The same mesh fit with dispatch_lookahead 0 and 2, its early stop
+    inside a chunk: each one's epochs, history, prints, metrics records and
+    final state."""
+    data, P, F = _step_setup()[:3]
+    out = {}
+    for la in (0, 2):
+        cfg = JamieConfig(dispatch_lookahead=la, output_dim=5, **STOP_KW)
+        tr = JamieTrainer(cfg, CoupledVAE((12, 9), 5, dropout=0.3), data, P,
+                          F, device='cpu', mesh=mesh)
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'metrics.jsonl')
+            with contextlib.redirect_stdout(buf):
+                state = tr.fit(metrics_path=path)
+            records = ([{k: v for k, v in json.loads(ln).items()
+                         if k != 'seconds'} for ln in open(path)]
+                       if cm.is_rank0() else [])
+        out[la] = dict(run=tr.epochs_run, history=tr.loss_history,
+                       losses=tr.epoch_losses, prints=buf.getvalue(),
+                       records=records, state=state)
+    return out
+
+
 # --------------------------------------------------------------- workers
 def _worker_data_mesh(mesh, step_ref, snap_dir, pair):
     """The checks on a 4-rank ('data',) mesh."""
@@ -164,6 +339,16 @@ def _worker_data_mesh(mesh, step_ref, snap_dir, pair):
     out['plain_mesh'] = plain.mesh
     emb_pl = plain.fit_transform(dataset=data)
     out['plain_fit'] = dict(embed=emb_pl, foscttm=plain.test_closer(emb_pl))
+    # the mesh loops' steps as a CUDA graph needs them: no host read
+    out['batch_rows'] = _batch_rows_checks(mesh)
+    trainers = _form_trainers(mesh)
+    out['guarded_epochs'] = {
+        name: _guarded_epoch(trainers[name])
+        for name in ('dense_dense', 'mask_landmark')}
+    _, Kx, Ky, dx, dy = _solver_inputs()[1]
+    out['guarded_pd'] = _guarded_prime_dual(mesh, Kx, Ky, dx, dy,
+                                            epoch_pd=12, delay=3, log_pd=5)
+    out['lookahead'] = _lookahead_fits(mesh)
     _no_jax()
     return out
 
@@ -202,6 +387,9 @@ def _worker_2d_mesh(mesh, step_ref, model_path):
         kernel=tuple(jm.model.layers['enc0_b0'].dense.weight.shape),
         predict=jm.modal_predict(data[0], 0), data=data)
     jm.save_model(model_path)     # every rank calls, rank 0 writes
+    # tensor parallelism's step (the clip's norm over 'model') reads
+    # nothing on the host either
+    out['guarded_epoch'] = _guarded_epoch(_trainer('tp256', mesh))
     _no_jax()
     return out
 
@@ -444,6 +632,59 @@ def test_mesh_snapshot_restores_on_one_process(data_mesh, snap_dir,
     for a, b in zip(one.trainer.final_embed(state),
                     data_mesh[0]['auto_fit']['embed']):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_batch_rows_equal_the_masked_exchange(data_mesh):
+    """`_batch_rows` with static shapes gives the buffer of the boolean-mask
+    exchange bit for bit for every P and F form, on batches spread over
+    the ranks and on batches that leave ranks with no row; an infinite row
+    that a rank clamps to and does not own stays out; the guard catches
+    the masked exchange."""
+    for rank in data_mesh:
+        checks = rank['batch_rows']
+        assert len(checks) == 15
+        for key, c in checks.items():
+            assert c['equal'] and c['caught'], key
+            assert c['finite'] or c['inf_row'], key
+        assert not checks[('dense_dense', 'rank0_only')]['inf_row']
+
+
+def test_mesh_steps_read_nothing_on_the_host(data_mesh, mesh_2d):
+    """One mesh epoch (start, steps, end) of a dense and of a landmark
+    form on the ('data',) mesh and of a tensor-parallel trainer on the
+    (2, 2) mesh, and every iteration of a mesh prime-dual solve, run under
+    _NoHostRead on gloo: the CPU's stand-in for a step that a CUDA graph
+    can capture. The guarded solve equals the unguarded one."""
+    for rank in data_mesh:
+        for name, out in rank['guarded_epochs'].items():
+            assert torch.isfinite(out).all(), name
+            assert out[6] == 1.0            # the epoch ran
+        guarded, plain = rank['guarded_pd']
+        assert guarded.shape == (37, 29)
+        assert torch.equal(guarded, plain)
+    for rank in mesh_2d:
+        assert torch.isfinite(rank['guarded_epoch']).all()
+
+
+def test_mesh_lookahead_equals_sequential_dispatch(data_mesh):
+    """dispatch_lookahead=2 on the mesh against sequential dispatch, over
+    an early stop inside a chunk: the same epochs, history, prints,
+    metrics records and final state on every rank."""
+    for rank in data_mesh:
+        seq, ahead = rank['lookahead'][0], rank['lookahead'][2]
+        assert seq['state'].stopped and seq['run'] % 5 != 0
+        for key in ('run', 'history', 'losses', 'prints', 'records'):
+            assert seq[key] == ahead[key], key
+        a, b = seq['state'], ahead['state']
+        for name in ('params', 'mu', 'nu', 'rng'):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+        for k in a.batch_stats:
+            assert torch.equal(a.batch_stats[k], b.batch_stats[k]), k
+        for name in ('count', 'epoch', 'best_running_loss', 'streak'):
+            assert getattr(a, name) == getattr(b, name), name
+    rank0 = data_mesh[0]['lookahead'][0]
+    assert rank0['prints'].count('epoch:[') == rank0['run']
+    assert rank0['records'][-1]['epoch_end'] == rank0['run']
 
 
 # ----------------------------------------------------- (2, 2) data x model
