@@ -147,18 +147,34 @@
    mesh solves with their collectives, but the iterations of phase K's
    eager twins; then each loop's captured route held bit for
    bit to its eager step on the card: prime-dual at 300^2, 1047^2, 2048^2,
-   3654^2 and 9190^2 (float32 and bfloat16 state, delay 50, 250
-   iterations in chunks of 100; the printed lines identical, K1 250 times
+   3654^2 and 9190^2 (float32 and bfloat16 state, delay 50, 110
+   iterations in chunks of 50; the printed lines identical, K1 110 times
    on each route), FPS on the 19,000-cell PCA-512 scores (2048 picks),
    t-SNE at 1047 and 9190 cells (K3 twice an iteration), low-rank at 1047
    cells, the UMAP bisection on the 1047-cell data's kNN distances, the
    UMAP layout at 1047 x 512 and 9190 x 512, MMD-MA on the 1047-cell data
    (36 runs, 200 iterations); ms per step on each route, capture seconds,
-   kernel nodes, graph launches per step and the device peak; one
-   `solver_capture:` line (see solver_capture_phase).
-26. A `kernels` JSON line (with each kernel's launches on the fit, bench,
-   time-and-memory, examples and captured-loop paths), the nvidia-smi
-   line, and as the last line {"ok": true, "device": {...}}.
+   kernel nodes, graph launches per step and the device peak; then a
+   step that reads the host fails to capture, and after it the default
+   CUDA generator draws and a step drawing from a generator captures and
+   replays; one `solver_capture:` line (see solver_capture_phase).
+26. The real-data examples (R): the twins of examples/scgem.py,
+   comparison.py, imputation_comparison.py --scgem, scmnc_motor.py
+   --partial, scmnc_motor_sweep.py (2 transforms, 1 seed),
+   motor_provenance_fingerprint.py (--confirm, geodesic and euclidean) and
+   scmnc_visual.py --partial, each through its main on synthetic files in
+   the datasets' formats at the published widths (scGEM 177 x 230 / 27
+   text, the motor .rda 1208 x 1286 / 29, the visual CSVs 3654 x 1302 /
+   39), and scglue.run on 2048 cells at 28,930 / 241,757 features made in
+   memory; epoch_DNN cut to 100, epoch_pd 2000 kept, the cuts on a
+   `phase R: cuts:` line; counts at 0 before each twin: K1 2000 a fit
+   (20,000 for UnionCom), K3 launched, the example's record keys, every
+   FOSCTTM under 0.5, every number finite; one `examples_data:` line (see
+   examples_data_phase).
+27. A `kernels` JSON line (with each kernel's launches on the fit, bench,
+   time-and-memory, examples, captured-loop and real-data-example paths),
+   the nvidia-smi line, and as the last line {"ok": true, "device":
+   {...}}.
 
 Any failure ends the run with a non-zero exit code before the last line.
 It exits non-zero without a result when no CUDA device is visible or when
@@ -166,10 +182,13 @@ the jamie_tpu_torch package is not next to it.
 """
 
 import contextlib
+import csv
+import gzip
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -686,16 +705,18 @@ def atlas_on_card(torch, dev, n, dims=(20000, 40000), density=0.03,
 
 
 def scglue_on_card(torch, dev, n=9190, f_atac=241757, f_rna=28930,
-                   density=0.05, latent=8, seed=1):
+                   density=0.05, latent=8, seed=1, return_labels=False):
     """scGLUE-shaped modalities (bench.py:211-233's shapes, before its
     per-column scaling), generated on the card: an 8-dimensional latent
     around 6 cluster centres; ATAC as 0/1 peaks, (z W + noise) above the
     first 1024 rows' 95% quantile, as a host CSR (about 111M nonzeros);
-    RNA as a dense host f32 relu(z W + 0.5 noise)."""
+    RNA as a dense host f32 relu(z W + 0.5 noise). With return_labels,
+    each cell's cluster too."""
     g = torch.Generator(device=dev).manual_seed(seed)
     z = torch.randn(n, latent, generator=g, device=dev)
-    z += 3.0 * torch.randn(6, latent, generator=g, device=dev)[
-        torch.randint(0, 6, (n,), generator=g, device=dev)]
+    centres = torch.randn(6, latent, generator=g, device=dev)
+    cluster = torch.randint(0, 6, (n,), generator=g, device=dev)
+    z += 3.0 * centres[cluster]
     w = torch.randn(latent, f_atac, generator=g, device=dev)
 
     def logits(s, e):
@@ -709,6 +730,8 @@ def scglue_on_card(torch, dev, n=9190, f_atac=241757, f_rna=28930,
     w = torch.randn(latent, f_rna, generator=g, device=dev)
     rna = (z @ w + 0.5 * torch.randn((n, f_rna), generator=g, device=dev)
            ).clamp_(min=0.0).cpu().numpy()
+    if return_labels:
+        return atac, rna, cluster.cpu().numpy()
     return atac, rna
 
 
@@ -1292,8 +1315,6 @@ def write_10x_triplet(directory, counts, prefix):
     triplet: matrix.mtx.gz (features x cells), features.tsv.gz and
     barcodes.tsv.gz. gzip level 1: level 9 takes 16x as long on the
     17.8 MB RNA matrix and the format does not depend on it."""
-    import gzip
-
     import scipy.io as sio
     import scipy.sparse as sp
     os.makedirs(directory)
@@ -2766,9 +2787,149 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
         fail('phase J analysis checks failed (see the analysis: line)')
 
 
+# The real-data examples' files (phase R): synthetic cells in the formats
+# of the scGEM, scMNC motor and scMNC visual datasets
+FAMILIES = ('Sst Chodl', 'Pvalb Reln', 'L5 IT', 'Vip Sncg')
+
+
+def synth_cells(rng, n, dims, counts=(False, False), latent=8, noise=0.3):
+    """n cells in two modalities of dims features from one latent: four
+    cell types of unequal shares (40/30/20/10 %), each a cluster of spread
+    1 around its centre; a modality is z W / sqrt(latent) plus normal
+    noise of std `noise`, or (counts) Poisson counts around a per-cell
+    depth times its exponent. Returns ([x1, x2] float64, type index per
+    cell)."""
+    labels = rng.choice(4, n, p=(0.4, 0.3, 0.2, 0.1))
+    z = 3.0 * rng.randn(4, latent)[labels] + rng.randn(n, latent)
+    out = []
+    for f, is_count in zip(dims, counts):
+        x = z @ rng.randn(latent, f) / np.sqrt(latent)
+        if is_count:
+            depth = rng.uniform(0.5, 2.0, (n, 1))
+            x = rng.poisson(depth * np.exp(np.clip(0.5 * x, -4, 4)))
+            out.append(x.astype(np.float64))
+        else:
+            out.append(x + noise * rng.randn(n, f))
+    return out, labels
+
+
+def write_scgem(directory, rng, n=177, dims=(230, 27), noise=4.0):
+    """scGEM's four text files: GeneExpression.txt and DNAmethylation.txt
+    (cells x features) and type1.txt / type2.txt (an integer type a
+    cell). With 230 genes on 177 cells, LMA's and CCA's B = Z^T D Z is
+    singular but for its 1e-6 ridge, and their float32 Cholesky succeeds
+    only where the z-scored spectrum is flat: `noise` 4 flattens it (the
+    latent's 8 directions carry 5/13 of each gene's variance); at 0.3 the
+    Cholesky fails in both packages (jamie_tpu returns NaN, the port
+    raises)."""
+    (x1, x2), labels = synth_cells(rng, n, dims, noise=noise)
+    np.savetxt(os.path.join(directory, 'GeneExpression.txt'), x1, '%.6g')
+    np.savetxt(os.path.join(directory, 'DNAmethylation.txt'), x2, '%.6g')
+    for name in ('type1.txt', 'type2.txt'):
+        np.savetxt(os.path.join(directory, name), labels + 1, '%d')
+
+
+def _xdr(code, items, attr=b''):
+    """An R vector in XDR: its header (type code, 'has attributes' bit),
+    length, items (bytes) and attribute pairlist."""
+    return (struct.pack('>ii', code | (0x200 if attr else 0), len(items))
+            + b''.join(items) + attr)
+
+
+def _xdr_str(strs, attr=b''):
+    return _xdr(16, [struct.pack('>ii', 9 | 1 << 12, len(s.encode()))
+                     + s.encode() for s in strs], attr)
+
+
+def _xdr_real(vals, attr=b'', code=14, dtype='>f8'):
+    """A real (or, with code 13 and '>i4', an integer) R vector."""
+    vals = np.asarray(vals, dtype)
+    return struct.pack('>ii', code | (0x200 if attr else 0), vals.size) \
+        + vals.tobytes() + attr
+
+
+def _xdr_pairlist(items):
+    """A tagged pairlist of (name, encoded value)."""
+    return b''.join(struct.pack('>ii', 2 | 0x400, 1)
+                    + struct.pack('>ii', 9 | 1 << 12, len(k.encode()))
+                    + k.encode() + v for k, v in items) \
+        + struct.pack('>i', 254)
+
+
+def _xdr_frame(columns, row_names):
+    return _xdr(19, list(columns.values()), _xdr_pairlist([
+        ('names', _xdr_str(list(columns))),
+        ('class', _xdr_str(['data.frame'])),
+        ('row.names', _xdr_str(row_names))]))
+
+
+def write_motor_rda(directory, rng, n=1208, dims=(1286, 29)):
+    """motor_data_filtered.rda as the motor example reads it: gdata (raw
+    counts, genes x cells, with dimnames), edata (a data.frame of the
+    e-features with the cells as row names, a few values NA) and meta
+    ('Cell', 'RNA family', rows in another order), in a gzipped RDX3
+    stream."""
+    (x1, x2), labels = synth_cells(rng, n, dims, counts=(True, False))
+    x2[rng.rand(*x2.shape) < 0.002] = np.nan
+    cells = [f'cell{i}' for i in range(n)]
+    dim = _xdr_real([dims[0], n], code=13, dtype='>i4')
+    dimnames = _xdr(19, [_xdr_str([f'gene{j}' for j in range(dims[0])]),
+                         _xdr_str(cells)])
+    gdata = _xdr_real(x1.T.ravel(order='F'),
+                      _xdr_pairlist([('dim', dim), ('dimnames', dimnames)]))
+    edata = _xdr_frame({f'ef{j}': _xdr_real(x2[:, j])
+                        for j in range(dims[1])}, cells)
+    order = rng.permutation(n)
+    meta = _xdr_frame({'Cell': _xdr_str([cells[i] for i in order]),
+                       'RNA family': _xdr_str([FAMILIES[labels[i]]
+                                               for i in order])},
+                      [str(i + 1) for i in range(n)])
+    head = b'RDX3\nX\n' + struct.pack('>iiii', 3, 0x30400, 0x30000, 5) \
+        + b'UTF-8'
+    body = _xdr_pairlist([('gdata', gdata), ('edata', edata),
+                          ('meta', meta)])
+    with gzip.open(os.path.join(directory, 'motor_data_filtered.rda'), 'wb',
+                   compresslevel=1) as fh:
+        fh.write(head + body)
+
+
+def write_visual_csv(directory, rng, n=3654, dims=(1302, 39)):
+    """The visual example's three CSV files: geneExp_filtered.csv (a
+    gene-name column, then one column of counts a sample),
+    efeature_filtered.csv (the sample, two other columns, then the
+    e-features, a few empty) and the metadata (transcriptomics_sample_id
+    and t_type among other columns, rows in another order)."""
+    (x1, x2), labels = synth_cells(rng, n, dims, counts=(True, False))
+    samples = [f'SM-{i:05d}_S{i % 97}' for i in range(n)]
+    with open(os.path.join(directory, 'geneExp_filtered.csv'), 'w',
+              newline='') as fh:
+        w = csv.writer(fh)
+        w.writerow([''] + samples)
+        for j in range(dims[0]):
+            w.writerow([f'gene{j}'] + x1[:, j].astype(np.int64).tolist())
+    blank = rng.rand(*x2.shape) < 0.002
+    with open(os.path.join(directory, 'efeature_filtered.csv'), 'w',
+              newline='') as fh:
+        w = csv.writer(fh)
+        w.writerow(['sample', 'cell_id', 'layer']
+                   + [f'ef{j}' for j in range(dims[1])])
+        for i in range(n):
+            w.writerow([samples[i], i, 'L23'] + [
+                '' if blank[i, j] else f'{x2[i, j]:.6g}'
+                for j in range(dims[1])])
+    with open(os.path.join(directory,
+                           '20200711_patchseq_metadata_mouse.csv'), 'w',
+              newline='') as fh:
+        w = csv.writer(fh)
+        w.writerow(['project', 'transcriptomics_sample_id', 't_type',
+                    'cell_specimen_id'])
+        for i in rng.permutation(n):
+            w.writerow(['mIVSCC-MET', samples[i], FAMILIES[labels[i]], i])
+
+
 def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
                          pd_sizes=(300, 1047, 2048, 3654, 9190),
-                         pd_iters=250, log_pd=100, delay=50,
+                         pd_iters=110, log_pd=50, delay=50,
                          fps_landmarks=2048, tsne_cells=(1047, 9190),
                          tsne_iters=(200, 100), lowrank_cells=1047,
                          lowrank_epochs=2001, umap_k=15,
@@ -2999,11 +3160,257 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     pair(f'mmdma {n0} cells, 36 runs x 32, {mmdma_iters} iterations',
          {'mmdma': mmdma_iters}, mmdma_iters, mmdma)
 
-    line = {'card': smi_line, 'runs': records}
+    # A capture that raises leaves the process able to draw from the
+    # default CUDA generator and to capture again
+    x = torch.ones(4, device=dev)
+    try:
+        graphs.steps_runner('bad', lambda: x.add_(float(x.sum())), dev).run(3)
+        bad.append('a step reading the host captured without an error')
+    except RuntimeError:
+        pass
+    after = {}
+    try:
+        after['drawn_finite'] = bool(torch.isfinite(
+            torch.rand(8, device=dev)).all())
+        gen = torch.Generator(device=dev).manual_seed(1)
+        y = torch.zeros(4, device=dev)
+        good = graphs.steps_runner(
+            'good', lambda: y.add_(torch.rand(4, device=dev, generator=gen)),
+            dev, generators=[gen])
+        good.run(3)
+        after.update(captured=good.graph is not None,
+                     replayed=bool((y > 0).all()))
+    except RuntimeError as e:
+        after['error'] = str(e)
+    if after != {'drawn_finite': True, 'captured': True, 'replayed': True}:
+        bad.append(f'after a failed capture: {after}')
+
+    line = {'card': smi_line, 'runs': records,
+            'after_failed_capture': after}
     print('solver_capture: ' + json.dumps(line, default=float), flush=True)
     if bad:
         fail('phase Q (the captured solver loops) failed: ' + '; '.join(bad))
     return captured_counts
+
+
+# Phase R's record keys: each JAX example's record as its script builds it
+# (examples/scgem.py main, comparison.py, imputation_comparison.py --scgem
+# at one seed, scmnc_motor.py --partial, scmnc_motor_sweep.py,
+# motor_provenance_fingerprint.py's last printed line, scmnc_visual.py
+# --partial, scglue.py); tests/test_torch_examples_data.py holds them to
+# the examples' stubbed runs. The fingerprint twin adds 'candidates', the
+# lines the example prints before its last.
+_PRIOR_KEYS = ('fit_seconds', 'foscttm', 'lta', 'lta_75', 'lta_50',
+               'reference')
+EXAMPLES_DATA_KEYS = {
+    'scgem': set(_PRIOR_KEYS) | {
+        f'imputation_{m}_mod{i}' for m in ('r', 'js_dist') for i in (1, 2)},
+    'comparison': {'JAMIE', 'NLMA', 'LMA', 'CCA', 'MMD-MA', 'UnionCom',
+                   'baseline_seconds', 'reference'},
+    'imputation_comparison': {'n_seeds', 'dataset', 'total_seconds'} | {
+        f'{m}_r_mod{i}_{s}' for m in ('jamie', 'knn', 'nn') for i in (1, 2)
+        for s in ('mean', 'sd', 'runs')} | {
+        f'jamie_gt_{b}_mod{i}_runs' for b in ('knn', 'nn') for i in (1, 2)},
+    'scmnc_motor': set(_PRIOR_KEYS) | {'epochs_run'},
+    'scmnc_motor_sweep': {'sweep', 'reference'},
+    'motor_provenance_fingerprint': {'candidates', 'ranking', 'ref_trace'},
+    'scmnc_visual': set(_PRIOR_KEYS) | {'epochs_run'},
+    'scglue': set(_PRIOR_KEYS),
+}
+SWEEP_ROW_KEYS = {'lta_mean', 'lta_sd', 'foscttm_mean', 'seconds', 'runs'}
+
+
+def _numbers(rec):
+    """Every number in a record (strings, None and booleans aside)."""
+    if isinstance(rec, dict):
+        rec = list(rec.values())
+    if isinstance(rec, (list, tuple)):
+        return [x for v in rec for x in _numbers(v)]
+    if isinstance(rec, (bool, str)) or rec is None:
+        return []
+    return [float(rec)]
+
+
+def _foscttms(name, rec):
+    """(where, FOSCTTM) of every FOSCTTM in a twin's record."""
+    if name == 'comparison':
+        return [(m, rec[m]['foscttm']) for m in rec
+                if isinstance(rec[m], dict) and 'foscttm' in rec[m]]
+    if name == 'scmnc_motor_sweep':
+        return [(c, row['foscttm_mean']) for c, row in rec['sweep'].items()]
+    return [('', rec['foscttm'])] if 'foscttm' in rec else []
+
+
+def examples_data_phase(torch, ops, kp, dev, smi_line, epoch_dnn=100,
+                        min_epochs=25, scgem_shape=(177, 230, 27),
+                        motor_shape=(1208, 1286, 29),
+                        visual_shape=(3654, 1302, 39),
+                        scglue_shape=(2048, 28930, 241757), seed=0):
+    """R. The real-data example twins (jamie_tpu_torch.examples), each
+    through its main (scglue through `run`) on the card, on synthetic files
+    in the datasets' formats at the published widths, written first into
+    a temporary directory from RandomState(seed): scGEM's text files
+    (scgem_shape: cells, genes, methylation features), the motor .rda
+    (raw counts, e-features with a few NA, the 'RNA family' labels) and
+    the visual CSVs (counts, e-features, metadata). scglue's modalities are
+    made in memory at full width on scglue_shape[0] cells (the card's
+    machine has no h5py) and z-scored by the example's `_zscore`. Only the
+    epochs are cut: JAMIE's epoch_DNN and min_epochs; every fit keeps
+    epoch_pd 2000. The counts are at 0 just before each twin. Fails if a
+    twin exits early, a record lacks a key of the example's record, a
+    FOSCTTM is 0.5 or above, a number in a record is not finite, or K1 is
+    not launched 2000 times per fit (20,000 for UnionCom) or K3 not at
+    all. K1 and K3 are first held to their plain versions at the shapes
+    no earlier phase holds them at (scGEM's solve and distances, scglue's
+    2048-cell RNA distances; phase N holds the motor and visual shapes).
+    One `examples_data:` line. Returns the summed launch counts."""
+    from jamie_tpu_torch.examples import comparison, imputation_comparison
+    from jamie_tpu_torch.examples import motor_provenance_fingerprint as fp
+    from jamie_tpu_torch.examples import (scgem, scglue, scmnc_motor,
+                                          scmnc_motor_sweep, scmnc_visual)
+    cuts = dict(epoch_DNN=epoch_dnn, min_epochs=min_epochs)
+    cut_argv = ['--epoch-dnn', str(epoch_dnn), '--min-epochs',
+                str(min_epochs)]
+    sweep_names = ['logcpm_median', 'tmm_log']
+    print(f'phase R: cuts: every JAMIE fit epoch_DNN={epoch_dnn} '
+          f'min_epochs={min_epochs} (the examples: 10000 / 2500, early '
+          'stop; comparison quick 3000 / 1000), epoch_pd 2000 kept; '
+          'scgem main only (not --seeds / --imputation-seeds / '
+          '--ablation-seeds); imputation_comparison --scgem --seeds 1 '
+          f'(default 5); scmnc_motor --partial (not --seeds); '
+          f'scmnc_motor_sweep --seeds 1 --only {",".join(sweep_names)} '
+          '(default 2 seeds x 14 transforms); motor_provenance_fingerprint '
+          '--confirm cpm1e4_log1p (geodesic) and --confirm '
+          'pearson_theta100 --distance euclidean (not the 17-candidate '
+          f'zoo); scglue.run on {scglue_shape[0]} of 9190 cells; the data '
+          'synthetic', flush=True)
+
+    n_imp = int(0.8 * scgem_shape[0])
+    for n, dims in ((scgem_shape[0], scgem_shape[1:]),
+                    (n_imp, scgem_shape[1:]),
+                    (scglue_shape[0], scglue_shape[1:])):
+        harness_kernels(kp, dev, n, dims)
+
+    rows, total, bad = {}, {}, []
+
+    def run(name, fn, fits):
+        """fn() with the counts at 0; `fits` JAMIE fits of 2000 K1
+        launches each (plus the extra K1 launches of `fits` if a tuple)."""
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                rec = fn()
+        except SystemExit as e:
+            bad.append(f'{name} exited early (code {e.code})')
+            return None
+        sec = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        want = sum(fits) if isinstance(fits, tuple) else 2000 * fits
+        if counts['fused_pd_grad_update'] != want:
+            bad.append(f'{name}: K1 launched '
+                       f'{counts["fused_pd_grad_update"]} times, expected '
+                       f'{want}')
+        if not counts['pairwise_euclidean']:
+            bad.append(f'{name}: K3 never launched')
+        keys = EXAMPLES_DATA_KEYS[name.split()[0]]
+        if not keys <= set(rec):
+            bad.append(f'{name}: record lacks {sorted(keys - set(rec))}')
+        if name == 'scmnc_motor_sweep' and any(
+                set(r) != SWEEP_ROW_KEYS for r in rec['sweep'].values()):
+            bad.append(f'{name}: sweep rows {rec["sweep"]}')
+        fos = _foscttms(name.split()[0], rec)
+        for where, v in fos:
+            if not v < 0.5:
+                bad.append(f'{name} {where}: FOSCTTM {v} is not under 0.5')
+        if not np.isfinite(_numbers(rec)).all():
+            bad.append(f'{name}: a number in the record is not finite')
+        rows[name] = {'seconds': sec, 'foscttm': dict(fos),
+                      'launches': {k: v for k, v in counts.items() if v},
+                      'record': rec}
+        print(f'phase R {name}: {sec:.3f} s; FOSCTTM {dict(fos)}; launches '
+              f'{rows[name]["launches"]}', flush=True)
+        return rec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(seed)
+        t = time.perf_counter()
+        dirs = {}
+        for name, writer, shape in (
+                ('scgem', write_scgem, scgem_shape),
+                ('motor', write_motor_rda, motor_shape),
+                ('visual', write_visual_csv, visual_shape)):
+            dirs[name] = os.path.join(tmp, name)
+            os.makedirs(dirs[name])
+            writer(dirs[name], rng, n=shape[0], dims=shape[1:])
+        write_s = time.perf_counter() - t
+        print(f'phase R: files written in {write_s:.3f} s', flush=True)
+
+        run('scgem', lambda: scgem.main(data_dir=dirs['scgem'], device=dev,
+                                        cuts=cuts), 4)
+        run('comparison', lambda: comparison.main(
+            data_dir=dirs['scgem'], device=dev, cuts=cuts),
+            (2000, 20000))
+        run('imputation_comparison', lambda: (
+            imputation_comparison.scgem_multi_seed(
+                1, data_dir=dirs['scgem'], device=dev, cuts=cuts)), 1)
+        run('scmnc_motor', lambda: scmnc_motor.main(
+            partial=True, data_dir=dirs['motor'], device=dev, cuts=cuts), 3)
+        run('scmnc_motor_sweep', lambda: scmnc_motor_sweep.main(
+            ['--seeds', '1', '--only', ','.join(sweep_names), '--data-dir',
+             dirs['motor'], '--device', str(dev), *cut_argv]),
+            len(sweep_names))
+        run('motor_provenance_fingerprint geodesic', lambda: fp.main(
+            ['--confirm', 'cpm1e4_log1p', '--data-dir', dirs['motor'],
+             '--device', str(dev)]), 1)
+        run('motor_provenance_fingerprint euclidean', lambda: fp.main(
+            ['--confirm', 'pearson_theta100', '--distance', 'euclidean',
+             '--data-dir', dirs['motor'], '--device', str(dev)]), 1)
+        for tag in ('geodesic', 'euclidean'):
+            rec = rows.get(f'motor_provenance_fingerprint {tag}',
+                           {}).get('record')
+            if rec and sorted(rec['candidates'][0]['trace']) != [
+                    500, 1000, 1500, 2000]:
+                bad.append(f'fingerprint {tag}: parsed epochs '
+                           f'{sorted(rec["candidates"][0]["trace"])}')
+        run('scmnc_visual', lambda: scmnc_visual.main(
+            partial=True, data_dir=dirs['visual'], device=dev, cuts=cuts), 3)
+
+    t = time.perf_counter()
+    n, f_rna, f_atac = scglue_shape
+    atac, rna, labels = scglue_on_card(torch, dev, n=n, f_atac=f_atac,
+                                       f_rna=f_rna, return_labels=True)
+    dataset = [scglue._zscore(rna), scglue._zscore(atac.toarray())]
+    del atac, rna
+    types = [np.array([f'type{t}' for t in labels])] * 2
+    data_s = time.perf_counter() - t
+    print(f'phase R: scglue modalities made in {data_s:.3f} s', flush=True)
+    run('scglue', lambda: scglue.run(dataset, types, device=dev, cuts=cuts),
+        3)
+    del dataset
+    torch.cuda.empty_cache()
+
+    line = {'card': smi_line, 'cuts': cuts, 'write_s': write_s,
+            'scglue_data_s': data_s,
+            'twins': {k: {'seconds': v['seconds'], 'foscttm': v['foscttm'],
+                          'lta': {m: r for m, r in v['record'].items()
+                                  if m.startswith('lta')},
+                          'launches': v['launches']}
+                      for k, v in rows.items()},
+            'comparison': {m: rows['comparison']['record'][m]
+                           for m in ('JAMIE', 'NLMA', 'LMA', 'CCA', 'MMD-MA',
+                                     'UnionCom')}
+            if 'comparison' in rows else None,
+            'launches': total}
+    print('examples_data: ' + json.dumps(line, default=float), flush=True)
+    if not (total.get('fused_pd_grad_update') and
+            total.get('pairwise_euclidean')):
+        bad.append(f'K1 or K3 not launched in the phase: {total}')
+    if bad:
+        fail('phase R (the real-data examples) failed: ' + '; '.join(bad))
+    return total
 
 
 def main():
@@ -3374,6 +3781,12 @@ def main():
     path_counts['solver_capture'] = solver_capture_phase(
         torch, ops, dev, smi_line, X19[0], data)
     print(f'phase Q: {time.perf_counter() - t:.1f} s', flush=True)
+
+    # R. The real-data examples on synthetic files in their formats
+    t = time.perf_counter()
+    path_counts['examples_data'] = examples_data_phase(torch, ops, kp, dev,
+                                                       smi_line)
+    print(f'phase R: {time.perf_counter() - t:.1f} s', flush=True)
 
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',

@@ -21,6 +21,8 @@ once as a CUDA graph on static buffers and replayed from the host:
   already captured graph as its body, to the graph that a stream is
   capturing.
 - `node_counts` reports a kept graph's nodes and kernel nodes.
+- `end_failed_capture` ends the generators' capture that a failed capture
+  leaves open.
 
 The library is built with nvcc on first use (`ops/_build.py`); nothing
 here runs on the CPU but `count_launch` and the eager route.
@@ -152,7 +154,9 @@ class StepGraph:
 
     Kernel wrappers that launch inside the step are counted once per
     replay (`count_launch`). Nothing falls back: a failed capture or replay
-    raises.
+    raises, and a failed capture first leaves the current stream and the
+    generators as it found them (`end_failed_capture`), so the process
+    draws and captures again.
     """
 
     def __init__(self, name: str, step: Callable[[], None], device,
@@ -226,9 +230,7 @@ class StepGraph:
             body.register_generator_state(g)
         _capturing = {}
         try:
-            with torch.cuda.graph(body, stream=stream,
-                                  capture_error_mode=self.error_mode):
-                self.step()
+            self._capture_into(body, stream, self.step)
         finally:
             self.launches, _capturing = _capturing, None
         nodes, kernels = node_counts(body)
@@ -239,13 +241,14 @@ class StepGraph:
             outer = torch.cuda.CUDAGraph()
             for g in gens:
                 outer.register_generator_state(g)
-            with torch.cuda.graph(outer, stream=stream,
-                                  capture_error_mode=self.error_mode):
+
+            def outer_step():
                 for g in gens:
                     torch.rand(1, generator=g, device=dev)
                 add_conditional(stream, body, *self.cond)
                 if self.tail is not None:
                     self.tail()
+            self._capture_into(outer, stream, outer_step)
             self.body, self.graph = body, outer
         for g, o in zip(gens, offsets):
             g.set_offset(o)
@@ -255,6 +258,29 @@ class StepGraph:
             nodes=nodes, kernel_nodes=kernels, graph_launches_per_step=1,
             replays=0, launches_per_step={fn.__name__: c for fn, c
                                           in self.launches.items()})
+
+    def _capture_into(self, graph: torch.cuda.CUDAGraph,
+                      stream: torch.cuda.Stream, fn: Callable[[], None]):
+        """fn() captured into `graph` on `stream`. A capture that raises
+        leaves the current stream and the generators as it found them
+        before the error propagates (`end_failed_capture`)."""
+        current = torch.cuda.current_stream(self.device)
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode=self.error_mode):
+                fn()
+        except BaseException as err:
+            torch.cuda.set_stream(current)
+            try:
+                end_failed_capture(self.device, self.generators,
+                                   self.error_mode)
+            except Exception as repair:
+                raise RuntimeError(
+                    f'the capture of {self.name!r} failed ({err}), and so '
+                    f'did ending its generators\' capture ({repair}): the '
+                    'CUDA generators cannot draw again in this process; '
+                    'restart it') from err
+            raise
 
     def replay(self, k: int) -> None:
         """k replays of the captured step."""
@@ -269,6 +295,27 @@ class StepGraph:
         self.stats['replays'] += k
         if self.cond is None:
             loop_steps[f'{self.name}/{self.route}'] += k
+
+
+def end_failed_capture(device, generators: Sequence[torch.Generator] = (),
+                       capture_error_mode: str = 'global') -> None:
+    """Ends what a failed `torch.cuda.graph` capture left open on `device`:
+    its default CUDA generator and `generators`, the ones that capture
+    registered. A capture begins the capture of each generator registered
+    on its graph, the default one always, and only a capture that ends
+    cleanly ends them (`CUDAGraph::capture_end`). One that raised leaves
+    them capturing, and each then refuses every later draw outside a
+    capture, for the rest of the process. A capture of one small kernel,
+    with the same generators registered, that ends cleanly ends theirs:
+    their seeds and offsets are as before the failed capture."""
+    device = torch.device(device)
+    fix = torch.cuda.CUDAGraph()
+    for g in generators:
+        fix.register_generator_state(g)
+    with torch.cuda.graph(fix, stream=torch.cuda.Stream(device),
+                          capture_error_mode=capture_error_mode):
+        torch.zeros(1, device=device)
+    del fix
 
 
 class EagerSteps:

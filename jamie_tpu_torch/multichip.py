@@ -46,10 +46,12 @@ def _make_model_and_data(n=256, d0=512, d1=256, out=32, seed=0,
     return model, xs, torch.eye(n, device=device)
 
 
-def entry(device='cpu'):
+def entry(device=None):
     """(fn, example_args): the eval-mode forward of the flagship coupled
-    VAE; fn(x0, x1, corr) -> (z0, z1, x_hat0, x_hat1)."""
-    model, xs, corr = _make_model_and_data(device=device)
+    VAE; fn(x0, x1, corr) -> (z0, z1, x_hat0, x_hat1). On the card unless
+    `device` names another (`core.dtypes.resolve_device`)."""
+    from .core.dtypes import resolve_device
+    model, xs, corr = _make_model_and_data(device=resolve_device(device))
     model.eval()
 
     @torch.no_grad()

@@ -894,13 +894,27 @@ def test_mmdma_captured_matches_eager(cuda):
         assert torch.equal(got, want)
 
 
+def _draw_and_capture(cuda):
+    """The default CUDA generator draws, and a step that draws from it
+    captures and replays."""
+    from jamie_tpu_torch.core import graphs
+    assert torch.isfinite(torch.rand(8, device=cuda)).all()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.zeros(4, device=cuda)
+    runner = graphs.steps_runner(
+        'good', lambda: y.add_(torch.rand(4, device=cuda, generator=gen)),
+        cuda, generators=[gen])
+    runner.run(3)
+    assert runner.graph is not None and bool((y > 0).all())
+
+
 def test_failed_capture_raises(cuda, monkeypatch):
     """A step that reads the host cannot be captured: the loop raises, and
     nothing runs in its place. So for a bare step and for each of the
     UMAP bisection, the UMAP layout, MMD-MA, the mesh prime-dual and the
     mesh trainer with a host read put into its step: the warm-up step
-    runs, the capture raises. The inputs are made first: a failed capture
-    leaves the default CUDA generator unable to draw."""
+    runs, the capture raises. After each raise the default CUDA generator
+    draws and a good step captures (`graphs.end_failed_capture`)."""
     from jamie_tpu_torch import compare
     from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.solvers import umap
@@ -915,6 +929,8 @@ def test_failed_capture_raises(cuda, monkeypatch):
     runner = graphs.steps_runner('bad', lambda: x.add_(float(x.sum())), cuda)
     with pytest.raises(RuntimeError):
         runner.run(3)
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    _draw_and_capture(cuda)
 
     def reads_host(fn):
         def wrapped(*args, **kwargs):
@@ -939,6 +955,7 @@ def test_failed_capture_raises(cuda, monkeypatch):
     # each ran its eager warm-up step, then the capture raised
     for loop in ('umap_sigma', 'umap_layout', 'mmdma'):
         assert _steps(loop) == {'captured': 1}
+    _draw_and_capture(cuda)
 
     # the mesh loops: a host read put in front of the first collective of
     # the prime-dual iteration and of the trainer's step (so no NCCL call
@@ -973,3 +990,4 @@ def test_failed_capture_raises(cuda, monkeypatch):
     finally:
         cm.destroy_group()
     assert _steps('prime_dual') == {'mesh_captured': 1}
+    _draw_and_capture(cuda)

@@ -204,12 +204,28 @@ def test_imputation_comparison_main_tiny(tmp_path):
 
 
 @pytest.mark.filterwarnings('ignore:.*found in sys.modules:RuntimeWarning')
-def test_imputation_comparison_scgem_arm_exits(monkeypatch):
+def test_imputation_comparison_scgem_arm_on_fixture_files(monkeypatch,
+                                                          tmp_path, capsys):
+    """`--scgem` on scGEM-format files in --data-dir, from the command
+    line: one seed, the example's record keys, finite r per method."""
+    import json
     import runpy
-    monkeypatch.setattr(sys, 'argv', ['imputation_comparison', '--scgem'])
-    with pytest.raises(SystemExit, match='not in the repository'):
-        runpy.run_module('jamie_tpu_torch.examples.imputation_comparison',
-                         run_name='__main__')
+    from test_torch_examples_data import write_scgem
+    write_scgem(tmp_path, n=60)
+    monkeypatch.setattr(sys, 'argv', [
+        'imputation_comparison', '--scgem', '--seeds', '1', '--data-dir',
+        str(tmp_path), '--device', 'cpu', '--epoch-dnn', '20',
+        '--min-epochs', '10', '--epoch-pd', '30'])
+    runpy.run_module('jamie_tpu_torch.examples.imputation_comparison',
+                     run_name='__main__')
+    out = capsys.readouterr().out
+    rec = json.loads(out[out.rindex('\n{'):])
+    assert rec['n_seeds'] == 1 and rec['dataset'] == 'scGEM (real, 80/20)'
+    for method in ('jamie', 'knn', 'nn'):
+        for i in (1, 2):
+            assert np.isfinite(rec[f'{method}_r_mod{i}_mean'])
+            assert len(rec[f'{method}_r_mod{i}_runs']) == 1
+    assert set(rec) >= {'jamie_gt_knn_mod1_runs', 'jamie_gt_nn_mod2_runs'}
 
 
 @pytest.mark.parametrize('argv', [

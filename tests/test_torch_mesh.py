@@ -741,5 +741,5 @@ def test_dryrun_multichip():
     out = dryrun_multichip(4)
     assert out['mesh'] == {'data': 2, 'model': 2}
     assert np.isfinite(out['loss'])
-    fn, args = entry()
+    fn, args = entry(device='cpu')
     assert all(bool(torch.isfinite(o).all()) for o in fn(*args))

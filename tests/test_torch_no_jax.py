@@ -10,6 +10,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,7 +123,7 @@ distances.pairwise_distance(x, 'cosine', device='cpu', mesh=mesh)
 prime_dual(x @ x.T, x @ x.T, 5, 5, epoch_pd=3, verbose=False,
            device='cpu', mesh=mesh)
 JAMIE(mesh=mesh, **kw).fit_transform(dataset=data)
-fn, args = multichip.entry()
+fn, args = multichip.entry(device='cpu')
 fn(*args)
 cm.destroy_group()
 leaked = sorted(m for m in sys.modules
@@ -239,14 +240,18 @@ def test_harness_entry_points_need_the_card(monkeypatch, entry):
 EXAMPLES = tuple(sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / 'jamie_tpu_torch' / 'examples').glob('*.py')))
+REAL_DATA = ('comparison', 'motor_provenance_fingerprint', 'scgem',
+             'scglue', 'scmnc_motor', 'scmnc_motor_sweep', 'scmnc_visual')
 EXAMPLES_BLOCKED = HARNESS_BLOCKED + ('sample', 'tuning', 'atlas_scale',
-                                      'imputation_comparison', 'scgem')
+                                      'imputation_comparison') + REAL_DATA
 
 
 def test_examples_are_listed():
     assert EXAMPLES == tuple(f'jamie_tpu_torch/examples/{n}.py' for n in (
-        '__init__', 'atlas_scale', 'imputation_comparison', 'sample',
-        'tuning'))
+        '__init__', '_data', 'atlas_scale', 'comparison',
+        'imputation_comparison', 'motor_provenance_fingerprint', 'sample',
+        'scgem', 'scglue', 'scmnc_motor', 'scmnc_motor_sweep',
+        'scmnc_visual', 'tuning'))
 
 
 @pytest.mark.parametrize('path', EXAMPLES)
@@ -292,6 +297,109 @@ print('leaked', leaked, s['figure'], i['figure'], t['best_finite'],
     assert out.returncode == 0, out.stderr
     assert (out.stdout.strip().splitlines()[-1]
             == 'leaked [] None None True True')
+
+
+def test_real_data_examples_run_with_jax_sklearn_and_pandas_blocked(
+        tmp_path):
+    """The real-data twins import and run with jax, jamie_tpu, examples/,
+    sklearn and the optional packages (pandas, h5py) unimportable, as on
+    the card's machine: scgem, the scGEM imputation arm, scmnc_motor, the
+    sweep, the fingerprint and scmnc_visual on chip_smoke.py's synthetic
+    files, scglue through `run` on arrays; nothing blocked is loaded."""
+    code = f'''
+import importlib.machinery, os, sys
+import numpy as np
+BLOCKED = {BLOCKED + OPTIONAL + EXAMPLES_BLOCKED!r}
+class Refuse:
+    def create_module(self, spec):
+        raise ImportError('blocked ' + spec.name)
+    def exec_module(self, module):
+        pass
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            return importlib.machinery.ModuleSpec(name, Refuse())
+sys.meta_path.insert(0, Block())
+import chip_smoke
+from jamie_tpu_torch.examples import (
+    comparison, imputation_comparison, motor_provenance_fingerprint,
+    scgem, scglue, scmnc_motor, scmnc_motor_sweep, scmnc_visual)
+tmp = {str(tmp_path)!r}
+rng = np.random.RandomState(0)
+for name, writer, dims in (('scgem', chip_smoke.write_scgem, (12, 5)),
+                           ('motor', chip_smoke.write_motor_rda, (30, 6)),
+                           ('visual', chip_smoke.write_visual_csv, (25, 7))):
+    os.makedirs(os.path.join(tmp, name))
+    writer(os.path.join(tmp, name), rng, n=40, dims=dims)
+cuts = dict(epoch_DNN=2, min_epochs=1, epoch_pd=5)
+argv = ['--device', 'cpu', '--epoch-dnn', '2', '--min-epochs', '1',
+        '--epoch-pd', '5']
+recs = [
+    scgem.main(data_dir=os.path.join(tmp, 'scgem'), device='cpu', cuts=cuts),
+    imputation_comparison.scgem_multi_seed(
+        1, data_dir=os.path.join(tmp, 'scgem'), device='cpu', cuts=cuts),
+    scmnc_motor.main(data_dir=os.path.join(tmp, 'motor'), device='cpu',
+                     cuts=cuts),
+    scmnc_motor_sweep.main(['--seeds', '1', '--only', 'tmm_log',
+                            '--data-dir', os.path.join(tmp, 'motor'), *argv]),
+    motor_provenance_fingerprint.main(
+        ['--confirm', 'rank_quantile', '--distance', 'euclidean',
+         '--data-dir', os.path.join(tmp, 'motor'), '--device', 'cpu']),
+    scmnc_visual.main(data_dir=os.path.join(tmp, 'visual'), device='cpu',
+                      cuts=cuts),
+    scglue.run([rng.rand(40, 9).astype('float32'),
+                rng.rand(40, 14).astype('float32')],
+               [np.arange(40) % 3] * 2, device='cpu', cuts=cuts),
+]
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED))
+print('leaked', leaked, len(recs), comparison.REFERENCE['JAMIE']['lta'])
+'''
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'leaked [] 7 0.887006'
+
+
+# Each real-data twin's entry, called with a data directory that does not
+# exist: it must raise for the missing card before it looks for the data
+REAL_DATA_CALLS = {
+    'scgem': lambda m, d: m.main(data_dir=d),
+    'comparison': lambda m, d: m.main(data_dir=d),
+    'scmnc_motor': lambda m, d: m.main(data_dir=d),
+    'scmnc_motor_sweep': lambda m, d: m.main(['--data-dir', d]),
+    'motor_provenance_fingerprint': lambda m, d: m.main(['--data-dir', d]),
+    'scmnc_visual': lambda m, d: m.main(data_dir=d),
+    'scglue': lambda m, d: m.main(data_dir=d),
+}
+
+
+@pytest.mark.parametrize('name', sorted(REAL_DATA_CALLS) + [
+    'imputation_comparison --scgem', 'scglue.run'])
+def test_real_data_examples_need_the_card(monkeypatch, tmp_path, name):
+    import importlib
+    mod = importlib.import_module(
+        f'jamie_tpu_torch.examples.{name.split()[0].split(".")[0]}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    absent = str(tmp_path / 'absent')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if name == 'imputation_comparison --scgem':
+            mod.scgem_multi_seed(1, data_dir=absent)
+        elif name == 'scglue.run':
+            mod.run([np.zeros((4, 2))] * 2, [np.zeros(4)] * 2)
+        else:
+            REAL_DATA_CALLS[name](mod, absent)
+
+
+def test_multichip_entry_needs_the_card(monkeypatch):
+    """multichip.entry() resolves its device as every entry point does: the
+    card, and without CUDA it raises unless device='cpu' is passed."""
+    from jamie_tpu_torch import multichip
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multichip.entry()
+    fn, args = multichip.entry(device='cpu')
+    assert all(a.device == torch.device('cpu') for a in args)
 
 
 @pytest.mark.parametrize('name', ['sample', 'tuning',

@@ -4,13 +4,13 @@ RDX2/RDX3 XDR streams (gzipped and plain)."""
 
 import gzip
 import os
-import struct
 
 import numpy as np
 import pytest
 
 from jamie_tpu import rdata as jrd
 from jamie_tpu_torch import rdata as trd
+from rda_xdr import intsxp, pairlist, realsxp, stream, strsxp, u32
 from test_rdata import MOTOR   # the reference's motor .rda, where mounted
 
 
@@ -42,46 +42,6 @@ def test_load_motor_rda():
     d = _both(MOTOR)
     assert set(d) >= {'gdata', 'edata', 'meta'}
     assert d['gdata']['matrix'].shape == (1286, 1208)
-
-
-def u32(x):
-    return struct.pack('>i', x)
-
-
-def charsxp(s):
-    b = s.encode()
-    return u32(9 | (1 << 12)) + u32(len(b)) + b
-
-
-def strsxp(strs, attr=b''):
-    return (u32(16 | (0x200 if attr else 0)) + u32(len(strs))
-            + b''.join(charsxp(s) for s in strs) + attr)
-
-
-def realsxp(vals, attr=b''):
-    out = u32(14 | (0x200 if attr else 0)) + u32(len(vals))
-    return out + b''.join(struct.pack('>d', v) for v in vals) + attr
-
-
-def intsxp(vals, attr=b'', sexp=13):
-    return (u32(sexp | (0x200 if attr else 0)) + u32(len(vals))
-            + b''.join(u32(v) for v in vals) + attr)
-
-
-def sym(name):
-    return u32(1) + charsxp(name)
-
-
-def pairlist(items):
-    """Tagged pairlist of (name, encoded value) pairs."""
-    return b''.join(u32(2 | 0x400) + sym(k) + v for k, v in items) + u32(254)
-
-
-def stream(body, version=3):
-    head = (b'RDX3\nX\n' + u32(3) + u32(0x30400) + u32(0x30000)
-            + u32(5) + b'UTF-8') if version == 3 else (
-        b'RDX2\nX\n' + u32(2) + u32(0x30400) + u32(0x20300))
-    return head + body
 
 
 def test_load_rda_roundtrip_types(tmp_path):
