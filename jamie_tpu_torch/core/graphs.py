@@ -31,13 +31,13 @@ here runs on the CPU but `count_launch` and the eager route.
 from __future__ import annotations
 
 import ctypes
-import time
 from collections import Counter
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from . import mesh as cm
+from . import timing
 
 _lib = None
 
@@ -99,8 +99,9 @@ _capturing: Optional[Dict[Callable, int]] = None
 loop_steps: Counter = Counter()
 
 # The last runner of each loop's statistics, by loop name: its route and,
-# for a captured loop, the warm-up and capture seconds, the graph's nodes
-# and kernel nodes, the replays and the kernel launches per step.
+# for a captured loop, the warm-up and capture seconds (its `graphs.warmup`
+# and `graphs.record` spans), the graph's nodes and kernel nodes, the
+# replays and the kernel launches per step.
 last_stats: Dict[str, dict] = {}
 
 
@@ -180,13 +181,18 @@ class StepGraph:
         last_stats[name] = self.stats
 
     def run(self, k: int) -> None:
-        """k more steps of the loop."""
+        """k more steps of the loop; inside a span that takes device time
+        (`core/timing.device_begin`), the replays are timed on the
+        device."""
         if k <= 0:
             return
         if self.graph is None:
             self.capture()
             k -= self.restore is None
+        timed = timing.device_begin()
         self.replay(k)
+        if timed is not None:
+            timed.device_end()
 
     def _warmup(self, stream: torch.cuda.Stream) -> None:
         """One eager step on `stream`, with each generator's increment;
@@ -220,41 +226,43 @@ class StepGraph:
             return
         dev, gens = self.device, self.generators
         stream = torch.cuda.Stream(dev)
-        t0 = time.perf_counter()
-        self._warmup(stream)
-        offsets = [g.get_offset() for g in gens]
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        body = torch.cuda.CUDAGraph(keep_graph=True)
-        for g in gens:
-            body.register_generator_state(g)
-        _capturing = {}
-        try:
-            self._capture_into(body, stream, self.step)
-        finally:
-            self.launches, _capturing = _capturing, None
-        nodes, kernels = node_counts(body)
-        if self.cond is None:
-            body.instantiate()
-            self.graph = body
-        else:
-            outer = torch.cuda.CUDAGraph()
-            for g in gens:
-                outer.register_generator_state(g)
-
-            def outer_step():
+        with timing.span('graphs.capture', loop=self.name) as cap:
+            with timing.span('graphs.warmup') as warmup:
+                self._warmup(stream)
+                offsets = [g.get_offset() for g in gens]
+                torch.cuda.empty_cache()
+            with timing.span('graphs.record') as record:
+                body = torch.cuda.CUDAGraph(keep_graph=True)
                 for g in gens:
-                    torch.rand(1, generator=g, device=dev)
-                add_conditional(stream, body, *self.cond)
-                if self.tail is not None:
-                    self.tail()
-            self._capture_into(outer, stream, outer_step)
-            self.body, self.graph = body, outer
-        for g, o in zip(gens, offsets):
-            g.set_offset(o)
-        torch.cuda.synchronize(dev)
+                    body.register_generator_state(g)
+                _capturing = {}
+                try:
+                    self._capture_into(body, stream, self.step)
+                finally:
+                    self.launches, _capturing = _capturing, None
+                nodes, kernels = node_counts(body)
+                if self.cond is None:
+                    body.instantiate()
+                    self.graph = body
+                else:
+                    outer = torch.cuda.CUDAGraph()
+                    for g in gens:
+                        outer.register_generator_state(g)
+
+                    def outer_step():
+                        for g in gens:
+                            torch.rand(1, generator=g, device=dev)
+                        add_conditional(stream, body, *self.cond)
+                        if self.tail is not None:
+                            self.tail()
+                    self._capture_into(outer, stream, outer_step)
+                    self.body, self.graph = body, outer
+                for g, o in zip(gens, offsets):
+                    g.set_offset(o)
+                torch.cuda.synchronize(dev)
+            cap.set(nodes=nodes, kernel_nodes=kernels)
         self.stats.update(
-            warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
+            warmup_s=warmup.seconds, capture_s=record.seconds,
             nodes=nodes, kernel_nodes=kernels, graph_launches_per_step=1,
             replays=0, launches_per_step={fn.__name__: c for fn, c
                                           in self.launches.items()})

@@ -25,12 +25,15 @@ in-place mutation warns and rebuilds), and are released by
 `clear_residency_cache` before training claims device memory.
 
 `transfer_stats()` counts every host->device upload of this module
-(jamie_tpu's four keys): `bytes` shipped, `bf16_equiv_bytes` (2 bytes per
-dense element the upload yields on the device, jamie_tpu's measure of one
-dense-bf16 shipment), `read_s` (host seconds reading or densifying a
-source chunk) and `encode_s` (host seconds of the bf16 cast). A memmapped
-chunk that is already C-contiguous float32 is paged in by the cast, so
-its read counts in `encode_s`. `reset_transfer_stats()` zeroes them.
+(jamie_tpu's four keys, and one more): `bytes` shipped, `bf16_equiv_bytes`
+(2 bytes per dense element the upload yields on the device, jamie_tpu's
+measure of one dense-bf16 shipment), `read_s` (host seconds reading or
+densifying a source chunk), `encode_s` (host seconds of the bf16 cast) and
+`copy_s` (host seconds in the uploads' `.to(device)`, a pageable copy that
+returns once it is done). A memmapped chunk that is already C-contiguous
+float32 is paged in by the cast, so its read counts in `encode_s`.
+`reset_transfer_stats()` zeroes them. A whole-matrix build is a
+`residency.build` span (`core/timing`) that carries its own share of them.
 
 Not ported, on the card's evidence (H100 80GB HBM3 host, PERF.md): the
 link formats (bit-packed, u8 and padded-CSR payloads, jamie_tpu's
@@ -67,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import timing
 from .dtypes import resolve_device
 from .hostmat import dense_rows, is_scipy_sparse
 
@@ -96,7 +100,7 @@ route_counts: collections.Counter = collections.Counter()
 
 # Host->device transfer accounting (see the module docstring)
 _transfer = {'bytes': 0, 'bf16_equiv_bytes': 0, 'read_s': 0.0,
-             'encode_s': 0.0}
+             'encode_s': 0.0, 'copy_s': 0.0}
 
 
 def transfer_stats() -> dict:
@@ -104,16 +108,20 @@ def transfer_stats() -> dict:
 
 
 def reset_transfer_stats() -> None:
-    _transfer.update(bytes=0, bf16_equiv_bytes=0, read_s=0.0, encode_s=0.0)
+    _transfer.update(bytes=0, bf16_equiv_bytes=0, read_s=0.0, encode_s=0.0,
+                     copy_s=0.0)
 
 
 def _ship(*arrays, device) -> list:
-    """Host numpy arrays or CPU tensors on `device`, their bytes counted."""
+    """Host numpy arrays or CPU tensors on `device`, their bytes and the
+    copies' host seconds counted."""
     out = []
     for a in arrays:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
         _transfer['bytes'] += t.numel() * t.element_size()
+        t0 = time.perf_counter()
         out.append(t.to(device))
+        _transfer['copy_s'] += time.perf_counter() - t0
     return out
 
 _cache: dict = {}       # (id(arr), device) -> (weakref, bf16 tensor, fingerprint)
@@ -359,26 +367,30 @@ def build_resident_bf16(arr, device=None,
     its DeviceCSR (shared with the other passes) or, past the CSR budget,
     chunk by chunk as CSR; a dense source is cast to bf16 on the host and
     shipped at 2 bytes an element. Values are round-to-nearest-even bf16
-    of the float32 source either way."""
+    of the float32 source either way. A `residency.build` span, whose
+    counters are the build's share of `transfer_stats()`."""
     device = resolve_device(device)
     n, f = (int(d) for d in arr.shape)
     rows = max(int(chunk_bytes / max(f * 2, 1)), 64)
-    resident = torch.empty((n, f), dtype=torch.bfloat16, device=device)
-    sparse_in = is_scipy_sparse(arr) and arr.format == 'csr'
-    dcsr = device_csr(arr, device=device) if sparse_in else None
-    for s in range(0, n, rows):
-        e = min(s + rows, n)
-        if dcsr is not None:   # counted once, by the DeviceCSR
-            resident[s:e] = dcsr.rows(s, e)
-            continue
-        t0 = time.perf_counter()
-        chunk = arr[s:e] if sparse_in else dense_rows(arr, s, e)
-        _transfer['read_s'] += time.perf_counter() - t0
-        if sparse_in:   # counts its own dense equivalent
-            resident[s:e] = _csr_block_to_device(chunk, device, False)
-        else:
-            _transfer['bf16_equiv_bytes'] += 2 * (e - s) * f
-            resident[s:e] = _ship(host_bf16(chunk), device=device)[0]
+    before = dict(_transfer)
+    with timing.span('residency.build') as sp:
+        resident = torch.empty((n, f), dtype=torch.bfloat16, device=device)
+        sparse_in = is_scipy_sparse(arr) and arr.format == 'csr'
+        dcsr = device_csr(arr, device=device) if sparse_in else None
+        for s in range(0, n, rows):
+            e = min(s + rows, n)
+            if dcsr is not None:   # counted once, by the DeviceCSR
+                resident[s:e] = dcsr.rows(s, e)
+                continue
+            t0 = time.perf_counter()
+            chunk = arr[s:e] if sparse_in else dense_rows(arr, s, e)
+            _transfer['read_s'] += time.perf_counter() - t0
+            if sparse_in:   # counts its own dense equivalent
+                resident[s:e] = _csr_block_to_device(chunk, device, False)
+            else:
+                _transfer['bf16_equiv_bytes'] += 2 * (e - s) * f
+                resident[s:e] = _ship(host_bf16(chunk), device=device)[0]
+        sp.set(**{k: v - before[k] for k, v in _transfer.items()})
     return resident
 
 

@@ -46,6 +46,8 @@ left block of the stale P and F (a deliberate deviation).
 
 from __future__ import annotations
 
+import contextlib
+import tracemalloc
 import warnings
 from itertools import product
 from typing import Optional, Sequence
@@ -59,7 +61,7 @@ from .core import mesh as cm
 from .core.dtypes import resolve_device
 from .core.hostmat import densify, ensure_row_major, is_scipy_sparse
 from .core.residency import clear_residency_cache
-from .core.timing import TimeLogger
+from .core import timing
 from .models.convert import load_flax_variables, to_flax_variables
 from .models.coupled_vae import CoupledVAE
 from .ops.distances import dataset_distance_matrix
@@ -155,13 +157,37 @@ class JAMIE:
         self.dist = None
         self._use_landmarks = False
         self.trainer: Optional[JamieTrainer] = None
+        # the root span of the last fit (`core/timing`)
+        self.trace: Optional[timing.Span] = None
 
     # ------------------------------------------------------------------ fit
     def fit_transform(self, dataset=None, P=None):
         """Full pipeline: distances -> correspondence F -> coupled-VAE
-        training -> integrated embeddings (jamie/jamie.py:113-222)."""
-        with cm.rank0_stdout():
+        training -> integrated embeddings (jamie/jamie.py:113-222).
+        The fit's spans are `self.trace` (`core/timing`): its phases, and
+        under them where the work happens."""
+        with cm.rank0_stdout(), timing.span('fit', fit=True) as root:
+            self.trace = root
             return self._fit_transform(dataset, P)
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """An estimator phase: a span that waits for the card before it
+        closes; with `enable_memory_logging`, tracemalloc's (current, peak)
+        of the phase is kept on it and the trace restarts."""
+        with timing.span(name, sync=True) as sp:
+            yield sp
+        if self.config.enable_memory_logging:
+            sp.set(host_memory=tracemalloc.get_traced_memory())
+            tracemalloc.stop()
+            tracemalloc.start()
+
+    def _report(self, phases) -> None:
+        print('-' * 33)
+        print('JAMIE Done!')
+        timing.print_phases(phases)
+        if self.config.enable_memory_logging:
+            tracemalloc.stop()
 
     def _shared(self, x):
         """Rank 0's x on every rank of the mesh (x itself without one)."""
@@ -173,78 +199,80 @@ class JAMIE:
         if P is not None:
             self.P = P
 
-        time = TimeLogger(memory_usage=cfg.enable_memory_logging, block=True)
-        np.random.seed(cfg.manual_seed)
+        if cfg.enable_memory_logging:
+            tracemalloc.start()
+        with self._phase('Distance') as distance:
+            np.random.seed(cfg.manual_seed)
 
-        self.dataset, self.dataset_annotation = _unwrap_anndata(dataset)
-        # Never copied or written (the residency caches key on identity);
-        # scipy-sparse modalities stay sparse, as CSR for the row-streamed
-        # device routes
-        self.dataset = [ensure_row_major(d) if is_scipy_sparse(d)
-                        else d if isinstance(d, np.ndarray) else np.asarray(d)
-                        for d in self.dataset]
-        self.dataset_num = len(self.dataset)
-        assert self.dataset_num == 2, (
-            'Currently only compatible with 2 modalities.')
-        self.row = [int(np.shape(d)[0]) for d in self.dataset]
-        self.col = [int(np.shape(d)[1]) for d in self.dataset]
-        entries = self.row[0] * self.row[1]
+            self.dataset, self.dataset_annotation = _unwrap_anndata(dataset)
+            # Never copied or written (the residency caches key on
+            # identity); scipy-sparse modalities stay sparse, as CSR for the
+            # row-streamed device routes
+            self.dataset = [ensure_row_major(d) if is_scipy_sparse(d)
+                            else d if isinstance(d, np.ndarray)
+                            else np.asarray(d) for d in self.dataset]
+            self.dataset_num = len(self.dataset)
+            assert self.dataset_num == 2, (
+                'Currently only compatible with 2 modalities.')
+            self.row = [int(np.shape(d)[0]) for d in self.dataset]
+            self.col = [int(np.shape(d)[1]) for d in self.dataset]
+            entries = self.row[0] * self.row[1]
 
-        # Landmark route: the dense N x N distance matrices exist only to
-        # feed the dense solver; the landmark solver builds its own L x L
-        # ones (jamie_tpu/estimator.py:144-156)
-        self._use_landmarks = self._takes_landmarks(
-            dense_entries(*self.row, 'bfloat16'))
-        # the t-SNE projection reads the distances whatever F's route
-        self.compute_distances(save_dist=(
-            cfg.project_mode == 'tsne'
-            or (self.match_result is None and cfg.use_f_tilde
-                and not self._use_landmarks)))
-        time.log('Distance')
+            # Landmark route: the dense N x N distance matrices exist only
+            # to feed the dense solver; the landmark solver builds its own
+            # L x L ones (jamie_tpu/estimator.py:144-156)
+            self._use_landmarks = self._takes_landmarks(
+                dense_entries(*self.row, 'bfloat16'))
+            # the t-SNE projection reads the distances whatever F's route
+            self.compute_distances(save_dist=(
+                cfg.project_mode == 'tsne'
+                or (self.match_result is None and cfg.use_f_tilde
+                    and not self._use_landmarks)))
 
-        if not cfg.use_f_tilde:
-            # Past SENTINEL_ENTRIES the zero matrix stays implicit
-            self.match_result = (
-                ['zeros'] if entries > SENTINEL_ENTRIES else
-                [np.zeros([d.shape[0] for d in self.dataset], np.float32)])
-        if self.match_result is None:
-            self.match_result = self.match()
-        if self.device.type == 'cuda':
-            # The solve's freed temporaries stay reserved by the caching
-            # allocator; cuSOLVER and cuBLAS allocate their handles and
-            # workspaces outside it (a dense 37,464 x 18,732 fit failed in
-            # cusolverDnCreate at its first QR without this)
-            torch.cuda.empty_cache()
+        with self._phase('Correspondence') as correspondence:
+            if not cfg.use_f_tilde:
+                # Past SENTINEL_ENTRIES the zero matrix stays implicit
+                self.match_result = (
+                    ['zeros'] if entries > SENTINEL_ENTRIES else
+                    [np.zeros([d.shape[0] for d in self.dataset],
+                              np.float32)])
+            if self.match_result is None:
+                self.match_result = self.match()
+            if self.device.type == 'cuda':
+                # The solve's freed temporaries stay reserved by the caching
+                # allocator; cuSOLVER and cuBLAS allocate their handles and
+                # workspaces outside it (a dense 37,464 x 18,732 fit failed
+                # in cusolverDnCreate at its first QR without this)
+                with timing.span('estimator.empty_cache'):
+                    torch.cuda.empty_cache()
+            if cfg.project_mode == 'tsne':
+                self._tsne_pairs()
         if cfg.project_mode == 'tsne':
-            return self._project_tsne(time)
-        time.log('Correspondence')
+            with self._phase('Mapping') as mapping:
+                integrated_data = self._project_tsne()
+            self._report((distance, correspondence, mapping))
+            return integrated_data
 
-        match_matrix = [[None for _ in range(self.dataset_num)]
-                        for _ in range(self.dataset_num)]
-        k = 0
-        for i, j in product(*(2 * [range(self.dataset_num)])):
-            if i < j:   # project_jamie reads only the upper slot W[0][1]
-                match_matrix[i][j] = self.match_result[k]
-                k += 1
-        integrated_data = self.project_jamie(match_matrix)
-        time.log('Mapping')
+        with self._phase('Mapping') as mapping:
+            match_matrix = [[None for _ in range(self.dataset_num)]
+                            for _ in range(self.dataset_num)]
+            k = 0
+            for i, j in product(*(2 * [range(self.dataset_num)])):
+                if i < j:   # project_jamie reads only the upper slot W[0][1]
+                    match_matrix[i][j] = self.match_result[k]
+                    k += 1
+            integrated_data = self.project_jamie(match_matrix)
 
-        print('-' * 33)
-        print('JAMIE Done!')
-        time.aggregate()
-        self.phase_timings = {k: round(float(v), 3)
-                              for k, v in time.totals().items()}
-        time.stop()
+        phases = (distance, correspondence, mapping)
+        self._report(phases)
+        self.phase_timings = {sp.name: round(sp.seconds, 3) for sp in phases}
         print()
         return integrated_data
 
-    def _project_tsne(self, time):
-        """The legacy UnionCom route (jamie_tpu/estimator.py:168-223,
-        jamie/jamie.py:175-195): Hungarian pairs of each F, PCA-50 of
-        each modality wider than 50 columns, the joint probabilities of
-        each distance matrix and the pair-aligned t-SNE. Returns [Y1, Y2];
-        phase_timings is not set, as in jamie_tpu."""
-        cfg = self.config
+    def _tsne_pairs(self):
+        """The legacy UnionCom route's correspondence (jamie_tpu/
+        estimator.py:168-223, jamie/jamie.py:175-195): the Hungarian pairs
+        of each F."""
         self.pairs_x, self.pairs_y = [], []
         for i in range(self.dataset_num - 1):
             mat = self.match_result[i]
@@ -260,8 +288,13 @@ class JAMIE:
             row_ind, col_ind = hungarian_pairs(mat)
             self.pairs_x.append(row_ind)
             self.pairs_y.append(col_ind)
-        time.log('Correspondence')
 
+    def _project_tsne(self):
+        """The legacy UnionCom route's mapping: PCA-50 of each modality
+        wider than 50 columns, the joint probabilities of each distance
+        matrix and the pair-aligned t-SNE. Returns [Y1, Y2]; phase_timings
+        is not set, as in jamie_tpu."""
+        cfg = self.config
         P_joint = [joint_probabilities(self.dist[i], cfg.perplexity,
                                        device=self.device)
                    for i in range(self.dataset_num)]
@@ -272,17 +305,11 @@ class JAMIE:
                 self.col[i] = 50
             elif is_scipy_sparse(self.dataset[i]):
                 self.dataset[i] = densify(self.dataset[i])
-        integrated_data = project_tsne(
+        return project_tsne(
             self.dataset, P_joint, self.pairs_x[0], self.pairs_y[0],
             output_dim=cfg.output_dim, n_iters=cfg.tsne_iters,
             align_weight=cfg.tsne_align_weight, lr=cfg.tsne_lr,
             exaggeration=cfg.tsne_exaggeration, device=self.device)
-        time.log('Mapping')
-        print('-' * 33)
-        print('JAMIE Done!')
-        time.aggregate()
-        time.stop()
-        return integrated_data
 
     # ------------------------------------------------------------ distances
     def compute_distances(self, save_dist: bool = True):
@@ -414,46 +441,48 @@ class JAMIE:
             self.F = SparseRows.top_k(self.F, cfg.f_top_k)
 
         pca_dims = cfg.pca_dim if cfg.pca_dim is not None else (None, None)
-        timer = TimeLogger(block=True)
-        self.preprocessors = tuple(
-            Preprocessor.fit(data, pca_dim=dim, method=cfg.model_pca,
-                             device=self.device,
-                             power_iters=cfg.pca_power_iters)
-            for dim, data in zip(pca_dims, self.dataset))
-        # the cached fit samples: no second projection of the raw matrices
-        transformed = [self._shared(pre.transform_fit())
-                       for pre in self.preprocessors]
-        # the distance/PCA residencies release their device memory
-        clear_residency_cache()
-        timer.log('Preprocessing')
+        with timing.span('Preprocessing', sync=True) as preprocessing:
+            pres, transformed = [], []
+            for dim, data in zip(pca_dims, self.dataset):
+                with timing.span('preprocess.fit', route=(
+                        cfg.model_pca if dim is not None else 'standardize')):
+                    pres.append(Preprocessor.fit(
+                        data, pca_dim=dim, method=cfg.model_pca,
+                        device=self.device, power_iters=cfg.pca_power_iters))
+                    # the cached fit sample: no second projection of the
+                    # raw matrix
+                    transformed.append(self._shared(pres[-1].transform_fit()))
+            self.preprocessors = tuple(pres)
+            # the distance/PCA residencies release their device memory
+            clear_residency_cache()
         self.col = [int(x.shape[1]) for x in transformed]
 
-        self.model = CoupledVAE(
-            input_dim=tuple(self.col), output_dim=cfg.output_dim,
-            dropout=cfg.dropout,
-            matmul_bf16=cfg.model_matmul_dtype == 'bfloat16',
-            seed=cfg.manual_seed,
-            compute_dtype=_compute_dtype(cfg.compute_dtype == 'bfloat16'))
-        self.trainer = JamieTrainer(cfg, self.model, transformed, self.P,
-                                    self.F, device=self.device,
-                                    mesh=self.mesh)
-        timer.log('Trainer setup')
-        self.train_state = self.trainer.fit(
-            checkpoint_dir=cfg.checkpoint_dir,
-            checkpoint_every=cfg.checkpoint_every,
-            metrics_path=cfg.metrics_path)
-        timer.log('Training')
-        self.loss_history = self.trainer.loss_history
-        self.epochs_run = self.trainer.epochs_run
-        self.fit_seconds = self.trainer.fit_seconds
-        self.sampling_method = self.trainer.sampling_method
-
-        integrated_data = self.trainer.final_embed()
-        timer.log('Output')
+        with timing.span('Trainer setup', sync=True) as setup:
+            self.model = CoupledVAE(
+                input_dim=tuple(self.col), output_dim=cfg.output_dim,
+                dropout=cfg.dropout,
+                matmul_bf16=cfg.model_matmul_dtype == 'bfloat16',
+                seed=cfg.manual_seed,
+                compute_dtype=_compute_dtype(cfg.compute_dtype == 'bfloat16'))
+            self.trainer = JamieTrainer(cfg, self.model, transformed, self.P,
+                                        self.F, device=self.device,
+                                        mesh=self.mesh)
+        with timing.span('Training', sync=True) as training:
+            self.train_state = self.trainer.fit(
+                checkpoint_dir=cfg.checkpoint_dir,
+                checkpoint_every=cfg.checkpoint_every,
+                metrics_path=cfg.metrics_path)
+        with timing.span('Output', sync=True) as output:
+            self.loss_history = self.trainer.loss_history
+            self.epochs_run = self.trainer.epochs_run
+            self.fit_seconds = self.trainer.fit_seconds
+            self.sampling_method = self.trainer.sampling_method
+            integrated_data = self.trainer.final_embed()
         print('Finished Mapping!')
+        phases = (preprocessing, setup, training, output)
         if cfg.debug:
-            timer.aggregate()
-        self._mapping_timings = timer.totals()
+            timing.print_phases(phases)
+        self._mapping_timings = {sp.name: sp.seconds for sp in phases}
         return integrated_data
 
     # ------------------------------------------------------------ inference

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..core import mesh as cm
-from ..core import residency
+from ..core import residency, timing
 from ..core.dtypes import bf16_matmul, resolve_device
 from ..core.hostmat import as_f32_ndarray, densify, ensure_col_major, \
     is_scipy_sparse
@@ -185,15 +185,18 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
                 else np.asarray(x), device=device)
             if xdev is not None:
                 residency.route_counts['distance_resident_bf16'] += 1
+                timing.note(route='distance_resident_bf16')
                 return _euclidean_resident_bf16(xdev, squared, True)
         xs = x if isinstance(x, torch.Tensor) else ensure_col_major(x)
         ys = (xs if y is None else y if isinstance(y, torch.Tensor)
               else ensure_col_major(y))
         residency.route_counts['distance_feature_chunked'] += 1
+        timing.note(route='distance_feature_chunked')
         return _pairwise_euclidean_feature_chunked(xs, ys, squared,
                                                    self_dist, device)
     xt = _as_device_f32(x, device)
     yt = None if self_dist else _as_device_f32(y, device)
+    timing.note(route='k3' if mesh is None else 'k3_mesh')
     if mesh is not None:
         other = xt if self_dist else yt
         return _sharded_rows(
@@ -402,30 +405,40 @@ def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
     kstep until the kNN graph is connected (capped at kmax), bridge any
     components left, then all-pairs Dijkstra. The euclidean base matrix is
     computed on `device` (row-sharded over `mesh`); the graph work runs on
-    the host, on every rank."""
+    the host, on every rank. Each of the three is a span: `distances.base`
+    (with its copy to the host), `distances.knn_graph` (the k reached, the
+    rounds, whether components were bridged) and `distances.shortest_path`."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components, shortest_path
 
-    dist = pairwise_distance(data, 'euclidean', device=device,
-                             mesh=mesh).cpu().numpy()
+    with timing.span('distances.base'):
+        dist = pairwise_distance(data, 'euclidean', device=device,
+                                 mesh=mesh).cpu().numpy()
     n = dist.shape[0]
     if n == 1:
         return np.zeros((1, 1), np.float32)
-    graph = None
-    for k in range(kmin, max(kmax, kmin) + 1, kstep):
-        graph = _knn_graph(dist, min(k, n - 1))
-        n_comp, _ = connected_components(csr_matrix(graph), directed=False)
-        if n_comp == 1:
-            break
-    else:
-        # Still disconnected at kmax: bridge components at their closest pair
-        from ..nn_funcs import connect_graph
-        graph = connect_graph(graph, dist)
-    sp = shortest_path(csr_matrix(graph), method='D', directed=False)
-    # Unreachable pairs (shouldn't happen post-connect) -> max finite distance
-    finite_max = np.nanmax(np.where(np.isinf(sp), np.nan, sp))
-    sp = np.where(np.isinf(sp), finite_max, sp)
-    return sp.astype(np.float32)
+    with timing.span('distances.knn_graph') as knn:
+        graph = None
+        for rounds, k in enumerate(range(kmin, max(kmax, kmin) + 1, kstep),
+                                   1):
+            graph = _knn_graph(dist, min(k, n - 1))
+            n_comp, _ = connected_components(csr_matrix(graph),
+                                             directed=False)
+            if n_comp == 1:
+                break
+        else:
+            # Still disconnected at kmax: bridge components at their
+            # closest pair
+            from ..nn_funcs import connect_graph
+            graph = connect_graph(graph, dist)
+        knn.set(k=min(k, n - 1), rounds=rounds, bridged=n_comp > 1)
+    with timing.span('distances.shortest_path'):
+        sp = shortest_path(csr_matrix(graph), method='D', directed=False)
+        # Unreachable pairs (shouldn't happen post-connect) -> max finite
+        # distance
+        finite_max = np.nanmax(np.where(np.isinf(sp), np.nan, sp))
+        sp = np.where(np.isinf(sp), finite_max, sp)
+        return sp.astype(np.float32)
 
 
 def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
@@ -442,19 +455,20 @@ def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
         data = as_f32_ndarray(data)   # keeps the identity the caches key on
     if distance_mode == 'geodesic':
         return geodesic_distances(data, kmax=kmax, device=device, mesh=mesh)
-    if distance_mode in ('spearman', 'pearson'):
-        if data.shape[0] == 1:
-            return np.zeros((1, 1), np.float32)
-        x = _as_device_f32(data, resolve_device(device))
-        if distance_mode == 'pearson':
-            return (1.0 - _corrcoef_similarity(x)) / 2.0
-        sim = _corrcoef_similarity(_rank_rows(x))
-        # as jamie_tpu checks (:484-488); ranks are finite, so this guards
-        # the similarity's own arithmetic
-        if bool(torch.isnan(sim).any()):
-            raise ValueError(
-                'Data is not well conditioned for spearman method '
-                '(rank correlation returned nan)')
-        return (1.0 - sim) / 2.0
-    return pairwise_distance(data, metric=distance_mode, device=device,
-                             mesh=mesh)
+    with timing.span('distances.base', route=distance_mode):
+        if distance_mode in ('spearman', 'pearson'):
+            if data.shape[0] == 1:
+                return np.zeros((1, 1), np.float32)
+            x = _as_device_f32(data, resolve_device(device))
+            if distance_mode == 'pearson':
+                return (1.0 - _corrcoef_similarity(x)) / 2.0
+            sim = _corrcoef_similarity(_rank_rows(x))
+            # as jamie_tpu checks (:484-488); ranks are finite, so this
+            # guards the similarity's own arithmetic
+            if bool(torch.isnan(sim).any()):
+                raise ValueError(
+                    'Data is not well conditioned for spearman method '
+                    '(rank correlation returned nan)')
+            return (1.0 - sim) / 2.0
+        return pairwise_distance(data, metric=distance_mode, device=device,
+                                 mesh=mesh)

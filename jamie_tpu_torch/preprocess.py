@@ -39,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core import residency
+from .core import residency, timing
 from .core.dtypes import bf16_matmul, resolve_device
 from .core.hostmat import (as_f32_ndarray, dense_rows, densify,
                            ensure_col_major, is_scipy_sparse)
@@ -144,9 +144,11 @@ def _pca_fit(X: torch.Tensor, n_components: int):
     if (min(n, f) > _RANDOMIZED_THRESHOLD
             and n_components <= min(n, f) // 4):
         residency.route_counts['pca_randomized'] += 1
+        timing.note(route='pca_randomized')
         mean, comps = _pca_fit_randomized(X, n_components)
     else:
         residency.route_counts['pca_direct'] += 1
+        timing.note(route='pca_direct')
         mean, comps = _pca_fit_direct(X, n_components)
     return mean, comps * _component_signs(comps)[:, None]
 
@@ -289,13 +291,16 @@ def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
         xdev = residency.device_bf16(X, device=device)
         if xdev is not None:
             residency.route_counts['pca_resident_bf16'] += 1
+            timing.note(route='pca_resident_bf16')
             mean, comps, scores = _pca_fit_resident_bf16(xdev, n_components)
         elif f > n:
             residency.route_counts['pca_streamed'] += 1
+            timing.note(route='pca_streamed')
             mean, comps, scores = _pca_fit_streamed(
                 ensure_col_major(X), n_components, device=device)
         else:
             residency.route_counts['pca_row_streamed'] += 1
+            timing.note(route='pca_row_streamed')
             mean, comps, scores = _pca_fit_row_streamed(
                 X, n_components, power_iters=power_iters, device=device)
         signs = _component_signs(comps)

@@ -46,7 +46,7 @@ from ..core import mesh as cm
 from ..core import residency
 from ..core.dtypes import resolve_device
 from ..core.hostmat import dense_rows, is_scipy_sparse
-from ..core.timing import TimeLogger
+from ..core import timing
 from ..ops.distances import _as_device_f32, dataset_distance_matrix
 from ..ops.lowrank import LowRankF, SparseLandmarkF
 from ..ops.pairwise import pairwise_euclidean
@@ -244,42 +244,45 @@ def landmark_correspondence(
     device = resolve_device(device)
     n0, n1 = int(X.shape[0]), int(Y.shape[0])
     L0, L1 = min(int(n_landmarks), n0), min(int(n_landmarks), n1)
-    timer = TimeLogger(block=True)
 
-    rng = np.random.RandomState(seed)
-    lx = _select_landmarks(X, L0, selection, rng, device)
-    ly = _select_landmarks(Y, L1, selection, rng, device)
-    # fancy row indexing of a CSR gathers just the landmark rows
-    Xl, Yl = (A[idx].toarray() if is_scipy_sparse(A) else A[idx]
-              for A, idx in ((X, lx), (Y, ly)))
-    timer.log('selection')
+    # each stage a span that waits for the card before it closes
+    with timing.span('landmark.selection', sync=True) as selected:
+        rng = np.random.RandomState(seed)
+        lx = _select_landmarks(X, L0, selection, rng, device)
+        ly = _select_landmarks(Y, L1, selection, rng, device)
+        # fancy row indexing of a CSR gathers just the landmark rows
+        Xl, Yl = (A[idx].toarray() if is_scipy_sparse(A) else A[idx]
+                  for A, idx in ((X, lx), (Y, ly)))
 
     # Exact solver on the landmark subproblem; graph modes (geodesic) run
     # on the landmark subset's own graph
-    Kx = dataset_distance_matrix(Xl, distance_mode, kmax=kmax, device=device)
-    Ky = dataset_distance_matrix(Yl, distance_mode, kmax=kmax, device=device)
-    timer.log('distances')
-    F_L = prime_dual(Kx, Ky, dx=int(X.shape[1]), dy=int(Y.shape[1]),
-                     device=device, mesh=mesh, **prime_dual_kwargs)
-    timer.log('solve')
+    with timing.span('landmark.distances', sync=True) as distances:
+        Kx = dataset_distance_matrix(Xl, distance_mode, kmax=kmax,
+                                     device=device)
+        Ky = dataset_distance_matrix(Yl, distance_mode, kmax=kmax,
+                                     device=device)
+    with timing.span('landmark.solve', sync=True) as solve:
+        F_L = prime_dual(Kx, Ky, dx=int(X.shape[1]), dy=int(Y.shape[1]),
+                         device=device, mesh=mesh, **prime_dual_kwargs)
 
     if factor_layout == 'auto':
         factor_layout = ('sparse' if max(n0, n1) * max(L0, L1)
                          > _SPARSE_FACTOR_ENTRIES else 'dense')
-    if factor_layout == 'sparse':
-        ix, wx = _cell_to_landmark_weights(X, Xl, k_interp, sparse=True,
-                                           device=device)
-        iy, wy = _cell_to_landmark_weights(Y, Yl, k_interp, sparse=True,
-                                           device=device)
-        F = SparseLandmarkF(ix, wx, iy, wy, F_L)
-    else:
-        A_x = _cell_to_landmark_weights(X, Xl, k_interp, device=device)
-        A_y = _cell_to_landmark_weights(Y, Yl, k_interp, device=device)
-        # U carries the solved landmark correspondences mixed by each row
-        # cell's weights; V is the column side's affinity
-        F = LowRankF(A_x @ F_L, A_y)
-    timer.log('weights')
+    with timing.span('landmark.weights', sync=True) as weights:
+        if factor_layout == 'sparse':
+            ix, wx = _cell_to_landmark_weights(X, Xl, k_interp, sparse=True,
+                                               device=device)
+            iy, wy = _cell_to_landmark_weights(Y, Yl, k_interp, sparse=True,
+                                               device=device)
+            F = SparseLandmarkF(ix, wx, iy, wy, F_L)
+        else:
+            A_x = _cell_to_landmark_weights(X, Xl, k_interp, device=device)
+            A_y = _cell_to_landmark_weights(Y, Yl, k_interp, device=device)
+            # U carries the solved landmark correspondences mixed by each
+            # row cell's weights; V is the column side's affinity
+            F = LowRankF(A_x @ F_L, A_y)
     if prime_dual_kwargs.get('verbose', True) and cm.is_rank0():
         print('landmark correspondence seconds: ' + ', '.join(
-            f'{k} {v:.3f}' for k, v in timer.totals().items()))
+            f'{sp.name.split(".")[1]} {sp.seconds:.3f}'
+            for sp in (selected, distances, solve, weights)))
     return F

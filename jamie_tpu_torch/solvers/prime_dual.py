@@ -53,6 +53,7 @@ import torch
 
 from ..core import graphs
 from ..core import mesh as cm
+from ..core import timing
 from ..core.dtypes import bf16_matmul, resolve_device
 from ..ops.pd_update import fused_pd_grad_update
 
@@ -212,8 +213,9 @@ def prime_dual(
 
     bf16_mm = _BF16_PRECISIONS[precision]
     mm = _matmul(bf16_mm)
-    Kx, Ky, tr_kx_kx, st, (start, b, m) = init_state(
-        Kx, Ky, dx, dy, state_dtype, bf16_mm, device, mesh)
+    with timing.span('prime_dual.setup'):
+        Kx, Ky, tr_kx_kx, st, (start, b, m) = init_state(
+            Kx, Ky, dx, dy, state_dtype, bf16_mm, device, mesh)
     if mesh is None:
         def reduce(t):
             return t
@@ -244,17 +246,22 @@ def prime_dual(
     F, a, FKy = st['F'], st['a'], st['FKy']
     log_every = max(int(log_pd), 1)
     i = 0
-    while i < epoch_pd:
-        # chunks end at the log_pd boundaries, the only host reads (:283-288)
-        chunk = min(log_every - i % log_every, epoch_pd - i)
-        runner.run(chunk)
-        i += chunk
-        if verbose and i % log_every == 0:
-            # ||a Kx - FKy F^T||: the pad rows and columns are zero
-            r = a * Kx.float() - FKy.float() @ gather(F).T
-            norm2 = (torch.linalg.norm(r) if mesh is None
-                     else torch.sqrt(reduce(torch.sum(r * r))))
-            if cm.is_rank0():
-                print('epoch:[{:d}/{:d}] err:{:.4f} alpha:{:.4f}'.format(
-                    i, epoch_pd, float(norm2), float(a)))
+    # the iterations: the capture (its warm-up is the first), the replays
+    # timed on the device, and the progress lines
+    with timing.span('prime_dual.replay', device=True) as sp:
+        while i < epoch_pd:
+            # chunks end at the log_pd boundaries, the only host reads
+            # (:283-288)
+            chunk = min(log_every - i % log_every, epoch_pd - i)
+            runner.run(chunk)
+            i += chunk
+            if verbose and i % log_every == 0:
+                # ||a Kx - FKy F^T||: the pad rows and columns are zero
+                r = a * Kx.float() - FKy.float() @ gather(F).T
+                norm2 = (torch.linalg.norm(r) if mesh is None
+                         else torch.sqrt(reduce(torch.sum(r * r))))
+                if cm.is_rank0():
+                    print('epoch:[{:d}/{:d}] err:{:.4f} alpha:{:.4f}'.format(
+                        i, epoch_pd, float(norm2), float(a)))
+        sp.set(steps=i, replays=runner.stats.get('replays', 0))
     return F if mesh is None else gather(F)[:m]

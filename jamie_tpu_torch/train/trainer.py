@@ -82,6 +82,7 @@ import torch
 
 from ..config import JamieConfig
 from ..core import mesh as cm
+from ..core import timing
 from ..core.dtypes import resolve_device
 from ..core.timing import device_memory_stats
 from ..ops.lowrank import LowRankF, SparseLandmarkF, _mix_rows, \
@@ -337,17 +338,18 @@ class _CapturedEpochs:
         self.start_offset = tr.generator.get_offset()
         restore = tr._device_state()
         self.parts = []
-        for name, part, reps in (
-                ('epoch_start', tr._epoch_start, 1),
-                ('epoch_step', tr._epoch_step, tr.len_dataloader),
-                ('epoch_end', tr._epoch_end, 1)):
-            g = graphs.StepGraph(
-                name, part, tr.device, (tr.generator,), restore=restore,
-                cond=(tr._stopped, tr._live),
-                tail=tr._epoch_flags if name == 'epoch_end' else None,
-                mesh=mesh)
-            g.capture()
-            self.parts.append((g, reps))
+        with timing.span('trainer.capture'):
+            for name, part, reps in (
+                    ('epoch_start', tr._epoch_start, 1),
+                    ('epoch_step', tr._epoch_step, tr.len_dataloader),
+                    ('epoch_end', tr._epoch_end, 1)):
+                g = graphs.StepGraph(
+                    name, part, tr.device, (tr.generator,), restore=restore,
+                    cond=(tr._stopped, tr._live),
+                    tail=tr._epoch_flags if name == 'epoch_end' else None,
+                    mesh=mesh)
+                g.capture()
+                self.parts.append((g, reps))
         stats = [(g.stats, reps) for g, reps in self.parts]
         self.rng_step = sum(g.increments[0] * reps for g, reps in self.parts)
         tr.graph_stats = {
@@ -996,59 +998,74 @@ class JamieTrainer:
         stop_seen = bool(state.stopped)
         metrics_f = (open(metrics_path, 'a')
                      if metrics_path and cm.is_rank0() else None)
-        t0 = chunk_t0 = time.perf_counter()
+        chunk_t0 = time.perf_counter()
         runner = None
         inflight: deque = deque()
-        try:
-            while inflight or (dispatched < cfg.epoch_DNN and not stop_seen):
-                while (dispatched < cfg.epoch_DNN and not stop_seen
-                       and len(inflight) <= lookahead):
-                    if runner is None:
-                        runner = self._epoch_runner(eager)
-                    chunk = min(cfg.epoch_chunk, cfg.epoch_DNN - dispatched)
-                    inflight.append((dispatched, chunk,
-                                     self._dispatch(runner, chunk)))
-                    dispatched += chunk
-                start, chunk, pending = inflight.popleft()
-                rows = pending.result()
-                ran = rows[:, 6] > 0
-                if stop_seen and not ran.any():
-                    continue    # dispatched before the host saw the stop
-                for k in np.flatnonzero(ran):
-                    self._log_epoch(int(start + k), rows[k, 0], rows[k, 1:5])
-                epoch_routes[runner.route] += int(ran.sum())
-                end = start + chunk
-                if metrics_f is not None:
-                    now = time.perf_counter()
-                    some = bool(ran.any())
-                    metrics_f.write(json.dumps({
-                        'epoch_start': start,
-                        'epoch_end': start + int(ran.sum()),
-                        'epoch_loss_mean': (float(np.mean(rows[ran, 0]))
-                                            if some else None),
-                        'losses': ({name: float(np.mean(rows[ran, 1 + j]))
-                                    for j, name in enumerate(LOSS_NAMES)}
-                                   if some else {}),
-                        'seconds': round(now - chunk_t0, 4),
-                        'memory': device_memory_stats(self.device),
-                    }) + '\n')
-                    metrics_f.flush()
-                    chunk_t0 = now
-                if checkpointing and end - last_ckpt >= checkpoint_every:
+        # the epochs: the capture, the replays timed on the device, the
+        # host's waits for each chunk's rows
+        with timing.span('trainer.replay', device=True) as replay:
+            try:
+                while inflight or (dispatched < cfg.epoch_DNN
+                                   and not stop_seen):
+                    while (dispatched < cfg.epoch_DNN and not stop_seen
+                           and len(inflight) <= lookahead):
+                        if runner is None:
+                            runner = self._epoch_runner(eager)
+                        chunk = min(cfg.epoch_chunk,
+                                    cfg.epoch_DNN - dispatched)
+                        timed = timing.device_begin()
+                        inflight.append((dispatched, chunk,
+                                         self._dispatch(runner, chunk)))
+                        if timed is not None:
+                            timed.device_end()
+                        dispatched += chunk
+                        replay.add('epochs', chunk)
+                        replay.add('steps', chunk * self.len_dataloader)
+                    start, chunk, pending = inflight.popleft()
+                    with timing.span('trainer.wait'):
+                        rows = pending.result()
+                    ran = rows[:, 6] > 0
+                    if stop_seen and not ran.any():
+                        continue   # dispatched before the host saw the stop
+                    for k in np.flatnonzero(ran):
+                        self._log_epoch(int(start + k), rows[k, 0],
+                                        rows[k, 1:5])
+                    epoch_routes[runner.route] += int(ran.sum())
+                    end = start + chunk
+                    if metrics_f is not None:
+                        now = time.perf_counter()
+                        some = bool(ran.any())
+                        metrics_f.write(json.dumps({
+                            'epoch_start': start,
+                            'epoch_end': start + int(ran.sum()),
+                            'epoch_loss_mean': (
+                                float(np.mean(rows[ran, 0])) if some
+                                else None),
+                            'losses': (
+                                {name: float(np.mean(rows[ran, 1 + j]))
+                                 for j, name in enumerate(LOSS_NAMES)}
+                                if some else {}),
+                            'seconds': round(now - chunk_t0, 4),
+                            'memory': device_memory_stats(self.device),
+                        }) + '\n')
+                        metrics_f.flush()
+                        chunk_t0 = now
+                    if checkpointing and end - last_ckpt >= checkpoint_every:
+                        runner.settle(self.epochs_run)
+                        self.save_fit_state(
+                            f'{checkpoint_dir}/epoch_{end}',
+                            self._snapshot())
+                        last_ckpt = end
+                    if rows[-1, 5] > 0:
+                        stop_seen = True
+                if runner is not None:
                     runner.settle(self.epochs_run)
-                    self.save_fit_state(f'{checkpoint_dir}/epoch_{end}',
-                                        self._snapshot())
-                    last_ckpt = end
-                if rows[-1, 5] > 0:
-                    stop_seen = True
-            if runner is not None:
-                runner.settle(self.epochs_run)
-        finally:
-            if metrics_f is not None:
-                metrics_f.close()
-            if runner is not None:
-                runner.close()
-        self.fit_seconds = time.perf_counter() - t0
+            finally:
+                if metrics_f is not None:
+                    metrics_f.close()
+                if runner is not None:
+                    runner.close()
+        self.fit_seconds = replay.seconds
         return self._snapshot()
 
     def _log_epoch(self, epoch: int, epoch_loss, last_vec) -> None:

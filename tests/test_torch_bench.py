@@ -319,4 +319,5 @@ def test_csr_to_device_counts_its_csr_payload():
     assert st['bf16_equiv_bytes'] == 2 * x.shape[0] * x.shape[1]
     R.reset_transfer_stats()
     assert R.transfer_stats() == {'bytes': 0, 'bf16_equiv_bytes': 0,
-                                  'read_s': 0.0, 'encode_s': 0.0}
+                                  'read_s': 0.0, 'encode_s': 0.0,
+                                  'copy_s': 0.0}

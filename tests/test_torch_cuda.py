@@ -510,6 +510,49 @@ def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
         assert getattr(cs, name) == getattr(es, name), name
 
 
+def test_fit_spans_on_card(cuda):
+    """A captured fit's spans on the card: one capture for the solve and
+    three for the trainer, each with its warm-up and record, whose seconds
+    are the loops' warmup_s and capture_s; the replays timed on the device
+    inside their phases; the device memory at each phase's close."""
+    from jamie_tpu_torch import JAMIE
+    from jamie_tpu_torch.core import graphs
+    rng = np.random.RandomState(5)
+    z = rng.randn(300, 6)
+    data = [(z @ rng.randn(6, d) + 0.1 * rng.randn(300, d)).astype(
+        np.float32) for d in (50, 20)]
+    jm = JAMIE(epoch_DNN=12, min_epochs=4, epoch_chunk=5, batch_size=64,
+               pca_dim=(16, 8), epoch_pd=30, log_pd=10, log_DNN=1000,
+               use_early_stop=False, distance_mode='geodesic')
+    jm.fit_transform(dataset=data)
+    root = jm.trace
+    corr, mapping = root.child('Correspondence'), root.child('Mapping')
+    (pd,) = corr.find('prime_dual.replay')
+    (pd_cap,) = pd.find('graphs.capture')
+    assert pd_cap.counters['loop'] == 'prime_dual'
+    assert pd.counters == {'steps': 30, 'replays': 29}
+    stats = graphs.last_stats['prime_dual']
+    assert stats['warmup_s'] == pd_cap.child('graphs.warmup').seconds
+    assert stats['capture_s'] == pd_cap.child('graphs.record').seconds
+    assert stats['kernel_nodes'] == pd_cap.counters['kernel_nodes'] > 0
+    assert 0 < pd.device_s + pd_cap.seconds <= corr.seconds
+    (tr,) = mapping.find('trainer.replay')
+    caps = tr.child('trainer.capture').find('graphs.capture')
+    assert [c.counters['loop'] for c in caps] == [
+        'epoch_start', 'epoch_step', 'epoch_end']
+    assert jm.trainer.graph_stats['capture_s'] == pytest.approx(sum(
+        c.child('graphs.record').seconds for c in caps))
+    assert tr.counters['steps'] == 12 * jm.trainer.len_dataloader
+    assert 0 < tr.device_s <= mapping.child('Training').seconds
+    for sp in root.walk():
+        assert isinstance(sp.memory_allocated, int) is (
+            sp is root or sp.name in ('Distance', 'Correspondence',
+                                      'Mapping', 'Preprocessing',
+                                      'Trainer setup', 'Training', 'Output'))
+    assert len(root.find('distances.knn_graph')) == 2
+    assert root.self_seconds < 0.01 * root.seconds
+
+
 def test_device_memory_stats_on_card(cuda):
     """jamie_tpu's keys from torch.cuda.memory_stats / mem_get_info."""
     from jamie_tpu_torch.core.timing import device_memory_stats

@@ -243,7 +243,7 @@ def test_atlas_scale_main_tiny(argv):
         assert rec['label_transfer_cells'] == 40
         assert rec['features'] == [60, 90]
         assert set(rec['transfer']) == {'bytes', 'bf16_equiv_bytes',
-                                        'read_s', 'encode_s'}
+                                        'read_s', 'encode_s', 'copy_s'}
         assert rec['hbm'] == {} and rec['devices'] == 1
     else:
         assert set(rec) == set(ATLAS_KEYS)
