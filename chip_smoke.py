@@ -171,7 +171,15 @@
    (20,000 for UnionCom), K3 launched, the example's record keys, every
    FOSCTTM under 0.5, every number finite; one `examples_data:` line (see
    examples_data_phase).
-27. A `kernels` JSON line (with each kernel's launches on the fit, bench,
+27. The geodesic closure (S): K4 (`ops/shortest_paths.py`, a blocked
+   Floyd-Warshall in float64) on the kNN graphs of 1047, 3654 and 9190
+   rank-32 cells, against its plain version on the card (bit for bit)
+   and scipy's host Dijkstra (float64 path sums to 1e-12, the float32
+   result to one rounding), with its device time, the whole
+   `shortest_paths` call's, the plain version's and Dijkstra's, and its
+   bound from the FP64 instructions a pair in its SASS; one
+   `shortest_paths:` line. No benchmark cell runs this phase.
+28. A `kernels` JSON line (with each kernel's launches on the fit, bench,
    time-and-memory, examples, captured-loop and real-data-example paths),
    the nvidia-smi line, and as the last line {"ok": true, "device":
    {...}}.
@@ -456,9 +464,8 @@ def device_kernels(torch, fn):
     return sg.stats['kernel_nodes'], sg.stats['launches_per_step']
 
 
-def mma_route(lib_path):
-    """K3's tensor-core instruction, read from the built library's SASS
-    (cuobjdump): HGMMA is wgmma, HMMA is mma.sync."""
+def sass_of(lib_path):
+    """A built library's SASS (cuobjdump), or None without cuobjdump."""
     import shutil
     import triton
     cands = ('/usr/local/cuda/bin/cuobjdump', shutil.which('cuobjdump'),
@@ -466,12 +473,20 @@ def mma_route(lib_path):
                           'nvidia', 'bin', 'cuobjdump'))
     for cand in cands:
         if cand and os.path.isfile(cand):
-            sass = subprocess.run([cand, '-sass', str(lib_path)],
+            return subprocess.run([cand, '-sass', str(lib_path)],
                                   capture_output=True, text=True).stdout
-            n_wgmma, n_mma = sass.count('HGMMA'), sass.count('HMMA')
-            route = 'wgmma' if n_wgmma else ('mma.sync' if n_mma else 'none')
-            return route, f'{n_wgmma} HGMMA, {n_mma} HMMA in the SASS'
-    return 'unknown', 'cuobjdump not found'
+    return None
+
+
+def mma_route(lib_path):
+    """K3's tensor-core instruction, read from the built library's SASS
+    (cuobjdump): HGMMA is wgmma, HMMA is mma.sync."""
+    sass = sass_of(lib_path)
+    if sass is None:
+        return 'unknown', 'cuobjdump not found'
+    n_wgmma, n_mma = sass.count('HGMMA'), sass.count('HMMA')
+    route = 'wgmma' if n_wgmma else ('mma.sync' if n_mma else 'none')
+    return route, f'{n_wgmma} HGMMA, {n_mma} HMMA in the SASS'
 
 
 def partial_prior_phase(JAMIE, ops, match_result, data):
@@ -2323,7 +2338,8 @@ def examples_phase(torch, ops, kp, dev, smi_line, sample_kw=None,
         bad.append(f'{name}: FOSCTTM {rec["foscttm_exact"]} (limit < 0.5), '
                    f'LTA {rec["label_transfer_acc"]} (limit > 1/12)')
     if set(rec['transfer']) != {'bytes', 'bf16_equiv_bytes', 'read_s',
-                                'encode_s'} or 'generate_seconds' not in rec:
+                                'encode_s', 'copy_s'} \
+            or 'generate_seconds' not in rec:
         bad.append(f'{name}: record keys {sorted(rec)}, transfer '
                    f'{sorted(rec["transfer"])}')
     del seen, jm, F
@@ -3413,6 +3429,128 @@ def examples_data_phase(torch, ops, kp, dev, smi_line, epoch_dnn=100,
     return total
 
 
+def sass_opcodes(lib_path, kernel):
+    """Opcode counts of one kernel's SASS in a built library (cuobjdump),
+    or {} where cuobjdump is missing."""
+    import re
+    counts, inside = {}, False
+    for line in (sass_of(lib_path) or '').splitlines():
+        if 'Function :' in line:
+            inside = kernel in line
+            continue
+        m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?'
+                      r'([A-Z][A-Z0-9]*)', line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def shortest_paths_phase(torch, kp, dev, smi_line,
+                         sizes=(1047, 3654, 9190), fp64=33.5e12):
+    """S. K4, the geodesic closure, at the geodesic fits' sizes: on the kNN
+    graph that `geodesic_distances` grows (K3 distances of rank-32 points
+    in 64 dimensions, seed 0), the kernel against its plain version on the
+    card, bit for bit, and against scipy's host Dijkstra. Times: the
+    kernel's device ms (CUDA events around one closure, median of a few,
+    the matrix restored before each), the whole `shortest_paths` call
+    (edges up, closure, fill, float32 down) on the host clock, the plain
+    version's device ms and Dijkstra's host ms. The bound counts the FP64
+    instructions of a min-plus pair in fw_rest_kernel's SASS at the card's
+    FP64 instruction rate (`fp64`, the data sheet's FP64 vector FLOP/s,
+    counts an FMA as two operations) against one read and one write of
+    the n^2 float64 matrix. Returns the rows by n."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    from jamie_tpu_torch.ops import _build, distances
+    from jamie_tpu_torch.ops import shortest_paths as K
+    t = time.perf_counter()
+    K.library()
+    usage = [ln.strip() for ln in _build.build_log('floyd_warshall')
+             .splitlines() if any(w in ln for w in ('Used', 'spill'))]
+    print(f'phase S: build nvcc csrc/floyd_warshall.cu '
+          f'{time.perf_counter() - t:.2f} s; ptxas: {usage}', flush=True)
+    sass = sass_opcodes(_build.library_path('floyd_warshall'),
+                        'fw_rest_kernel')
+    top = dict(sorted(sass.items(), key=lambda kv: -kv[1])[:12])
+    fp64_ops = {op: c for op, c in sass.items() if op.startswith('D')}
+    # the loop's min-plus pairs are its DADDs: one add each
+    per_pair = (sum(fp64_ops.values()) / sass['DADD'] if sass.get('DADD')
+                else 2.0)
+    print(f'phase S: fw_rest_kernel SASS opcodes {top}; FP64 {fp64_ops}; '
+          f'FP64 instructions a pair {per_pair:.3f}', flush=True)
+    rate = fp64 / 2
+    rng = np.random.RandomState(0)
+    out = {}
+    for n in sizes:
+        z = rng.randn(n, 32).astype(np.float32)
+        x = z @ rng.randn(32, 64).astype(np.float32) + 0.3 * rng.randn(
+            n, 64).astype(np.float32)
+        dist = distances.pairwise_distance(x, 'euclidean',
+                                           device=dev).cpu().numpy()
+        graph, k, graph_rounds, bridged = distances._geodesic_graph(
+            dist, 5, 40, 5)
+        w0 = K.edge_matrix(graph, dev)
+        w = torch.empty_like(w0)
+
+        def device_ms(fn, reps):
+            ms = []
+            for _ in range(reps):
+                w.copy_(w0)
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn(w)
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            return statistics.median(ms)
+
+        ms = device_ms(K.floyd_warshall, 5)
+        got = w.clone()
+        plain_ms = device_ms(K.floyd_warshall_plain, 1 if n > 4000 else 2)
+        same = bool(torch.equal(got, w))
+        err = float((got - w)[torch.isfinite(got)].abs().max())
+        del w0
+        call = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sp32 = K.shortest_paths(graph, dev)
+            call.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ref = shortest_path(csr_matrix(graph), method='D', directed=False)
+        host_ms = (time.perf_counter() - t) * 1e3
+        mine = got[:n, :n].cpu().numpy()
+        fin = np.isfinite(ref)
+        rel = float(np.abs(mine[fin] - ref[fin]).max() / ref[fin].max())
+        ref32 = np.where(fin, ref, ref[fin].max()).astype(np.float32)
+        ulps = int(np.abs(sp32.view(np.int32).astype(np.int64)
+                          - ref32.view(np.int32)).max())
+        del got, w
+        torch.cuda.empty_cache()
+        bytes_ = 2 * 8 * n * n
+        kp.record('floyd_warshall', f'{n} vertices', err, rel, 1e-12,
+                  (ms, statistics.median(call)), (plain_ms, plain_ms),
+                  bytes_, per_pair * n ** 3, rate=rate,
+                  host_dijkstra_ms=host_ms, call_ms_all=call,
+                  padded=K.TILE * K.rounds(n), pivot_rounds=K.rounds(n),
+                  knn_k=k, knn_rounds=graph_rounds, bridged=bridged,
+                  edges=int(np.count_nonzero(graph)), bit_equal_plain=same,
+                  float32_ulps=ulps, fp64_per_pair=per_pair)
+        if not same or ulps > 1:
+            fail(f'K4 {n}: kernel and plain version differ by {err} '
+                 f'(bit-equal {same}) or the float32 result is {ulps} '
+                 f'roundings from Dijkstra\'s')
+        out[n] = kp.rows[-1]
+    print('shortest_paths: ' + json.dumps(
+        {n: {key: r[key] for key in ('ms', 'call_ms', 'plain_ms', 'bound_ms',
+                                     'bound_by', 'host_dijkstra_ms',
+                                     'check')}
+         for n, r in out.items()}) + f' | {smi_line}', flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3788,10 +3926,16 @@ def main():
                                                        smi_line)
     print(f'phase R: {time.perf_counter() - t:.1f} s', flush=True)
 
+    # S. The geodesic closure on the card, beside scipy's host Dijkstra
+    t = time.perf_counter()
+    shortest_paths_phase(torch, kp, dev, smi_line)
+    print(f'phase S: {time.perf_counter() - t:.1f} s', flush=True)
+
     # 8. The kernels line, the device line, the result
     main_case = {'pd_grad_update': '1047x1047 M1=float32',
                  'pd_update': '1047x1047 M1=float32',
-                 'pairwise_euclidean': '1047x1047x5000 self sqrt'}
+                 'pairwise_euclidean': '1047x1047x5000 self sqrt',
+                 'floyd_warshall': '3654 vertices'}
     meta = {
         'pd_grad_update': ('fused_pd_grad_update', 'triton',
                            'jamie_tpu_torch/ops/pd_update.py',
@@ -3802,6 +3946,10 @@ def main():
         'pairwise_euclidean': ('pairwise_euclidean', 'cuda',
                                'jamie_tpu_torch/csrc/pairwise_sq_euclidean.cu',
                                'jamie_tpu/ops/ab_archive.py:232'),
+        'floyd_warshall': ('floyd_warshall', 'cuda',
+                           'jamie_tpu_torch/csrc/floyd_warshall.cu',
+                           'none (the host Dijkstra, jamie_tpu/ops/'
+                           'distances.py:429-460)'),
     }
     kernels = []
     for key, case in main_case.items():
@@ -3812,7 +3960,8 @@ def main():
             launches=fit_counts[fn], max_abs_err=row['max_abs_err'],
             ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
             bound_by=row['bound_by'], library_ms=row['library_ms'],
-            launches_by_path={p: c[fn] for p, c in path_counts.items()}))
+            launches_by_path={p: c.get(fn, 0)
+                              for p, c in path_counts.items()}))
     print(f'total: {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi_line)

@@ -2,6 +2,8 @@
 
 - `pd_update`: K1/K2, the prime-dual iteration tail (Triton).
 - `pairwise`: K3, pairwise (squared) euclidean distances (CUDA C++).
+- `shortest_paths`: K4, the geodesic graph's all-pairs shortest paths, a
+  blocked Floyd-Warshall (CUDA C++).
 - `distances`: the distance-matrix dispatch on top of K3 (its entry
   points are exported here, as in jamie_tpu.ops).
 - `sparse`: `SparseRows` (padded-ELL priors / top-k F) and its batch gather.
@@ -15,15 +17,17 @@ from .distances import (
 )
 from .pairwise import pairwise_euclidean
 from .pd_update import fused_pd_grad_update, fused_pd_update
+from .shortest_paths import floyd_warshall
 
-KERNEL_WRAPPERS = (fused_pd_grad_update, fused_pd_update, pairwise_euclidean)
+KERNEL_WRAPPERS = (fused_pd_grad_update, fused_pd_update, pairwise_euclidean,
+                   floyd_warshall)
 
 
 __all__ = [
     'pairwise_distance', 'pairwise_sq_euclidean', 'dataset_distance_matrix',
     'geodesic_distances', 'pairwise_euclidean', 'fused_pd_grad_update',
-    'fused_pd_update', 'KERNEL_WRAPPERS', 'reset_launch_counts',
-    'launch_counts',
+    'fused_pd_update', 'floyd_warshall', 'KERNEL_WRAPPERS',
+    'reset_launch_counts', 'launch_counts',
 ]
 
 

@@ -5,8 +5,10 @@ Reference parity: `jamie_tpu/ops/distances.py` (`_pairwise_euclidean_impl`
 `geodesic_distances` :429-460, `dataset_distance_matrix` :463-497). The
 euclidean family goes through the K3 kernel (`ops/pairwise.py`) on the
 card; geodesic computes its euclidean base matrix there, fetches it, and
-grows the kNN graph, bridges components and runs Dijkstra on the host with
-scipy, as `jamie_tpu` does.
+grows the kNN graph and bridges components on the host with scipy, as
+`jamie_tpu` does. The graph's all-pairs shortest paths run on the card
+through K4 (`ops/shortest_paths.py`, a blocked Floyd-Warshall), where
+`jamie_tpu` runs scipy's Dijkstra; on the CPU they stay scipy's Dijkstra.
 
 Host sources past `_FEATURE_CHUNK_THRESHOLD` elements (compared with `>`,
 as jamie_tpu does) take jamie_tpu's large-matrix routes, which round the
@@ -55,6 +57,7 @@ from ..core import residency, timing
 from ..core.dtypes import bf16_matmul, resolve_device
 from ..core.hostmat import as_f32_ndarray, densify, ensure_col_major, \
     is_scipy_sparse
+from . import shortest_paths as _sp
 from .pairwise import pairwise_euclidean
 
 # scipy's pdist on the host (jamie_tpu's sklearn fallbacks, :29-34, less
@@ -197,6 +200,10 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
     xt = _as_device_f32(x, device)
     yt = None if self_dist else _as_device_f32(y, device)
     timing.note(route='k3' if mesh is None else 'k3_mesh')
+    if device.type == 'cuda':
+        # K4 is built (or found) with K3, so a geodesic fit after a
+        # euclidean one does not build it inside the fit
+        _sp.library()
     if mesh is not None:
         other = xt if self_dist else yt
         return _sharded_rows(
@@ -399,18 +406,44 @@ def _knn_graph(dist: np.ndarray, k: int) -> np.ndarray:
     return graph
 
 
+def _geodesic_graph(dist: np.ndarray, kmin: int, kmax: int, kstep: int):
+    """(graph, k, rounds, bridged): the kNN graph of `dist` grown from
+    kmin by kstep until it is connected (capped at kmax), any components
+    left bridged at their closest pair."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = dist.shape[0]
+    for rounds, k in enumerate(range(kmin, max(kmax, kmin) + 1, kstep), 1):
+        graph = _knn_graph(dist, min(k, n - 1))
+        n_comp, _ = connected_components(csr_matrix(graph), directed=False)
+        if n_comp == 1:
+            break
+    else:
+        # Still disconnected at kmax: bridge components at their closest
+        # pair
+        from ..nn_funcs import connect_graph
+        graph = connect_graph(graph, dist)
+    return graph, min(k, n - 1), rounds, n_comp > 1
+
+
 def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
                        device=None, mesh=None) -> np.ndarray:
     """Geodesic (kNN-graph shortest-path) distances: grow k from kmin by
     kstep until the kNN graph is connected (capped at kmax), bridge any
-    components left, then all-pairs Dijkstra. The euclidean base matrix is
-    computed on `device` (row-sharded over `mesh`); the graph work runs on
-    the host, on every rank. Each of the three is a span: `distances.base`
-    (with its copy to the host), `distances.knn_graph` (the k reached, the
-    rounds, whether components were bridged) and `distances.shortest_path`."""
+    components left, then all-pairs shortest paths. The euclidean base
+    matrix is computed on `device` (row-sharded over `mesh`); the graph is
+    grown on the host, on every rank; the shortest paths run on a CUDA
+    `device` through K4 (route 'device_fw'), elsewhere as scipy's Dijkstra
+    on the host (route 'host_dijkstra'). Each of the three is a span:
+    `distances.base` (with its copy to the host), `distances.knn_graph`
+    (the k reached, the rounds, whether components were bridged) and
+    `distances.shortest_path` (the route, n and, on the card, K4's pivot
+    rounds)."""
     from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import connected_components, shortest_path
+    from scipy.sparse.csgraph import shortest_path
 
+    device = resolve_device(device)
     with timing.span('distances.base'):
         dist = pairwise_distance(data, 'euclidean', device=device,
                                  mesh=mesh).cpu().numpy()
@@ -418,21 +451,13 @@ def geodesic_distances(data, kmax: int = 40, kmin: int = 5, kstep: int = 5,
     if n == 1:
         return np.zeros((1, 1), np.float32)
     with timing.span('distances.knn_graph') as knn:
-        graph = None
-        for rounds, k in enumerate(range(kmin, max(kmax, kmin) + 1, kstep),
-                                   1):
-            graph = _knn_graph(dist, min(k, n - 1))
-            n_comp, _ = connected_components(csr_matrix(graph),
-                                             directed=False)
-            if n_comp == 1:
-                break
-        else:
-            # Still disconnected at kmax: bridge components at their
-            # closest pair
-            from ..nn_funcs import connect_graph
-            graph = connect_graph(graph, dist)
-        knn.set(k=min(k, n - 1), rounds=rounds, bridged=n_comp > 1)
-    with timing.span('distances.shortest_path'):
+        graph, k, rounds, bridged = _geodesic_graph(dist, kmin, kmax, kstep)
+        knn.set(k=k, rounds=rounds, bridged=bridged)
+    with timing.span('distances.shortest_path', n=n) as span:
+        if device.type == 'cuda':
+            span.set(route='device_fw', rounds=_sp.rounds(n))
+            return _sp.shortest_paths(graph, device)
+        span.set(route='host_dijkstra')
         sp = shortest_path(csr_matrix(graph), method='D', directed=False)
         # Unreachable pairs (shouldn't happen post-connect) -> max finite
         # distance

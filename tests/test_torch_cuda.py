@@ -16,6 +16,7 @@ import torch
 from jamie_tpu_torch import evaluation, ops, probes
 from jamie_tpu_torch.core import dtypes, residency
 from jamie_tpu_torch.ops import distances, pairwise, pd_update
+from jamie_tpu_torch.ops import shortest_paths as fw
 from jamie_tpu_torch.solvers import landmark
 
 pytestmark = pytest.mark.cuda
@@ -206,6 +207,58 @@ def test_kernel_wrappers_refuse_bad_cuda_inputs(cuda):
         pairwise.pairwise_euclidean(x)
     with pytest.raises(ValueError):
         pairwise.pairwise_euclidean(torch.zeros((8, 4), device=cuda).T)
+
+
+def _geodesic_graph(n, dev, seed=0):
+    """The host kNN graph a geodesic fit closes, of rank-8 points in 32
+    dimensions, and its padded float64 matrix on the card."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n, 8) @ rng.randn(8, 32)).astype(np.float32)
+    d = distances.pairwise_distance(x, 'euclidean', device='cpu').numpy()
+    graph = distances._geodesic_graph(d, 5, 40, 5)[0]
+    return graph, fw.edge_matrix(graph, dev)
+
+
+@pytest.mark.parametrize('n', [1, fw.TILE + 1, 1047, 3654])
+def test_floyd_warshall_kernel_matches_plain_and_dijkstra(cuda, n):
+    """K4 against its plain version, bit for bit (both take the minimum
+    of the same float64 sums), and against scipy's Dijkstra, whose path
+    sums differ only in their order; `shortest_paths` gives the host
+    route's float32 matrix to float32 rounding."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    graph, w = _geodesic_graph(n, cuda)
+    ops.reset_launch_counts()
+    got = fw.floyd_warshall(w.clone())
+    want = fw.floyd_warshall_plain(w)
+    torch.cuda.synchronize()
+    assert fw.floyd_warshall.launches == 1
+    assert torch.equal(got, want)
+    ref = shortest_path(csr_matrix(graph), method='D', directed=False)
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(got[:n, :n].cpu().numpy(), ref, rtol=1e-13,
+                               atol=0)
+    np.testing.assert_allclose(fw.shortest_paths(graph, cuda),
+                               ref.astype(np.float32), rtol=2 ** -23, atol=0)
+    assert fw.floyd_warshall.launches == 2
+
+
+def test_floyd_warshall_cuda_never_takes_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor runs the kernel or raises: the plain version is
+    never called, whatever the input."""
+    def plain(*a, **k):
+        raise AssertionError('a CUDA tensor reached the plain version')
+    monkeypatch.setattr(fw, 'floyd_warshall_plain', plain)
+    graph, _ = _geodesic_graph(100, cuda)
+    assert np.isfinite(fw.shortest_paths(graph, cuda)).all()
+    bad = (torch.zeros((fw.TILE, fw.TILE), device=cuda),           # float32
+           torch.zeros((fw.TILE + 1,) * 2, device=cuda,
+                       dtype=torch.float64),                       # ragged
+           torch.zeros((2 * fw.TILE,) * 2, device=cuda,
+                       dtype=torch.float64).T)                     # strided
+    for t, err in zip(bad, (TypeError, ValueError, ValueError)):
+        with pytest.raises(err):
+            fw.floyd_warshall(t)
 
 
 def _pair(n, f0, f1, seed):
@@ -524,8 +577,14 @@ def test_fit_spans_on_card(cuda):
     jm = JAMIE(epoch_DNN=12, min_epochs=4, epoch_chunk=5, batch_size=64,
                pca_dim=(16, 8), epoch_pd=30, log_pd=10, log_DNN=1000,
                use_early_stop=False, distance_mode='geodesic')
+    ops.reset_launch_counts()
     jm.fit_transform(dataset=data)
     root = jm.trace
+    # the geodesic closure on the card: K4 once a modality
+    assert ops.floyd_warshall.launches == 2
+    for sp in root.find('distances.shortest_path'):
+        assert sp.counters == {'n': 300, 'route': 'device_fw',
+                               'rounds': fw.rounds(300)}
     corr, mapping = root.child('Correspondence'), root.child('Mapping')
     (pd,) = corr.find('prime_dual.replay')
     (pd_cap,) = pd.find('graphs.capture')

@@ -16,7 +16,7 @@ from jamie_tpu.ops.ab_archive import (
     fused_pd_grad_update, fused_pd_update, pairwise_sq_euclidean_pallas,
 )
 from jamie_tpu_torch import ops
-from jamie_tpu_torch.ops import pairwise, pd_update
+from jamie_tpu_torch.ops import pairwise, pd_update, shortest_paths
 
 M, N = 24, 136   # not tile-aligned on the TPU's sublane axis
 
@@ -136,9 +136,12 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
         1, 1e-3, 10.0)
     pd_update.fused_pd_update(st['F'], st['M1'], st['M2'], st['grad'], 1, 1e-3)
     pairwise.pairwise_euclidean(st['F'])
+    shortest_paths.floyd_warshall(torch.zeros(
+        (shortest_paths.TILE,) * 2, dtype=torch.float64))
     assert ops.launch_counts() == {'fused_pd_grad_update': 0,
                                    'fused_pd_update': 0,
-                                   'pairwise_euclidean': 0}
+                                   'pairwise_euclidean': 0,
+                                   'floyd_warshall': 0}
 
 
 def test_non_cpu_non_cuda_tensor_raises():
