@@ -1,21 +1,13 @@
 """Whether the fits of a run are correct: what each fit produced against
 the plain reference (`reference.py`), number by number, each against its
-limit in `workloads/<cell>.json` (a limit of null: not compared there).
+limit in `workloads/<cell>.json` (a limit of null: not compared there; a
+number that is missing, NaN, fails a limit that is not null).
 
 The numbers, each the worst over the run's fits:
 
-- `dist`: the fit's distance matrices (euclidean, or geodesic from the kNN
-  graph), ||D - D_ref||_F / ||D_ref||_F, the larger of the two; geodesic
-  entries that a near-tie at a row's last kNN neighbour (within `TIE`,
-  relative) leaves undecided are left out (PERF.md);
-- `f`: the correspondence F after the cell's iterations, ||F - F_ref||_F /
-  ||F_ref||_F (its largest entry gap swings with Adam's sign-like steps
-  wherever a gradient crosses zero; PERF.md);
-- `pca`: the sine of the largest principal angle between the span of the
-  first `latent` columns the fit trained on and the reference's top
-  `latent` left singular subspace of the centred rows, over the
-  modalities where that subspace is well defined (the next Ritz value at
-  most `GAP` of the last one; PERF.md);
+- `dist`, `f`, `pca`: the stages a route makes its own way, judged by the
+  `Reference` of the configuration's harness module (`harness/<name>.py`;
+  `harness/dense.py` says how it judges them); NaN where it does not;
 - `embed`: the embeddings the fit returned against the reference's mean
   head on the fit's final parameters and training inputs, max |E - E_ref|
   / max |E_ref|, the larger of the two;
@@ -33,13 +25,13 @@ The numbers, each the worst over the run's fits:
   round-off alone and are left out;
 - `foscttm`: FOSCTTM of the returned embeddings, by the reference.
 
-The training reference takes the fit's PCA projections and F as its
-inputs: those stages are judged by themselves (`pca`, `f`).
+The training reference takes the fit's PCA projections and F (as the
+harness's `Reference.training_f` gives it) as its inputs: those stages
+are judged by themselves (`pca`, `f`).
 """
 
 from __future__ import annotations
 
-import gc
 import math
 import random
 import statistics
@@ -49,14 +41,9 @@ import torch
 import reference as ref
 
 NUMBERS = ('dist', 'f', 'pca', 'embed', 'loss', 'dtheta', 'nu', 'foscttm')
+# The numbers a harness's `Reference.numbers` gives
+ROUTE = ('dist', 'f', 'pca')
 TRAINING = ('loss', 'dtheta', 'nu')
-# Neighbours within this relative distance of each other are a tie that
-# rounding may break either way: 20 times the port's float32 distance
-# error, a twentieth of what TF32 rounding moves them by
-TIE = 1e-5
-# A modality's top-r PCA subspace is compared where lambda_{r+1} / lambda_r
-# of the reference is at most this
-GAP = 0.5
 # Epochs whose mean loss `loss` compares: the first, before the round-off
 # that Adam's sign-like steps amplify has grown (PERF.md)
 LOSS_EPOCHS = 1
@@ -71,52 +58,31 @@ STATED = {'float32': None, 'bfloat16': 'bf16'}
 LOWER = {'float32': 'tf32', 'bfloat16': 'fp8'}
 
 
-class Reference:
-    """The reference's distances, subspaces and F for one pair of raw
-    modalities, and its training on a fit's inputs; each stage
-    ('distances', 'pca', 'solver', 'model') in the precision the
-    configuration states, or with `control`, one below."""
+class ModelReference:
+    """The reference of the stages every route shares: the coupled VAE's
+    training on a fit's inputs and its mean head, in the precision the
+    configuration states for 'model', or with `control`, one below. A
+    harness's `Reference` builds on it with the stages of its route and
+    `numbers` (`dist`, `f`, `pca`)."""
 
-    def __init__(self, host, config: dict, traffic: dict, device,
+    def __init__(self, config: dict, traffic: dict, device,
                  control: bool = False):
         ref.plain_matmuls()
         table = LOWER if control else STATED
-        rnd = {stage: table[p] for stage, p in config['precision'].items()}
+        self.rnd = {stage: table[p]
+                    for stage, p in config['precision'].items()}
         self.config = config
         self.kwargs = dict(config['kwargs'], **traffic['kwargs'])
         self.device = torch.device(device)
-        self.rnd = rnd
-        self.rank = int(config['latent'])
-        mode = traffic['kwargs'].get('distance_mode', 'geodesic')
-        self.dist, self.undecided, self.basis, self.gaps = [], [], [], []
-        for x in host:
-            g = ref.gram(x, device, ref.rounding(rnd['distances']))
-            d, undecided = ref.euclidean(g), None
-            if mode == 'geodesic':
-                d, undecided = ref.geodesic(
-                    d, kmax=int(traffic['kwargs'].get('kmax', 40)), tie=TIE)
-            elif mode not in ('euclidean', 'l2'):
-                raise ValueError(f'no reference for distance_mode {mode!r}')
-            self.dist.append(d)
-            self.undecided.append(undecided)
-            if rnd['pca'] != rnd['distances']:
-                del g
-                g = ref.gram(x, device, ref.rounding(rnd['pca']))
-            basis, w = ref.pca_subspace(g, min(self.rank, *x.shape))
-            self.basis.append(basis)
-            # the spectral gap that makes the top subspace well defined
-            r = basis.shape[1]
-            self.gaps.append(float(w[r] / w[r - 1]) if len(w) > r else 0.0)
-            del g
-            gc.collect()
-        kw = self.kwargs
-        self.F = ref.prime_dual(
-            self.dist[0], self.dist[1], host[0].shape[1], host[1].shape[1],
-            int(kw['epoch_pd']), rho=float(kw.get('rho', 10.0)),
-            epsilon=float(kw.get('epsilon', 1e-3)),
-            delay=int(kw.get('delay', 0)),
-            rnd=ref.rounding(rnd['solver']))
         self._trained = None
+
+    def numbers(self, out: dict, device) -> dict:
+        """`dist`, `f`, `pca` of one fit's `out`; NaN where not judged."""
+        raise NotImplementedError
+
+    def training_f(self, out: dict):
+        """The dense F that the training reference takes: the fit's."""
+        return out['F']
 
     def embed(self, out: dict, i: int, device) -> torch.Tensor:
         return ref.embed(out['params'], i, out['T'][i].to(device),
@@ -174,10 +140,10 @@ def moving_leaves(grad1: dict) -> list:
     return [k for k, v in norms.items() if v >= NOUGHT * med]
 
 
-def training_numbers(out: dict, want: Reference, seed: int) -> dict:
+def training_numbers(out: dict, want: ModelReference, seed: int) -> dict:
     """`loss`, `dtheta`, `nu` of one fit against the reference's training
     on the same inputs."""
-    r = want.train(out['T'], out['F'], seed)
+    r = want.train(out['T'], want.training_f(out), seed)
     keep = moving_leaves(r['grad1'])
     k = min(LOSS_EPOCHS, len(r['epoch_losses']))
     got_l = list(out['epoch_losses'])[:k]
@@ -192,35 +158,29 @@ def training_numbers(out: dict, want: Reference, seed: int) -> dict:
             'nu': leaf_gap(out['nu'], r['nu'], keep)}
 
 
-def numbers(out: dict, want: Reference, device, seed=None) -> dict:
+def numbers(out: dict, want: ModelReference, device, seed=None) -> dict:
     """One fit's numbers against the reference; `out` holds what the fit
-    produced: dist, F, T (training inputs), params, emb, epoch_losses, nu,
-    and optionally `span` (the columns whose span `pca` judges; the first
-    columns of T otherwise). With `seed`, the training numbers too (NaN
-    otherwise: not compared for this fit)."""
-    dist = max(ref.rel_fro(torch.as_tensor(d), w, u)
-               for d, w, u in zip(out['dist'], want.dist, want.undecided))
-    f = ref.rel_fro(torch.as_tensor(out['F']), want.F)
-    span = out.get('span') or out['T']
-    pca = [ref.subspace_sine(b, torch.as_tensor(t).to(device)[:, :b.shape[1]])
-           for b, t, gap in zip(want.basis, span, want.gaps)
-           if gap <= GAP]
+    produced: T (training inputs), params, emb, epoch_losses, nu, and what
+    its harness's `produced` names (dense: dist, F). With `seed`, the
+    training numbers too (NaN otherwise: not compared for this fit)."""
+    route = want.numbers(out, device)
     emb = [torch.as_tensor(e).to(device) for e in out['emb']]
     embed = max(ref.max_rel(e, want.embed(out, i, device).float())
                 for i, e in enumerate(emb))
-    p = {'dist': dist, 'f': f, 'pca': max(pca) if pca else math.nan,
-         'embed': embed}
+    p = {k: route[k] for k in ROUTE}
+    p['embed'] = embed
     p.update(training_numbers(out, want, seed) if seed is not None
              else {k: math.nan for k in TRAINING})
     p['foscttm'] = ref.foscttm(emb[0], emb[1])
     return p
 
 
-def _fails(p: dict, limits: dict) -> bool:
-    """A number over its limit; a training number is judged where the fit
-    has it."""
+def _fails(p: dict, limits: dict, trained: bool = True) -> bool:
+    """A number over its limit, or missing (NaN) where its limit is not
+    null; the training numbers are judged only in the fit whose training
+    is compared (`trained`)."""
     return any(limits.get(k) is not None and not (p[k] <= limits[k])
-               and not (k in TRAINING and math.isnan(p[k]))
+               and not (k in TRAINING and not trained)
                for k in NUMBERS)
 
 
@@ -229,7 +189,7 @@ def sampled(n_fits: int, seed: int) -> int:
     return random.Random(int(seed)).randrange(n_fits)
 
 
-def judge(outs, want: Reference, limits: dict, device, seed: int):
+def judge(outs, want: ModelReference, limits: dict, device, seed: int):
     """(the worst of each number over the fits, each fit's numbers, the
     count of fits that fail a limit). The training numbers are those of
     one fit drawn from `seed`, whose training reference is drawn from the
@@ -239,7 +199,8 @@ def judge(outs, want: Reference, limits: dict, device, seed: int):
                        else None) for j, o in enumerate(outs)]
     worst = {n: ref.worst([p[n] for p in per_fit if not math.isnan(p[n])])
              for n in NUMBERS}
-    failed = sum(1 for p in per_fit if _fails(p, limits))
+    failed = sum(1 for j, p in enumerate(per_fit)
+                 if _fails(p, limits, trained=j == k))
     return worst, per_fit, failed
 
 

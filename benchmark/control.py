@@ -4,11 +4,13 @@ cell's own size: the program's, the control's and the planted faults'.
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3
         [--no-control] [--no-fault]
 
-For each seed, one fit of the program with the cell's kwargs, judged
-against the plain reference (`check.judge`, the cell's limits): the lower
-readings. The control: the reference put in the program's place (its
-distances, F and PCA subspaces, and its training on the fit's inputs
-with its mean head's embeddings), each stage computed one precision
+For each seed, one fit of the program with the cell's kwargs, on the
+modalities of the configuration's harness module (`harness/<name>.py`),
+judged against the plain reference (`check.judge` with the harness's
+`Reference`, the cell's limits): the lower readings. The control: the
+reference put in the program's place (its own stages, for the dense
+route its distances, F and PCA subspaces, and its training on the fit's
+inputs with its mean head's embeddings), each stage computed one precision
 below the one the configuration states (`precision` in its file: float32
 -> TF32 operands, bfloat16 -> float8 e4m3 operands with one scale per
 tensor; `check.LOWER`), judged by the same `check.judge` with the cell's
@@ -66,11 +68,11 @@ FAULTS = {'state_unchanged': state_unchanged, 'half_batch': half_batch}
 
 
 def control_outputs(ctrl, out: dict, device) -> dict:
-    """The control's outputs in the program's place: its distances, F and
-    PCA subspaces, and its training on the fit's training inputs and F
-    with its mean head's embeddings."""
-    r = ctrl.train(out['T'], out['F'], out['manual_seed'])
-    o = {'dist': ctrl.dist, 'F': ctrl.F, 'span': ctrl.basis, 'T': out['T'],
+    """The control's outputs in the program's place: its own stages' (for
+    the dense route its distances, F and PCA subspaces), and its training
+    on the fit's training inputs and F with its mean head's embeddings."""
+    r = ctrl.train(out['T'], ctrl.training_f(out), out['manual_seed'])
+    o = {**ctrl.own(), 'T': out['T'],
          'params': {**r['params'], **r['stats']}, 'nu': r['nu'],
          'epoch_losses': r['epoch_losses'],
          'manual_seed': out['manual_seed']}
@@ -79,24 +81,14 @@ def control_outputs(ctrl, out: dict, device) -> dict:
 
 
 def detail(want, out: dict, device) -> dict:
-    """Per modality and per norm, for the look behind a reading."""
+    """Per modality and per norm, for the look behind a reading: the
+    route's own (`Reference.detail`) and the training's."""
     import torch
     import check
-    import reference as ref
-    F = torch.as_tensor(out['F']).to(device)
-    r = want.train(out['T'], out['F'], out['manual_seed'])
+    r = want.train(out['T'], want.training_f(out), out['manual_seed'])
     keep, init = check.moving_leaves(r['grad1']), r['init']
     return {
-        'dist_max_rel': [ref.max_rel(torch.as_tensor(d).to(device), w)
-                         for d, w in zip(out['dist'], want.dist)],
-        'undecided': [0 if u is None else int(u.sum())
-                      for u in want.undecided],
-        'f_max_rel': ref.max_rel(F, want.F),
-        'f_stats': [float(want.F.max()), float(want.F.mean()),
-                    float(want.F.min()), float(F.max())],
-        'pca': [ref.subspace_sine(b, t.to(device)[:, :b.shape[1]])
-                for b, t in zip(want.basis, out['T'])],
-        'gap': [float(g) for g in want.gaps],
+        **want.detail(out, device),
         'loss_epochs': [list(out['epoch_losses'][:3]),
                         r['epoch_losses'][:3]],
         # the three worst leaves of `dtheta` and `nu`
@@ -135,40 +127,38 @@ def readings(cell_name: str, seeds, device=None, bench=None, config=None,
 
     import torch
     import jamie_tpu_torch  # noqa: F401
-    import check
-    import datagen
     import run
+    harness = manifest.harness(config)
     device = torch.device('cuda', 0) if device is None else \
         torch.device(device)
     warm = False
     for seed in seeds:
         t0 = time.perf_counter()
-        made = datagen.make_pair(config, seed, device)
-        host = [x.cpu().numpy() for x in made]
-        del made
+        host, _ = harness.make_host(config, seed, device)
         if not warm:
             run.one_fit(host, run.fit_kwargs(config, traffic, seed,
                                              traffic['warmup']),
-                        device, keep=False)
+                        device, harness, config, keep=False)
             warm = True
         kwargs = run.fit_kwargs(config, traffic, seed)
-        rec = run.one_fit(host, kwargs, device)
+        rec = run.one_fit(host, kwargs, device, harness, config)
         out = rec.pop('out')
         run._free(device)
-        want = check.Reference(host, config, traffic, device)
+        want = harness.Reference(host, config, traffic, device)
         row = {'seed': seed, 'fit_s': rec['seconds']}
         row['program'] = _judged([out], want, limits, device, seed)
         row['detail'] = detail(want, out, device)
         if control:
-            ctrl = check.Reference(host, config, traffic, device,
-                                   control=True)
+            ctrl = harness.Reference(host, config, traffic, device,
+                                     control=True)
             row['control'] = _judged([control_outputs(ctrl, out, device)],
                                      want, limits, device, seed)
             del ctrl
         if fault:
             for name, plant in FAULTS.items():
                 with plant():
-                    frec = run.one_fit(host, kwargs, device)
+                    frec = run.one_fit(host, kwargs, device, harness,
+                                       config)
                 row[f'fault_{name}'] = _judged([frec['out']], want, limits,
                                                device, seed)
                 del frec

@@ -9,7 +9,13 @@ is a file of its own under this folder, named after it:
 - a traffic mix: `traffic/<traffic>.json`;
 - a cell's correctness limits: `workloads/<cell>.json`;
 - a per-layer metric's reader: `metrics/<metric>.py`, whose
-  `read(record)` returns the value or None where it finds nothing.
+  `read(record)` returns the value or None where it finds nothing;
+- a route's harness: `harness/<name>.py`, named by a configuration's
+  optional `harness` key (default `dense`). It makes the modalities as a
+  user hands them to `fit_transform` (`make_host`), names the
+  route-specific part of what a fit produced (`produced`) and the shape
+  and state dtype its solve ran at (`solve`), and judges what only that
+  route makes (`Reference`; `harness/dense.py` says what each provides).
 
 Adding one of them means adding files and `BENCHMARK.json` entries only.
 """
@@ -75,14 +81,29 @@ def metrics_for(bench: dict, kind: str, cell_name: str) -> list:
             if 'workloads' not in m or cell_name in m['workloads']]
 
 
-def reader(name: str, here: Optional[Path] = None):
-    """The `read` function of metrics/<name>.py."""
-    path = (HERE if here is None else Path(here)) / 'metrics' / f'{name}.py'
+def _module(kind: str, name: str, here: Optional[Path]):
+    """<kind>/<name>.py under this folder (or `here`), loaded by path."""
+    path = (HERE if here is None else Path(here)) / kind / f'{name}.py'
     spec = importlib.util.spec_from_file_location(
-        'benchmark_metric_' + re.sub(r'\W', '_', name), path)
+        f'benchmark_{kind}_' + re.sub(r'\W', '_', name), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str, here: Optional[Path] = None):
+    """The `read` function of metrics/<name>.py."""
+    return _module('metrics', name, here).read
+
+
+def harness_name(config: dict) -> str:
+    """The harness a configuration names: its `harness` key, or `dense`."""
+    return config.get('harness', 'dense')
+
+
+def harness(config: dict, here: Optional[Path] = None):
+    """The module harness/<name>.py of a configuration (`harness_name`)."""
+    return _module('harness', harness_name(config), here)
 
 
 def problems(bench: dict) -> list:
@@ -126,6 +147,13 @@ def problems(bench: dict) -> list:
                 out.append(f'{c["name"]}: bad reduced key {key!r}')
         if not (REPO / c['file']).is_file():
             out.append(f'{c["name"]}: no file {c["file"]}')
+            continue
+        with open(REPO / c['file']) as f:
+            name = harness_name(json.load(f))
+        if not isinstance(name, str) or not NAME_RE.match(name):
+            out.append(f'{c["name"]}: bad harness {name!r}')
+        elif not (HERE / 'harness' / f'{name}.py').is_file():
+            out.append(f'{c["name"]}: no harness file harness/{name}.py')
     for m in bench.get('per_layer', []):
         if not (HERE / 'metrics' / f'{m["name"]}.py').is_file():
             out.append(f'{m["name"]}: no reader')

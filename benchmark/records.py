@@ -4,7 +4,9 @@
   left out when others ran): `seconds`, `phases` (the estimator's phase
   seconds), `mapping` (the mapping phase's sub-phase seconds), `transfer`
   (the residency's upload statistics), `epochs_run`, `steps_per_epoch`,
-  `batch`, `epoch_pd`;
+  `batch`, `epoch_pd`, `solve_shape` and `solver_state_dtype` (the
+  (n0, n1) that K1 and the prime-dual solve ran at, and their state
+  dtype, from the harness module's `solve`);
 - `trace`: the profiled fit's `tracing.summarize` result, or None;
 - `config`, `traffic`: the cell's files; `peaks`: the card's published
   peaks (`roofline/peaks.json`), or None for a card not listed."""

@@ -9,9 +9,11 @@ JAMIE kwargs, `configs/`) under a traffic mix (`traffic/`). One run:
 
 1. set-up: the Triton cache pointed at a fixed directory in the checkout
    (the port's nvcc libraries already live in `jamie_tpu_torch/_build/`),
-   the modality pair made on the card from the seed (`datagen.py`) and
-   copied to host numpy once, as a user's data arrive, one warm-up fit at
-   the cell's shapes with the traffic's tiny schedule;
+   the modalities made from the seed and brought to the host as a user's
+   data arrive, by the configuration's harness module (`harness/<name>.py`,
+   `dense` by default: the pair made on the card by `datagen.py` and
+   copied to host numpy once), one warm-up fit at the cell's shapes with
+   the traffic's tiny schedule;
 2. the window: whole fits back to back on the same host arrays, each a new
    `JAMIE(manual_seed=...)` after `clear_residency_cache()`, timed from
    the call to the returned embeddings, the device's peak reset before
@@ -19,8 +21,9 @@ JAMIE kwargs, `configs/`) under a traffic mix (`traffic/`). One run:
    and the fit in flight finishes. `peak_gib` is the first fit's peak.
    With `--trace 1` the first fit runs under `torch.profiler` until the
    end of its second training epoch (`tracing.py`);
-3. the check: every fit against the plain reference (`check.py`), and
-   the training of one fit drawn from the seed against the reference's
+3. the check: every fit against the plain reference (`check.py`, with
+   the harness's `Reference` for the stages of its route), and the
+   training of one fit drawn from the seed against the reference's
    training, once the window has closed and the fits' device state is
    freed.
 
@@ -87,17 +90,20 @@ def _sync(device):
 def _host(t):
     import numpy as np
     import torch
+    if isinstance(t, (list, tuple)):
+        return [_host(x) for x in t]
     if isinstance(t, torch.Tensor):
         return t.detach().to('cpu', copy=True)
     return torch.from_numpy(np.array(t, copy=True))
 
 
-def one_fit(data, kwargs: dict, device, keep: bool = True) -> dict:
+def one_fit(data, kwargs: dict, device, harness, config: dict,
+            keep: bool = True) -> dict:
     """One timed fit from what a user's first fit finds; its record and,
-    with `keep`, what it produced (on the host)."""
-    import numpy as np
+    with `keep`, what it produced (on the host): what every route
+    produces, and what the configuration's `harness` module names."""
     import torch
-    from jamie_tpu_torch import JAMIE, estimator, ops
+    from jamie_tpu_torch import JAMIE, ops
     from jamie_tpu_torch.core.residency import (clear_residency_cache,
                                                 reset_transfer_stats,
                                                 transfer_stats)
@@ -111,7 +117,7 @@ def one_fit(data, kwargs: dict, device, keep: bool = True) -> dict:
     _sync(device)
     seconds = time.perf_counter() - t0
     tr = jm.trainer
-    n0, n1 = (int(np.shape(x)[0]) for x in data)
+    shape, state_dtype = harness.solve(jm, config, kwargs)
     rec = {
         'seconds': seconds,
         'phases': dict(jm.phase_timings),
@@ -122,9 +128,9 @@ def one_fit(data, kwargs: dict, device, keep: bool = True) -> dict:
         'steps_per_epoch': int(tr.len_dataloader),
         'batch': int(tr.batch_size),
         'epoch_pd': int(kwargs['epoch_pd']),
-        # the solver's state dtype, as the estimator resolves it for (n0, n1)
-        'solver_state_dtype': jm._resolved_state_dtype(
-            estimator.dense_entries(n0, n1, 'float32')),
+        # the shape K1 and the solve ran at, and their state dtype
+        'solve_shape': [int(n) for n in shape],
+        'solver_state_dtype': state_dtype,
     }
     if keep:
         # Adam's second moment by leaf: the flat vector in the order of the
@@ -134,8 +140,7 @@ def one_fit(data, kwargs: dict, device, keep: bool = True) -> dict:
                          [p.numel() for _, p in named])
         rec['out'] = {
             'emb': [_host(e) for e in emb],
-            'dist': [_host(d) for d in jm.dist],
-            'F': _host(jm.match_result[0]),
+            **{k: _host(v) for k, v in harness.produced(jm).items()},
             'T': [_host(x) for x in tr.data],
             'params': {k: _host(v) for k, v in jm.model.state_dict().items()},
             'nu': {n: _host(v.view(p.shape)) for (n, p), v in zip(named, nu)},
@@ -222,7 +227,6 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     import torch
     import jamie_tpu_torch  # noqa: F401  (pins float32 matmuls)
     import check
-    import datagen
     import tracing
     from roofline import peaks as card_peaks
     device = torch.device('cuda', 0) if device is None else \
@@ -230,23 +234,16 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     on_card = device.type == 'cuda'
     for name in traffic.get('preload', []):
         importlib.import_module(name)
+    harness = manifest.harness(config)
 
     # ---- set-up
     if on_card:
         torch.cuda.init()
     t_init = time.perf_counter() - t_start
-    t = time.perf_counter()
-    made = datagen.make_pair(config, seed, device)
-    _sync(device)
-    t_data = time.perf_counter() - t
-    t = time.perf_counter()
-    host = [x.cpu().numpy() for x in made]
-    del made
-    _free(device)
-    t_copy = time.perf_counter() - t
+    host, made_s = harness.make_host(config, seed, device)
     t = time.perf_counter()
     one_fit(host, fit_kwargs(config, traffic, seed, traffic['warmup']),
-            device, keep=False)
+            device, harness, config, keep=False)
     _free(device)
     t_warm = time.perf_counter() - t
     kwargs = fit_kwargs(config, traffic, seed)
@@ -263,11 +260,11 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         try:
             if trace and not fits:
                 with tracing.TracedFit() as traced:
-                    rec = one_fit(host, kwargs, device)
+                    rec = one_fit(host, kwargs, device, harness, config)
                 summary = tracing.summarize(traced.prof)
                 del traced
             else:
-                rec = one_fit(host, kwargs, device)
+                rec = one_fit(host, kwargs, device, harness, config)
         except Exception:   # a fit that fails is counted, not retried
             errors.append(traceback.format_exc())
             print(errors[-1], file=sys.stderr)
@@ -292,7 +289,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     for b in bad:
         print(f'work check: {b}', file=sys.stderr)
     if outs:
-        want = check.Reference(host, config, traffic, device)
+        want = harness.Reference(host, config, traffic, device)
         worst, per_fit, failed = check.judge(outs, want, limits, device,
                                              seed)
         del want
@@ -330,8 +327,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     result['metrics'] = metrics
     result['run'] = {'seed': seed, 'fits': [f['seconds'] for f in fits],
                      'window_s': window_s, 'setup': {
-                         'imports_and_card_s': t_init, 'data_s': t_data,
-                         'host_copy_s': t_copy,
+                         'imports_and_card_s': t_init,
+                         'data_s': made_s['data_s'],
+                         'host_copy_s': made_s['host_copy_s'],
                          'warmup_fit_s': t_warm, 'cold_caches': cold},
                      'check_s': check_s,
                      'phases': [f['phases'] for f in fits],

@@ -17,16 +17,17 @@ def test_trace_names_k1_and_k3(bench):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     cfg = tiny(manifest.config(bench, 'scmnc_visual'), n=600)
-    import datagen
-    host = [x.cpu().numpy() for x in
-            datagen.make_pair(cfg, 1, torch.device('cuda', 0))]
+    harness = manifest.harness(cfg)
+    host, _ = harness.make_host(cfg, 1, torch.device('cuda', 0))
     kw = run.fit_kwargs(cfg, manifest.traffic('geodesic'), 1)
     with tracing.TracedFit() as traced:
-        rec = run.one_fit(host, kw, torch.device('cuda', 0), keep=False)
+        rec = run.one_fit(host, kw, torch.device('cuda', 0), harness, cfg,
+                          keep=False)
     summary = tracing.summarize(traced.prof)
     assert summary['device_events'] > 0
     assert tracing.kernel_time(summary, k1.KERNELS)[1] == kw['epoch_pd']
     assert tracing.kernel_time(summary, k3.KERNELS)[1] >= 2
     assert rec['launches'][k3.WRAPPER] == len(cfg['shapes'])
     assert rec['solver_state_dtype'] == 'float32'
+    assert rec['solve_shape'] == [600, 600]
     assert 0 < summary['busy_s'] < summary['window_s']

@@ -52,11 +52,16 @@ def test_coupled_vae_step():
         1.3289e10, rel=1e-3)
 
 
-def _record(shapes, launches, state_dtype='float32'):
+def _record(shapes, launches, state_dtype='float32', solve_shape=None):
+    """A traced record whose fit solved at `solve_shape` (the dense
+    route's (N0, N1) by default)."""
     import manifest
     trace = {'kernels': {'pd_update_kernel': (2e-3, 2),
                          'pairwise_tf32x3_kernel': (1e-3, 2)}}
-    fit = {'launches': launches, 'solver_state_dtype': state_dtype}
+    solve_shape = solve_shape or [shapes[0][0], shapes[1][0]]
+    fit = {'launches': launches, 'solver_state_dtype': state_dtype,
+           'solve_shape': solve_shape, 'epoch_pd': 100,
+           'phases': {'Correspondence': 0.5}}
     return {'trace': trace, 'peaks': H100, 'fits': [fit],
             'config': {'shapes': shapes}}, manifest
 
@@ -67,6 +72,42 @@ def test_k1_reader_takes_the_fits_state_dtype(state_dtype):
     got = manifest.reader('k1_roofline')(rec)
     assert got == pytest.approx(
         100 * k1.bound_s(100, 120, state_dtype, H100) / 1e-3)
+
+
+def _old_readings(rec):
+    """The two solve readers' formulas as they read the configuration's
+    (N0, N1) before the fit recorded its solve's shape."""
+    (m, _), (n, _) = rec['config']['shapes']
+    fit = rec['fits'][0]
+    k1_pct = 100 * k1.bound_s(m, n, fit['solver_state_dtype'], H100) / 1e-3
+    mfu = (100 * prime_dual.flops_per_iteration(m, n) * fit['epoch_pd']
+           / fit['phases']['Correspondence'] / H100['bf16_flops'])
+    return k1_pct, mfu
+
+
+@pytest.mark.parametrize('state_dtype', ['float32', 'bfloat16'])
+def test_solve_readers_on_a_dense_record_read_as_before(state_dtype):
+    rec, manifest = _record([[9190, 28930], [9190, 241757]], {},
+                            state_dtype)
+    k1_pct, mfu = _old_readings(rec)
+    assert manifest.reader('k1_roofline')(rec) == pytest.approx(k1_pct)
+    assert manifest.reader('prime_dual.mfu')(rec) == pytest.approx(mfu)
+
+
+@pytest.mark.parametrize('n0,n1', [(69249, 69249), (1500, 69249)])
+def test_solve_readers_on_a_landmark_record_read_the_subproblem(n0, n1):
+    """A landmark fit at L = 2048 solves at (min(L, N0), min(L, N1)) in
+    float32 state, whatever its (N0, N1)."""
+    L0, L1 = min(2048, n0), min(2048, n1)
+    rec, manifest = _record([[n0, 13431], [n1, 116490]], {}, 'float32',
+                            solve_shape=[L0, L1])
+    assert manifest.reader('k1_roofline')(rec) == pytest.approx(
+        100 * k1.bound_s(L0, L1, 'float32', H100) / 1e-3)
+    assert manifest.reader('prime_dual.mfu')(rec) == pytest.approx(
+        100 * prime_dual.flops_per_iteration(L0, L1) * 100 / 0.5
+        / H100['bf16_flops'])
+    # the configuration's shapes would count the whole (N0, N1)
+    assert manifest.reader('k1_roofline')(rec) < _old_readings(rec)[0]
 
 
 def test_k3_reader_takes_one_self_distance_a_modality():

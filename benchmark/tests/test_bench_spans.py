@@ -5,7 +5,6 @@ span, and None where the pairing of roots and fits fails."""
 import pytest
 import torch
 
-import datagen
 import manifest
 import run
 import spans
@@ -114,9 +113,10 @@ def test_a_real_fit_pairs(tiny_configs):
     that run.one_fit makes, and the span readers read it."""
     cfg = tiny_configs['scmnc_visual']
     traffic = manifest.traffic('geodesic')
-    host = [x.numpy() for x in datagen.make_pair(cfg, 3, torch.device('cpu'))]
+    harness = manifest.harness(cfg)
+    host, _ = harness.make_host(cfg, 3, torch.device('cpu'))
     rec = run.one_fit(host, run.fit_kwargs(cfg, traffic, 3),
-                      torch.device('cpu'), keep=False)
+                      torch.device('cpu'), harness, cfg, keep=False)
     record = {'fits': [rec]}
     (root,) = spans.fit_roots(record)
     assert root is timing.recent_fits()[-1]
