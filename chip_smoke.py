@@ -628,8 +628,8 @@ def landmark_reference_phase(dev, n=600, n_landmarks=128):
     picks = []
     for d in (dev, 'cpu'):
         prng = np.random.RandomState(5)
-        picks.append([LM._select_landmarks(a, n_landmarks, 'fps', prng, d)
-                      for a in xs])
+        picks.append([np.sort(LM._pick_landmarks(a, n_landmarks, 'fps',
+                                                 prng, d)[0]) for a in xs])
     if not all(np.array_equal(a, b) for a, b in zip(*picks)):
         fail('FPS picked other landmarks on the card than on the CPU')
     kw = dict(n_landmarks=n_landmarks, k_interp=8, epoch_pd=200,

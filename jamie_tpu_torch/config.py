@@ -51,7 +51,7 @@ class JamieConfig:
     output_dim: int = 32
     pca_dim: Optional[Tuple[Optional[int], ...]] = (512, 512)
     model_pca: str = 'pca'            # 'pca' | 'umap' | 'tsne'
-    pca_power_iters: int = 1          # row-streamed PCA route
+    pca_power_iters: int = 1          # bf16-resident, row-streamed PCA
     dropout: Optional[float] = None   # None -> 0.6 if max(dim) > 64 else 0
     dist_method: str = 'euclidean'    # similarity used in the cosine loss term
     PF_Ratio: Optional[float] = None  # None -> 1.0 (jamie/jamie.py:517)

@@ -33,7 +33,10 @@ densifying a source chunk), `encode_s` (host seconds of the bf16 cast) and
 returns once it is done). A memmapped chunk that is already C-contiguous
 float32 is paged in by the cast, so its read counts in `encode_s`.
 `reset_transfer_stats()` zeroes them. A whole-matrix build is a
-`residency.build` span (`core/timing`) that carries its own share of them.
+`residency.build` span (`core/timing`) that carries its own share of them;
+a `DeviceCSR` build is a `residency.csr` span with its `nnz`, the `bytes`
+it shipped and their `copy_s`. Each SpMM of a `DeviceCSR` adds its sizes
+to the innermost open span's `spmm` counter (`_note_spmm`).
 
 Not ported, on the card's evidence (H100 80GB HBM3 host, PERF.md): the
 link formats (bit-packed, u8 and padded-CSR payloads, jamie_tpu's
@@ -94,6 +97,13 @@ DEFAULT_BUDGET_BYTES = 6 * 1024 ** 3
 # inside the seed spread; below the pivot the exact route costs at most
 # 0.21 s a modality (PERF.md). Read at call time.
 BF16_LINK_ELEMS = 100_000_000
+
+# Rows of X a block of `DeviceCSR`'s transposed twin holds. The
+# conversion to CSC passes through int64 COO indices and their sort:
+# whole, it took 69,249 x 116,490 ATAC (403M nonzeros) to a 31.3 GB peak
+# where the fit's peak is 11.1 GB without it (H100 80GB HBM3, 700.00 W);
+# a block's conversion is bounded by its rows. Read at call time.
+TWIN_ROWS = 8192
 
 # route name -> calls since the last clear()
 route_counts: collections.Counter = collections.Counter()
@@ -228,8 +238,8 @@ class DeviceCSR:
     Uploaded once: int32 indices where they fit, float32 values that are
     exact below `BF16_LINK_ELEMS` dense elements and bf16-rounded at or
     above it. `matmul(M, s, e)` computes X[s:e] @ M and `tmatmul(Q)` X^T @ Q
-    with `torch.sparse.mm` (M and Q cast to the values' precision, f32
-    accumulation), so no dense block exists; `rows(s, e)` decodes a dense
+    (by `TWIN_ROWS` row blocks) with `torch.sparse.mm` (M and Q cast to
+    the values' precision, f32 accumulation), so no dense block exists; `rows(s, e)` decodes a dense
     f32 block; `row_sq_sums` is the |x|^2 of the cell->landmark Gram. A
     non-canonical CSR (unsorted or duplicate entries) is copied and its
     duplicates summed, as the dense path sums them: the caller's matrix is
@@ -255,7 +265,7 @@ class DeviceCSR:
         # ship nothing and count nothing more, where jamie_tpu counts
         # each of them again
         _transfer['bf16_equiv_bytes'] += 2 * n * f
-        self._csc = None          # lazy transposed twin (CSR of X^T)
+        self._csc = None          # lazy transposed twin, by row block
         self._row_sq = None       # lazy (n,) f32
 
     def _csr(self, s: int, e: int) -> torch.Tensor:
@@ -280,23 +290,38 @@ class DeviceCSR:
         """X[s:e] @ M, (e - s, k) f32, without a dense block."""
         e = self.shape[0] if e is None else min(e, self.shape[0])
         M = self._operand(M)
-        if self.indptr_np[e] == self.indptr_np[s]:
+        nnz = int(self.indptr_np[e] - self.indptr_np[s])
+        if nnz == 0:
             return torch.zeros((e - s, M.shape[1]), dtype=torch.float32,
                                device=self.device)
+        _note_spmm(nnz, M.shape[1], M.shape[0], e - s)
         return torch.sparse.mm(self._csr(s, e), M)
 
     def tmatmul(self, Q) -> torch.Tensor:
-        """X^T @ Q, (f, k) f32, through the transposed twin: the CSC form of
-        X read as the CSR of X^T, converted once on the device."""
+        """X^T @ Q, (f, k) f32, through the transposed twin: for each block
+        of `TWIN_ROWS` rows, the CSC form of X's block read as the CSR of
+        its transpose, converted once on the device; the blocks' products
+        summed in block order."""
         Q = self._operand(Q)
-        if self.nnz == 0:
-            return torch.zeros((self.shape[1], Q.shape[1]),
-                               dtype=torch.float32, device=self.device)
+        n, f = self.shape
+        out = torch.zeros((f, Q.shape[1]), dtype=torch.float32,
+                          device=self.device)
         if self._csc is None:
-            csc = self._csr(0, self.shape[0]).to_sparse_csc()
-            self._csc = _sparse_csr(csc.ccol_indices(), csc.row_indices(),
-                                    csc.values(), self.shape[::-1])
-        return torch.sparse.mm(self._csc, Q)
+            self._csc = []
+            for s in range(0, n, TWIN_ROWS):
+                e = min(s + TWIN_ROWS, n)
+                if self.indptr_np[e] == self.indptr_np[s]:
+                    continue
+                csc = self._csr(s, e).to_sparse_csc()
+                self._csc.append((s, e, _sparse_csr(
+                    csc.ccol_indices(), csc.row_indices(), csc.values(),
+                    (f, e - s))))
+                del csc
+        for s, e, twin in self._csc:
+            _note_spmm(int(self.indptr_np[e] - self.indptr_np[s]),
+                       Q.shape[1], e - s, f)
+            out += torch.sparse.mm(twin, Q[s:e])
+        return out
 
     def release_csc(self) -> None:
         """Drop the transposed twin (it serves only the PCA projection
@@ -311,9 +336,21 @@ class DeviceCSR:
             sq = _sparse_csr(self.crow, self.col, self.vals * self.vals,
                              (n, f))
             ones = torch.ones((f, 1), dtype=torch.float32, device=self.device)
+            if self.nnz:
+                _note_spmm(self.nnz, 1, f, n)
             self._row_sq = (torch.sparse.mm(sq, ones)[:, 0] if self.nnz
                             else torch.zeros(n, device=self.device))
         return self._row_sq
+
+
+def _note_spmm(nnz: int, k: int, operand_rows: int, out_rows: int) -> None:
+    """One SpMM's sizes on the innermost open span, under its `spmm`
+    counter: [nnz, k, the dense operand's rows, the output's rows], what
+    a bound on its work counts."""
+    sp = timing.current()
+    if sp is not None:
+        sp.counters.setdefault('spmm', []).append(
+            [int(nnz), int(k), int(operand_rows), int(out_rows)])
 
 
 def _cached(cache: dict, key, arr, what: str):
@@ -354,7 +391,11 @@ def device_csr(X, budget_bytes: Optional[int] = None, device=None):
     col_b = 2 if X.shape[1] < 65535 else 4
     if (col_b + 2) * int(X.nnz) + 4 * (X.shape[0] + 1) > budget:
         return None
-    dev = DeviceCSR(X, device)
+    before = dict(_transfer)
+    with timing.span('residency.csr', nnz=int(X.nnz)) as sp:
+        dev = DeviceCSR(X, device)
+        sp.set(bytes=_transfer['bytes'] - before['bytes'],
+               copy_s=_transfer['copy_s'] - before['copy_s'])
     _store(_csr_cache, key, X, dev)
     return dev
 

@@ -20,6 +20,12 @@ PCA routes, chosen as jamie_tpu chooses them (`_pca_fit_host`):
   source runs its sketch and projection as SpMMs on a `DeviceCSR`). These
   routes return the fit's scores as a device tensor, which
   `Preprocessor.transform_fit` standardizes on the device (one-shot).
+  A CSR source whose `DeviceCSR` fits the budget takes the row-streamed
+  route whatever its shape, where jamie_tpu streams a wide one's
+  columns: that route converts the whole matrix to CSC on the host and
+  decodes every column chunk dense on the device, 52.6-57.3 s of a
+  69,249-cell fit at 116,490 ATAC columns (403M nonzeros; H100 80GB HBM3,
+  700.00 W), where the SpMMs on the resident CSR take seconds.
 
 Every matmul is torch on `device` (the card unless the caller asks for
 another): the products are plain large GEMMs or library SpMMs that
@@ -172,12 +178,13 @@ def _eig_finish(B: torch.Tensor, Q: torch.Tensor, n_components: int):
 
 
 def _pca_fit_resident_bf16(X: torch.Tensor, n_components: int,
-                           oversample: int = 10, seed: int = 0):
-    """Randomized PCA straight from a device-resident bf16 matrix, with one
-    power iteration. Centering is implicit, (X - 1 mean^T) M = X M -
-    1 (mean^T M), so no f32 or centered copy of X exists; X @ M runs with
-    bf16 operands and an f32 result, Q^T X reads X exactly. Returns
-    (mean, components, fit scores)."""
+                           oversample: int = 10, seed: int = 0,
+                           power_iters: int = 1):
+    """Randomized PCA straight from a device-resident bf16 matrix, with
+    `power_iters` power iterations (jamie_tpu runs one). Centering is
+    implicit, (X - 1 mean^T) M = X M - 1 (mean^T M), so no f32 or centered
+    copy of X exists; X @ M runs with bf16 operands and an f32 result,
+    Q^T X reads X exactly. Returns (mean, components, fit scores)."""
     n, f = X.shape
     k = min(n_components + oversample, n)
     mean = X.sum(0, dtype=torch.float32) / n                  # (f,)
@@ -186,9 +193,10 @@ def _pca_fit_resident_bf16(X: torch.Tensor, n_components: int,
                         dtype=torch.float32)
     Y = bf16_matmul(X, omega) - (mean @ omega)[None, :]
     Q, _ = torch.linalg.qr(Y)                                 # (n, k)
-    Zt = _qt_x(Q, X) - Q.sum(0)[:, None] * mean[None, :]      # (k, f)
-    Y = bf16_matmul(X, Zt.T) - (mean @ Zt.T)[None, :]
-    Q, _ = torch.linalg.qr(Y)
+    for _ in range(power_iters):
+        Zt = _qt_x(Q, X) - Q.sum(0)[:, None] * mean[None, :]  # (k, f)
+        Y = bf16_matmul(X, Zt.T) - (mean @ Zt.T)[None, :]
+        Q, _ = torch.linalg.qr(Y)
     B = _qt_x(Q, X) - Q.sum(0)[:, None] * mean[None, :]       # (k, f)
     return (mean, *_eig_finish(B, Q, n_components))
 
@@ -283,7 +291,9 @@ def _pca_fit_row_streamed(X, n_components: int, oversample: int = 10,
 def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
     """(mean, sign-fixed components[k, F], fit scores or None) of a host
     matrix (dense or scipy-sparse) by jamie_tpu's `_pca_fit` routing.
-    power_iters applies to the row-streamed route only."""
+    power_iters applies to the bf16-resident and row-streamed routes
+    (jamie_tpu's to the row-streamed route only, its resident route runs
+    one)."""
     device = resolve_device(device)
     sparse_in = is_scipy_sparse(X)
     n, f = (int(d) for d in X.shape)
@@ -292,8 +302,9 @@ def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
         if xdev is not None:
             residency.route_counts['pca_resident_bf16'] += 1
             timing.note(route='pca_resident_bf16')
-            mean, comps, scores = _pca_fit_resident_bf16(xdev, n_components)
-        elif f > n:
+            mean, comps, scores = _pca_fit_resident_bf16(
+                xdev, n_components, power_iters=power_iters)
+        elif f > n and residency.device_csr(X, device=device) is None:
             residency.route_counts['pca_streamed'] += 1
             timing.note(route='pca_streamed')
             mean, comps, scores = _pca_fit_streamed(

@@ -540,7 +540,7 @@ def probe_residency(dense_shapes: Sequence = ((9190, 28930),),
                 x, 'euclidean', device=device)),
             ('pca', lambda: preprocess.Preprocessor.fit(
                 x, pca_dim=min(pca_dim, n, f), device=device)),
-            ('fps', lambda: landmark._select_landmarks(
+            ('fps', lambda: landmark._pick_landmarks(
                 x, L, 'fps', np.random.RandomState(0), device=device)),
             ('weights', lambda: landmark._cell_to_landmark_weights(
                 x, lms, 8, device=device)))

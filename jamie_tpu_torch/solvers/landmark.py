@@ -13,12 +13,19 @@ five (N0, N1) arrays; this one bounds the estimation at O(N L + L²):
    distance, from squared distances in 8192-row blocks (K3, or an SpMM
    Gram for a CSR source);
 4. return F = (A_x F_L) A_y^T as a `LowRankF`, or in the k-sparse
-   `SparseLandmarkF` layout past `_SPARSE_FACTOR_ENTRIES`.
+   `SparseLandmarkF` layout past `_SPARSE_FACTOR_ENTRIES`, with what the
+   steps solved kept on it (`F.landmarks`, a `LandmarkSolve`).
 
 Everything runs on `device` (the card unless the caller passes another).
 FPS keeps its picks on the device: no host read inside its loop. With
 `verbose` (the solver's flag, on by default) it prints the seconds of its
-four steps, each ended by a device synchronize.
+four steps, each ended by a device synchronize. Each step is a span
+(`core/timing`) whose counters name its route and sizes: the selection's
+`L`, `rows` and `route` ('fps_dense', 'fps_jl_sketch' or 'uniform'), the
+distances' `mode` and `L`, the solve's `shape`, `state_dtype` and
+`iterations`, the weights' `layout`, `route` ('weights_spmm',
+'weights_uploader' or 'weights_dense'), `nnz` (a CSR source's, else None)
+and `blocks`.
 
 Sources may be dense host arrays, scipy CSR matrices or tensors, routed as
 jamie_tpu routes them (`residency.route_counts` records which):
@@ -36,6 +43,7 @@ jamie_tpu routes them (`residency.route_counts` records which):
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -70,6 +78,19 @@ _UPLOAD_ELEMS = 100_000_000
 # give the same F, the dense factors at it take 4.8 GB (6% of the card) and
 # no probed fit reached it (195,313 cells at L = 2048).
 _SPARSE_FACTOR_ENTRIES = 400_000_000
+
+
+@dataclasses.dataclass
+class LandmarkSolve:
+    """What the landmark route solved on the way to F, kept on the F it
+    returns (`F.landmarks`) so the stages can be checked: each modality's
+    picks sorted (the order of the landmark rows, of the distance
+    matrices' axes and of F_L's) and in the order they were picked, the
+    (L0, L0) and (L1, L1) landmark distance matrices, and F_L."""
+    picks: tuple
+    order: tuple
+    dist: tuple
+    f_l: torch.Tensor
 
 
 def _interp_weights_sparse(d2: torch.Tensor, k: int):
@@ -149,22 +170,25 @@ def _project_for_fps(arr, rng, dim: int = 256, chunk_rows: int = 8192,
     return torch.cat(out)
 
 
-def _select_landmarks(x, n_landmarks: int, method: str, rng,
-                      device=None) -> np.ndarray:
+def _pick_landmarks(x, n_landmarks: int, method: str, rng, device=None):
+    """(the picks in the order they were made, the route taken): 'uniform'
+    draws them at once; 'fps' picks on the exact rows ('fps_dense') or,
+    past `_FPS_BYTES_BUDGET`, on the JL sketch ('fps_jl_sketch')."""
     n = int(x.shape[0])
     if method == 'uniform':
-        return np.sort(rng.choice(n, n_landmarks, replace=False))
+        return rng.choice(n, n_landmarks, replace=False), 'uniform'
     if method == 'fps':
         device = resolve_device(device)
         first = int(rng.randint(n))
         if int(x.shape[0]) * int(x.shape[1]) * 4 > _FPS_BYTES_BUDGET:
-            residency.route_counts['fps_jl_sketch'] += 1
+            route = 'fps_jl_sketch'
             xd = _project_for_fps(x, rng, device=device)
         else:
-            residency.route_counts['fps_dense'] += 1
+            route = 'fps_dense'
             xd = _as_device_f32(x, device)
-        return np.sort(_fps_indices_device(xd, first,
-                                           int(n_landmarks)).cpu().numpy())
+        residency.route_counts[route] += 1
+        return (_fps_indices_device(xd, first, int(n_landmarks)).cpu()
+                .numpy(), route)
     raise ValueError(f'unknown landmark selection method {method!r}')
 
 
@@ -190,6 +214,13 @@ def _cell_to_landmark_weights(x, landmarks, k: int, block: int = 8192,
     route = ('weights_spmm' if dcsr is not None else
              'weights_uploader' if up is not None else 'weights_dense')
     residency.route_counts[route] += 1
+    # the enclosing span's counters, one entry a modality
+    sp = timing.current()
+    if sp is not None:
+        sp.counters.setdefault('route', []).append(route)
+        sp.counters.setdefault('nnz', []).append(
+            None if dcsr is None else dcsr.nnz)
+        sp.add('blocks', -(-n // block))
     lm_sq = (lm * lm).sum(1) if dcsr is not None else None
     verbose = n >= 50_000        # atlas scale: show block progress
     t0 = time.perf_counter()
@@ -245,30 +276,42 @@ def landmark_correspondence(
     n0, n1 = int(X.shape[0]), int(Y.shape[0])
     L0, L1 = min(int(n_landmarks), n0), min(int(n_landmarks), n1)
 
-    # each stage a span that waits for the card before it closes
-    with timing.span('landmark.selection', sync=True) as selected:
+    # each stage a span that waits for the card before it closes; its
+    # counters name the route and the sizes, one entry a modality where
+    # the modalities differ
+    with timing.span('landmark.selection', sync=True, L=[L0, L1],
+                     rows=[n0, n1]) as selected:
         rng = np.random.RandomState(seed)
-        lx = _select_landmarks(X, L0, selection, rng, device)
-        ly = _select_landmarks(Y, L1, selection, rng, device)
+        (ox, rx), (oy, ry) = (_pick_landmarks(A, L, selection, rng, device)
+                              for A, L in ((X, L0), (Y, L1)))
+        lx, ly = np.sort(ox), np.sort(oy)
+        selected.set(route=[rx, ry])
         # fancy row indexing of a CSR gathers just the landmark rows
         Xl, Yl = (A[idx].toarray() if is_scipy_sparse(A) else A[idx]
                   for A, idx in ((X, lx), (Y, ly)))
 
     # Exact solver on the landmark subproblem; graph modes (geodesic) run
     # on the landmark subset's own graph
-    with timing.span('landmark.distances', sync=True) as distances:
+    with timing.span('landmark.distances', sync=True, mode=distance_mode,
+                     L=[L0, L1], features=[int(X.shape[1]), int(Y.shape[1])]
+                     ) as distances:
         Kx = dataset_distance_matrix(Xl, distance_mode, kmax=kmax,
                                      device=device)
         Ky = dataset_distance_matrix(Yl, distance_mode, kmax=kmax,
                                      device=device)
-    with timing.span('landmark.solve', sync=True) as solve:
+    with timing.span('landmark.solve', sync=True, shape=[L0, L1],
+                     state_dtype=prime_dual_kwargs.get('state_dtype',
+                                                       'float32'),
+                     iterations=int(prime_dual_kwargs.get('epoch_pd', 2000))
+                     ) as solve:
         F_L = prime_dual(Kx, Ky, dx=int(X.shape[1]), dy=int(Y.shape[1]),
                          device=device, mesh=mesh, **prime_dual_kwargs)
 
     if factor_layout == 'auto':
         factor_layout = ('sparse' if max(n0, n1) * max(L0, L1)
                          > _SPARSE_FACTOR_ENTRIES else 'dense')
-    with timing.span('landmark.weights', sync=True) as weights:
+    with timing.span('landmark.weights', sync=True,
+                     layout=factor_layout) as weights:
         if factor_layout == 'sparse':
             ix, wx = _cell_to_landmark_weights(X, Xl, k_interp, sparse=True,
                                                device=device)
@@ -281,6 +324,7 @@ def landmark_correspondence(
             # U carries the solved landmark correspondences mixed by each
             # row cell's weights; V is the column side's affinity
             F = LowRankF(A_x @ F_L, A_y)
+    F.landmarks = LandmarkSolve((lx, ly), (ox, oy), (Kx, Ky), F_L)
     if prime_dual_kwargs.get('verbose', True) and cm.is_rank0():
         print('landmark correspondence seconds: ' + ', '.join(
             f'{sp.name.split(".")[1]} {sp.seconds:.3f}'

@@ -61,16 +61,17 @@ def test_fps_indices_match():
 def test_select_landmarks_match(method):
     """Same RandomState draws: the same first cell and uniform subset."""
     x, _ = _paired(n=150)
-    ours = tl._select_landmarks(x, 24, method, np.random.RandomState(5),
-                                device='cpu')
+    ours = np.sort(tl._pick_landmarks(x, 24, method, np.random.RandomState(5),
+                                      device='cpu')[0])
     ref = jl._select_landmarks(x, 24, method, np.random.RandomState(5))
     np.testing.assert_array_equal(ours, ref)
     # a tensor source picks the same cells
     np.testing.assert_array_equal(
-        tl._select_landmarks(torch.as_tensor(x), 24, method,
-                             np.random.RandomState(5), device='cpu'), ref)
+        np.sort(tl._pick_landmarks(torch.as_tensor(x), 24, method,
+                                   np.random.RandomState(5),
+                                   device='cpu')[0]), ref)
     with pytest.raises(ValueError):
-        tl._select_landmarks(x, 4, 'kmeanz', np.random.RandomState(0))
+        tl._pick_landmarks(x, 4, 'kmeanz', np.random.RandomState(0))
 
 
 @pytest.mark.parametrize('sparse', [False, True])
@@ -144,8 +145,8 @@ def test_item_11_routes_raise(monkeypatch):
     assert residency.route_counts['weights_dense'] == 1      # y: 60 x 14
     monkeypatch.setattr(tl, '_FPS_BYTES_BUDGET', 1024)
     monkeypatch.setattr(jl, '_FPS_BYTES_BUDGET', 1024)
-    ours = tl._select_landmarks(x, 8, 'fps', np.random.RandomState(0),
-                                device='cpu')
+    ours = np.sort(tl._pick_landmarks(x, 8, 'fps', np.random.RandomState(0),
+                                      device='cpu')[0])
     np.testing.assert_array_equal(
         ours, jl._select_landmarks(x, 8, 'fps', np.random.RandomState(0)))
     assert residency.route_counts['fps_jl_sketch'] == 1
@@ -171,3 +172,47 @@ def test_fps_pick_step_matches_reference(n_landmarks):
         again = tl._fps_indices_device(torch.as_tensor(x), first,
                                        n_landmarks, eager=True)
         np.testing.assert_array_equal(again.numpy(), ours.numpy())
+
+
+@pytest.mark.parametrize('layout', ['dense', 'sparse'])
+def test_f_keeps_what_the_route_solved(layout):
+    """F.landmarks: the picks sorted and in their pick order, the
+    landmark distance matrices over the sorted picks' rows and F_L, from
+    which the factors follow."""
+    from jamie_tpu_torch.ops.distances import dataset_distance_matrix
+    x, y = _paired(n=90)
+    F = tl.landmark_correspondence(x, y, n_landmarks=16, epoch_pd=50,
+                                   seed=5, factor_layout=layout,
+                                   verbose=False, device='cpu')
+    st = F.landmarks
+    rng = np.random.RandomState(5)
+    for picks, order, src in zip(st.picks, st.order, (x, y)):
+        np.testing.assert_array_equal(picks, np.sort(order))
+        np.testing.assert_array_equal(
+            order, tl._pick_landmarks(src, 16, 'fps', rng, 'cpu')[0])
+    for d, src, picks in zip(st.dist, (x, y), st.picks):
+        np.testing.assert_array_equal(
+            torch.as_tensor(d).numpy(),
+            dataset_distance_matrix(src[picks], 'euclidean',
+                                    device='cpu').numpy())
+    assert tuple(st.f_l.shape) == (16, 16)
+    if layout == 'sparse':
+        assert st.f_l is F.f_l
+    a_x = tl._cell_to_landmark_weights(x, x[st.picks[0]], 8, device='cpu')
+    np.testing.assert_allclose(F.u.numpy(), (a_x @ st.f_l).numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_select_landmarks_sorts_the_picks():
+    """The fit's landmark rows are its picks sorted: the same cells as
+    jamie_tpu's `_select_landmarks`, whose picks come sorted."""
+    x, _ = _paired(n=60)
+    picks, route = tl._pick_landmarks(x, 12, 'fps', np.random.RandomState(2),
+                                      'cpu')
+    assert route == 'fps_dense' and len(set(picks)) == 12
+    F = tl.landmark_correspondence(x, x, n_landmarks=12, epoch_pd=5, seed=2,
+                                   verbose=False, device='cpu')
+    np.testing.assert_array_equal(F.landmarks.picks[0], np.sort(picks))
+    np.testing.assert_array_equal(
+        F.landmarks.picks[0],
+        jl._select_landmarks(x, 12, 'fps', np.random.RandomState(2)))

@@ -119,6 +119,31 @@ def test_tmatmul_matches_dense():
     np.testing.assert_array_equal(d.tmatmul(Q).numpy(), out)
 
 
+def test_tmatmul_by_row_blocks(monkeypatch):
+    """The transposed twin is built by blocks of TWIN_ROWS rows (a block
+    with no nonzero left out), and X^T Q sums the blocks' products; each
+    product's sizes go to the open span's `spmm` counter."""
+    from jamie_tpu_torch.core import residency as res, timing
+    rng = np.random.RandomState(5)
+    X = _rand_csr(rng, 250, 180, 0.04).tolil()
+    X[64:128] = 0
+    X = X.tocsr()
+    Q = rng.randn(250, 7).astype(np.float32)
+    monkeypatch.setattr(res, 'TWIN_ROWS', 64)
+    d = _dev(X)
+    with timing.span('t') as sp:
+        out = d.tmatmul(Q).numpy()
+    assert [(s, e) for s, e, _ in d._csc] == [(0, 64), (128, 192),
+                                              (192, 250)]
+    ref = (X.toarray().astype(np.float64).T
+           @ Q.astype(np.float64)).astype(np.float32)
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+    assert [c[1:] for c in sp.counters['spmm']] == [[7, 64, 180],
+                                                    [7, 64, 180],
+                                                    [7, 58, 180]]
+    assert sum(c[0] for c in sp.counters['spmm']) == X.nnz
+
+
 def test_tmatmul_empty_columns():
     rng = np.random.RandomState(4)
     X = _rand_csr(rng, 120, 90, 0.03).tolil()

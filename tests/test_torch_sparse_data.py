@@ -207,6 +207,30 @@ def test_pca_tall_routes(monkeypatch, route, source):
                                np.linalg.norm(exact, axis=0), rtol=1e-2)
 
 
+@pytest.mark.parametrize('power_iters', [0, 1, 3])
+def test_pca_resident_route_takes_power_iters(monkeypatch, power_iters):
+    """`power_iters` reaches the bf16-resident route (jamie_tpu's runs one
+    whatever it is): one bf16 sketch product, then one more an iteration;
+    on a slowly decaying spectrum the iterations bring the subspace to
+    the exact fit's, past what one sketch finds."""
+    rng = np.random.RandomState(3)
+    z = rng.randn(600, 5) * np.array([6, 5, 4, 3.5, 3])
+    X = (z @ rng.randn(5, 120) / np.sqrt(5)
+         + rng.randn(600, 120)).astype(np.float32)
+    exact = tp.PCA(5, device='cpu').fit(X)
+    _patched(monkeypatch, _STREAM_THRESHOLD=100)
+    calls = []
+    product = tp.bf16_matmul
+    monkeypatch.setattr(tp, 'bf16_matmul',
+                        lambda a, b: calls.append(1) or product(a, b))
+    ours = tp.PCA(5, device='cpu', power_iters=power_iters).fit(X)
+    assert tr.route_counts['pca_resident_bf16'] == 1
+    assert len(calls) == power_iters + 1
+    sine = np.sqrt(1 - _subspace_cosines(
+        ours.components_.numpy(), exact.components_.numpy()).min() ** 2)
+    assert (sine > 1e-2) if power_iters == 0 else (sine < 1e-3)
+
+
 @pytest.mark.parametrize('source', ['dense', 'csr'])
 def test_pca_wide_streamed_route(monkeypatch, source):
     """A wide matrix past the threshold with no budget streams column
@@ -229,6 +253,33 @@ def test_pca_wide_streamed_route(monkeypatch, source):
     c = ours.components_.numpy()[:3]
     assert _subspace_cosines(c, np.asarray(ref.components_)[:3]).min() > 0.999
     assert _subspace_cosines(c, exact.components_.numpy()[:3]).min() > 0.999
+
+
+def test_pca_wide_resident_csr_takes_the_spmm_route(monkeypatch):
+    """A wide CSR past the threshold whose dense bf16 copy is over the
+    budget but whose DeviceCSR fits runs the row-streamed route's SpMMs
+    on the resident CSR (jamie_tpu streams its columns through a host
+    CSC): the leading components and scores agree with the exact fit."""
+    rng = np.random.RandomState(4)
+    z = rng.randn(60, 5).astype(np.float32) * np.array([20, 12, 7, 1, 0.5],
+                                                       np.float32)
+    X = np.maximum(z @ rng.randn(5, 3000) - 8.0, 0).astype(np.float32)
+    src = sparse.csr_matrix(X)
+    dense_bf16, csr = 2 * X.size, 4 * src.nnz + 4 * 61
+    assert csr < dense_bf16
+    exact = tp.PCA(5, device='cpu').fit(X)
+    _patched(monkeypatch, _STREAM_THRESHOLD=100,
+             DEFAULT_BUDGET_BYTES=(csr + dense_bf16) // 2)
+    ours = tp.PCA(5, device='cpu')
+    out = ours.fit_transform(src)
+    assert tr.route_counts['pca_row_streamed'] == 1
+    assert tr.route_counts['pca_streamed'] == 0
+    assert isinstance(out, torch.Tensor) and out.shape == (60, 5)
+    c = ours.components_.numpy()[:3]
+    assert _subspace_cosines(c, exact.components_.numpy()[:3]).min() > 0.999
+    want = exact.transform(X)
+    for j in range(3):
+        assert abs(np.corrcoef(out.numpy()[:, j], want[:, j])[0, 1]) > 0.999
 
 
 def test_pca_transform_spmm_route(monkeypatch):
@@ -315,11 +366,11 @@ def test_landmark_correspondence_on_csr(monkeypatch, rounded):
         patches['BF16_LINK_ELEMS'] = 1000
     _patched(monkeypatch, **patches)
     picks = []
-    for sel in (tl._select_landmarks, jl._select_landmarks):
+    for sel in (lambda A, r: np.sort(tl._pick_landmarks(A, 32, 'fps', r,
+                                                        'cpu')[0]),
+                lambda A, r: jl._select_landmarks(A, 32, 'fps', r)):
         r = np.random.RandomState(1)       # landmark_correspondence's
-        picks.append([sel(A, 32, 'fps', r, **(                # order
-            {'device': 'cpu'} if sel is tl._select_landmarks else {}))
-            for A in (X, Y)])
+        picks.append([sel(A, r) for A in (X, Y)])          # order
     tr.route_counts.clear()
     ours = tl.landmark_correspondence(X, Y, device='cpu', **kw)
     ref = jl.landmark_correspondence(X, Y, **kw)

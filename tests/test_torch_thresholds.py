@@ -97,8 +97,8 @@ def test_fps_budget_is_strict(monkeypatch, delta):
         monkeypatch.setattr(m, '_FPS_BYTES_BUDGET', 4 * x.size + delta)
     calls = []
     _spy(monkeypatch, jl, '_project_for_fps', calls)
-    ours = tl._select_landmarks(x, 5, 'fps', np.random.RandomState(0),
-                                device='cpu')
+    ours = np.sort(tl._pick_landmarks(x, 5, 'fps', np.random.RandomState(0),
+                                      device='cpu')[0])
     ref = jl._select_landmarks(x, 5, 'fps', np.random.RandomState(0))
     assert (tr.route_counts['fps_jl_sketch'] == 1) == bool(calls) == (
         4 * x.size > 4 * x.size + delta)

@@ -302,3 +302,60 @@ def test_device_time_needs_a_card():
         sp.device_end()
     assert sp.device_s is None
     assert torch.cuda.is_initialized() is False
+
+
+def _csr_arms(n=80, seed=0):
+    """Two CSR arms with the same cells: each column's top fifth of a
+    rank-4 signal kept, the rest 0."""
+    import scipy.sparse as ss
+    rng = np.random.RandomState(seed)
+    z = rng.randn(n, 4)
+    arms = []
+    for w in (30, 50):
+        x = (z @ rng.randn(4, w) + 0.1 * rng.randn(n, w)).astype(np.float32)
+        x[x < np.quantile(x, 0.8, axis=0)] = 0.0
+        arms.append(ss.csr_matrix(x))
+    return arms
+
+
+def test_landmark_and_csr_spans_carry_their_counters(monkeypatch):
+    """A CSR fit on the landmark route, its FPS on the JL sketch: the four
+    `landmark.*` spans name their routes and sizes, each CSR arm's device
+    copy is one `residency.csr` span, and each SpMM adds its sizes to the
+    span it runs in."""
+    from jamie_tpu_torch.solvers import landmark
+    monkeypatch.setattr(landmark, '_FPS_BYTES_BUDGET', 0)
+    arms = _csr_arms()
+    jm = JAMIE(device='cpu', distance_mode='geodesic', corr_landmarks=24,
+               **KW)
+    with contextlib.redirect_stdout(io.StringIO()):
+        jm.fit_transform(dataset=arms)
+    corr = jm.trace.child('Correspondence')
+    sel, dist, solve, weights = (corr.child(f'landmark.{s}') for s in (
+        'selection', 'distances', 'solve', 'weights'))
+    assert {k: sel.counters[k] for k in ('L', 'rows', 'route')} == {
+        'L': [24, 24], 'rows': [80, 80],
+        'route': ['fps_jl_sketch', 'fps_jl_sketch']}
+    assert dist.counters == {'mode': 'geodesic', 'L': [24, 24],
+                             'features': [a.shape[1] for a in arms]}
+    assert [b.counters.get('route') for b in dist.find('distances.base')
+            ] == ['k3', 'k3']
+    assert solve.counters == {'shape': [24, 24], 'state_dtype': 'float32',
+                              'iterations': KW['epoch_pd']}
+    assert {k: weights.counters[k] for k in ('layout', 'route', 'nnz',
+                                              'blocks')} == {
+        'layout': 'dense', 'route': ['weights_spmm', 'weights_spmm'],
+        'nnz': [a.nnz for a in arms], 'blocks': 2}
+    # each arm uploaded once, by the selection's sketch
+    builds = jm.trace.find('residency.csr')
+    assert [b.parent for b in builds] == [sel, sel]
+    for b, a in zip(builds, arms):
+        assert b.counters['nnz'] == a.nnz
+        assert b.counters['bytes'] == 4 * (a.shape[0] + 1) + 8 * a.nnz
+        assert b.counters['copy_s'] >= 0
+    # the sketch's SpMMs, then each arm's landmark Gram and row norms
+    assert sel.counters['spmm'] == [[a.nnz, 256, a.shape[1], a.shape[0]]
+                                    for a in arms]
+    assert weights.counters['spmm'] == [
+        c for a in arms for c in ([a.nnz, 24, a.shape[1], a.shape[0]],
+                                  [a.nnz, 1, a.shape[1], a.shape[0]])]
