@@ -16,7 +16,11 @@
    CUDA graph), held to 3 for K1 (its kernel and its bias corrections) and
    to the wrapper's stated count for K3. The atlas path's K3 shapes too: self
    sqrt on 2048-cell atlas landmark subsets (20,000 / 40,000 features) and
-   one 2684-row block of the blocked FOSCTTM at 100,000 cells.
+   one 2684-row block of the blocked FOSCTTM at 100,000 cells. The coupled
+   VAE block's tail (ops/block_tail.py), forward + backward, at the widths
+   the cells' blocks run (1024, 512, 78, 39, 32 at batch 512; float32 and
+   bfloat16; dropout 0 and 0.6), also beside the composed ops it replaced;
+   one pair held to 2 device kernels.
 4. Fit: JAMIE().fit_transform at full width (default config, epoch_DNN cut
    to 20) on SNARE-seq-shaped synthetic data (1047 cells x 3000 RNA / 5000
    ATAC, seed 0), with every launch count and the trainer's epochs by
@@ -85,7 +89,9 @@
    the step-4 fit again through JAMIE(mesh=create_mesh((1,), ('data',)))
    and through a (1, 1) data x model mesh, counts at 0 (K1 2000, K3 >= 2),
    every iteration and epoch captured with its NCCL collectives, FOSCTTM
-   and embeddings against step 4's, and each fit's eager twin (every loop
+   and embeddings against step 4's fit run again with the block tails on
+   their composed ops, as a mesh runs them (that fit's FOSCTTM against
+   step 4's), and each fit's eager twin (every loop
    op by op) bit-equal to it; a 2048^2 mesh prime-dual solve captured and
    eager, bit-equal, against the unsharded one; the mesh trainer's ms per
    step on both routes at phase P's 1047- and 9190-cell shapes; one
@@ -138,7 +144,11 @@
    metrics records and the final FitState; then ms per step, cells per
    second, the device's idle share over one epoch (torch.profiler) and
    device ops per step, eager and captured, at the bench train leg's, the
-   scGLUE pipeline's and the 100,000-cell atlas trainer's shapes; one
+   scGLUE pipeline's and the 100,000-cell atlas trainer's shapes; the
+   same at the benchmark cells' trainer shapes (scGLUE 9190 x 512 / 512,
+   scMNC-Visual 3654 x 512 / 39, BMMC 69,249 x 512 / 512 with a rank-2048
+   LowRankF) with the block tails on their kernels and on the composed
+   ops, kernel nodes per step held to fall by at least 250; one
    `train_capture:` line.
 25. The captured solver loops (Q): every solver loop since step 4 (the
    prime-dual iterations, FPS picks, the t-SNE bisection and optimizers,
@@ -408,6 +418,93 @@ class KernelPhase:
                     nbytes(*ins) + out_bytes, flops)
         return kern, args
 
+    def block_tail(self, B, f, dtype, dropout):
+        """The block tail's forward + backward kernels at (B, f) against
+        their plain versions, as tests/test_torch_cuda.py holds them (1e-5
+        of each float32 reference's largest entry; a bf16 output or dz
+        within one bf16 ulp, a bf16 Linear bias gradient within one ulp of
+        each dz it sums and of the sum; dy 0 where the normalised output is
+        within 1e-4 of 0); the pair timed beside the plain pair and the
+        composed ops the _Block ran before (`composed_ms`: FlaxBatchNorm,
+        LeakyReLU, the dropout's where, forward and autograd backward).
+        Bound: z, dy and the mask read once a kernel, y and dz written
+        once, bytes."""
+        torch = self.torch
+        from jamie_tpu_torch.models.coupled_vae import FlaxBatchNorm
+        from jamie_tpu_torch.ops import block_tail as BT
+        g, dev = self.gen, self.dev
+
+        def rnd(*shape, lo=-1.0, hi=1.0):
+            return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
+        z = (3 * rnd(B, f) + 0.5).to(dtype)
+        lb, scale, beta = rnd(f), rnd(f, lo=0.5, hi=1.5), rnd(f)
+        rm, rv = rnd(f), rnd(f, lo=0.5, hi=2.0)
+        keep = 1.0 - dropout
+        mask = rnd(B, f, lo=0.0) < keep if dropout else None
+        rm_p, rv_p = rm.clone(), rv.clone()
+        y, stats = BT.block_tail_forward(z, lb, scale, beta, rm, rv, mask,
+                                         keep, 0.9, 1e-5)
+        y_p, stats_p = BT.block_tail_forward_plain(
+            z, lb, scale, beta, rm_p, rv_p, mask, keep, 0.9, 1e-5)
+        t = ((BT._u_plain(z, lb) - stats_p[0]) * (stats_p[1] * scale)
+             + beta)
+        dy = torch.where(t.abs() < 1e-4, 0.0, rnd(B, f)).to(dtype)
+        got = BT.block_tail_backward(dy, z, lb, scale, beta, stats, mask,
+                                     keep)
+        want = BT.block_tail_backward_plain(dy, z, lb, scale, beta, stats_p,
+                                            mask, keep)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        err, worst = 0.0, 0.0
+        for name, k_out, p_out in (
+                ('y', y, y_p), ('running_mean', rm, rm_p),
+                ('running_var', rv, rv_p), ('stats', stats, stats_p),
+                ('dz', got[0], want[0]), ('dlin_bias', got[1], want[1]),
+                ('dscale', got[2], want[2]), ('dbias', got[3], want[3])):
+            k_out, p_out = k_out.float(), p_out.float()
+            dz_sums = want[0].float().abs().sum(0)
+            scale_ = (float(dz_sums.max()) if name == 'dlin_bias'
+                      else float(p_out.abs().max()))
+            ulp = bf16 and name in ('y', 'dz', 'dlin_bias')
+            bound = 1e-5 * scale_ + (2 ** -7 * p_out.abs() if ulp else 0.0)
+            if bf16 and name == 'dlin_bias':
+                bound = bound + 2 ** -7 * dz_sums
+            diff = (k_out - p_out).abs()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / (bound + 1e-30)).max()))
+        del t, y_p, want
+
+        def pair():
+            y_, st = BT.block_tail_forward(z, lb, scale, beta, rm, rv, mask,
+                                           keep, 0.9, 1e-5)
+            BT.block_tail_backward(dy, z, lb, scale, beta, st, mask, keep)
+
+        def plain_pair():
+            y_, st = BT.block_tail_forward_plain(z, lb, scale, beta, rm_p,
+                                                 rv_p, mask, keep, 0.9, 1e-5)
+            BT.block_tail_backward_plain(dy, z, lb, scale, beta, st, mask,
+                                         keep)
+        bn = FlaxBatchNorm(f).to(dev)
+        zc = z.detach().clone().requires_grad_(True)
+        lbc = lb.clone().requires_grad_(True)
+
+        def composed():
+            u = zc + lbc.to(dtype)
+            out = torch.nn.functional.leaky_relu(bn(u), negative_slope=0.01)
+            if mask is not None:
+                out = torch.where(mask, out / keep, torch.zeros_like(out))
+            torch.autograd.grad(out, (zc, lbc, bn.weight, bn.bias), dy)
+        ms = time_ms(torch, pair)
+        plain_ms = time_ms(torch, plain_pair)
+        composed_ms = time_ms(torch, composed)
+        mask_bytes = 0 if mask is None else 2 * B * f
+        bytes_ = 5 * nbytes(z) + mask_bytes + 19 * 4 * f   # + 19 f-vectors
+        case = (f'{B}x{f} {str(dtype).split(".")[-1]} dropout {dropout}')
+        self.record('block_tail', case, err, worst, 1.0, ms, plain_ms,
+                    bytes_, 40 * B * f, composed_ms=composed_ms[0],
+                    composed_call_ms=composed_ms[1])
+        return pair
+
     def pairwise(self, x, y, squared):
         torch = self.torch
         from jamie_tpu_torch.ops.pairwise import (pairwise_euclidean,
@@ -462,6 +559,25 @@ def device_kernels(torch, fn):
     graphs.last_stats.pop('device_kernels', None)
     graphs.loop_steps.pop('device_kernels/captured', None)
     return sg.stats['kernel_nodes'], sg.stats['launches_per_step']
+
+
+def block_tail_phase(torch, kp, widths=(1024, 512, 78, 39, 32), B=512):
+    """The block tail's kernels against their plain versions at the widths
+    the cells' blocks run, batch B, float32 and bf16, dropout 0 and 0.6
+    (`KernelPhase.block_tail`); one forward + backward pair is two device
+    kernels (the pair captured as a CUDA graph)."""
+    from jamie_tpu_torch.ops import block_tail as BT
+    for f in widths:
+        for dtype in (torch.float32, torch.bfloat16):
+            for dropout in (0.0, 0.6):
+                pair = kp.block_tail(B, f, dtype, dropout)
+    n_k, launched = device_kernels(torch, pair)
+    print(f'device kernels per call: block tail forward + backward {n_k} '
+          f'(wrapper launches {launched})', flush=True)
+    if n_k != 2 or launched != {BT.block_tail_forward.__name__: 1,
+                                BT.block_tail_backward.__name__: 1}:
+        fail(f'a block tail pair issued {n_k} device kernels and '
+             f'{launched} wrapper launches, expected 2 and one each')
 
 
 def sass_of(lib_path):
@@ -1577,7 +1693,9 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
     iteration and epoch on the 'mesh_captured' route (CUDA graphs with the
     NCCL collectives inside), FOSCTTM within MESH_FOSCTTM_TOL of the
     unsharded fit's and the embeddings within MESH_EMBED_RTOL /
-    MESH_EMBED_ATOL of them; then each fit once more with every loop op by
+    MESH_EMBED_ATOL of them, that fit run again with the block tails on
+    their composed ops, as a mesh runs them (its FOSCTTM within
+    MESH_FOSCTTM_TOL of step 4's); then each fit once more with every loop op by
     op (`eager_loops`), which must give the same embeddings bit for bit.
     Then an n_pd^2 prime-dual solve on the mesh, captured and with
     `_eager=True` (bit-equal), against the unsharded solve. Then the mesh
@@ -1601,6 +1719,23 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                           'foscttm': foscttm}}
     bad = []
     twins = {'epochs': 0, 'pd_steps': 0}
+    # A mesh keeps the block tails' composed ops (`_Block.takes_kernel`),
+    # and step 4's fit ran them on their kernels: the mesh fits are held to
+    # the unsharded fit on the composed ops, and that fit to step 4's by
+    # FOSCTTM
+    t = time.perf_counter()
+    with composed_block_tails():
+        jc = JAMIE(**kw)
+        base = jc.fit_transform(dataset=data)
+    base_f = jc.test_closer(base)
+    line['unsharded_composed'] = {
+        'seconds': round(time.perf_counter() - t, 3), 'foscttm': base_f,
+        'max_abs_diff_to_kernels': max(float(np.abs(a - b).max())
+                                       for a, b in zip(base, integrated))}
+    if not abs(base_f - foscttm) <= MESH_FOSCTTM_TOL:
+        bad.append(f'unsharded: FOSCTTM {base_f} on the composed block '
+                   f'tails vs {foscttm} on their kernels')
+    del jc
 
     def routes():
         return (dict(T.epoch_routes),
@@ -1634,10 +1769,10 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
             jm, emb, counts = cap['jm'], cap['emb'], cap['counts']
             f = jm.test_closer(emb)
             err = max(float(np.abs(a - b).max())
-                      for a, b in zip(emb, integrated))
+                      for a, b in zip(emb, base))
             close = all(np.allclose(a, b, rtol=MESH_EMBED_RTOL,
                                     atol=MESH_EMBED_ATOL)
-                        for a, b in zip(emb, integrated))
+                        for a, b in zip(emb, base))
             twin = max(float(np.abs(a - b).max())
                        for a, b in zip(emb, eag['emb']))
             epochs, steps = cap['routes']
@@ -1662,8 +1797,8 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                            f'{counts["fused_pd_grad_update"]} times')
             if counts['pairwise_euclidean'] < 2:
                 bad.append(f'{name}: K3 launched fewer than 2 times')
-            if not (abs(f - foscttm) <= MESH_FOSCTTM_TOL and close):
-                bad.append(f'{name}: FOSCTTM {f} vs {foscttm}, embeddings '
+            if not (abs(f - base_f) <= MESH_FOSCTTM_TOL and close):
+                bad.append(f'{name}: FOSCTTM {f} vs {base_f}, embeddings '
                            f'max |diff| {err}')
             if twin != 0.0:
                 bad.append(f'{name}: captured and eager fits differ by '
@@ -2465,10 +2600,81 @@ def step_timing(torch, tr, epochs):
     return {'steps_per_epoch': L, 'batch': B, **out}
 
 
+# The benchmark cells' trainer shapes: (name, cells, PCA widths, F form),
+# batch 512, latent 32, dropout 0, a float32 model, the identity sentinel P
+CELL_TRAIN_SHAPES = (('scglue', 9190, (512, 512), 'dense'),
+                     ('scmnc_visual', 3654, (512, 39), 'dense'),
+                     ('bmmc_multiome', 69_249, (512, 512), 'lowrank'))
+
+
+@contextlib.contextmanager
+def composed_block_tails():
+    """Every _Block on its composed ops, on the card too: the route before
+    the block tail's kernels (`_Block.takes_kernel` reads False)."""
+    from jamie_tpu_torch.models import coupled_vae
+    takes = coupled_vae._Block.takes_kernel
+    coupled_vae._Block.takes_kernel = lambda self, device: False
+    try:
+        yield
+    finally:
+        coupled_vae._Block.takes_kernel = takes
+
+
+def cell_step_routes(torch, dev, epochs=((1, 10), (1, 20), (1, 2)),
+                     cells=CELL_TRAIN_SHAPES, min_drop=250):
+    """ms per step, kernel nodes per step and device ops per step at the
+    benchmark cells' trainer shapes (`CELL_TRAIN_SHAPES`, random data and F
+    made on the card), eager and captured (`step_timing`, epochs = (eager,
+    captured) per cell), with the block tails on their kernels ('kernels')
+    and on the composed ops ('composed'), each from a new trainer. Returns
+    the results and the failures: a captured step whose kernel nodes fall
+    by less than `min_drop`, or whose `blocks_fused` is not 8 with the
+    kernels and 0 without."""
+    from jamie_tpu_torch.config import JamieConfig
+    from jamie_tpu_torch.models import CoupledVAE
+    from jamie_tpu_torch.ops.lowrank import LowRankF
+    from jamie_tpu_torch.train.trainer import JamieTrainer
+    g = torch.Generator(device=dev).manual_seed(1)
+    cfg = JamieConfig(epoch_DNN=10 ** 6, min_epochs=2500,
+                      use_early_stop=False, log_DNN=10 ** 6)
+    out, bad = {}, []
+    for (name, m, dims, form), ep in zip(cells, epochs):
+        Xs = [torch.randn(m, d, device=dev, generator=g) for d in dims]
+        F = (LowRankF(torch.rand(m, 2048, device=dev, generator=g) / 2048,
+                      torch.rand(m, 2048, device=dev, generator=g))
+             if form == 'lowrank' else
+             torch.rand(m, m, device=dev, generator=g))
+        res = {}
+        for route in ('kernels', 'composed'):
+            tr = JamieTrainer(cfg, CoupledVAE(dims, 32, dropout=0.0), Xs,
+                              'identity', F, device=dev)
+            with (composed_block_tails() if route == 'composed'
+                  else contextlib.nullcontext()):
+                res[route] = step_timing(torch, tr, ep)
+            res[route]['blocks_fused'] = tr.graph_stats.get('blocks_fused')
+            del tr
+        drop = (res['composed']['captured']['kernel_nodes_per_step']
+                - res['kernels']['captured']['kernel_nodes_per_step'])
+        res['kernel_nodes_drop_per_step'] = drop
+        out[f'{name}_{m}'] = res
+        print(f'phase P cell shape {name} ({m} cells, widths {dims}): '
+              f'{json.dumps(res, default=float)}', flush=True)
+        if drop < min_drop or (res['kernels']['blocks_fused'],
+                               res['composed']['blocks_fused']) != (8, 0):
+            bad.append(f'{name}: kernel nodes per step fell by {drop} '
+                       f'(at least {min_drop} expected), blocks_fused '
+                       f"{res['kernels']['blocks_fused']} / "
+                       f"{res['composed']['blocks_fused']}")
+        del Xs, F
+        torch.cuda.empty_cache()
+    return out, bad
+
+
 def train_capture_phase(torch, dev, smi_line, fit_inputs, landmark_inputs,
                         epochs=30, landmark_epochs=3,
                         timing_cells=(9190, 100_000), timing_dim=512,
-                        timing_epochs=((20, 100), (5, 20), (1, 3))):
+                        timing_epochs=((20, 100), (5, 20), (1, 3)),
+                        cell_kw=None):
     """P. The trainer's captured epochs against its eager epoch body: at
     full width on the 1047-cell SNARE-shaped data (PCA-512, F the first
     fit's dense F), each fit captured and with eager=True, from new
@@ -2487,7 +2693,10 @@ def train_capture_phase(torch, dev, smi_line, fit_inputs, landmark_inputs,
     pipeline's (9190 cells, 17 steps, bf16 model matmuls, the identity
     sentinel and a dense F) and the 100,000-cell atlas trainer's (195
     steps, a rank-2048 LowRankF), on random PCA-512-shaped data made on the
-    card. One `train_capture:` line."""
+    card. Then the benchmark cells' trainer shapes with the block tails on
+    their kernels and on the composed ops (`cell_step_routes`, given
+    `cell_kw`): kernel nodes per step before and after. One
+    `train_capture:` line."""
     from jamie_tpu_torch.config import JamieConfig
     from jamie_tpu_torch.models import CoupledVAE
     from jamie_tpu_torch.ops.lowrank import LowRankF
@@ -2579,7 +2788,9 @@ def train_capture_phase(torch, dev, smi_line, fit_inputs, landmark_inputs,
         if not (s['captured']['ms_per_step'] > 0
                 and s['eager']['ms_per_step'] > 0):
             bad.append(f'{name}: no step time')
-    line = {'fits': results, 'shapes': shapes,
+    cell_shapes, cell_bad = cell_step_routes(torch, dev, **(cell_kw or {}))
+    bad += cell_bad
+    line = {'fits': results, 'shapes': shapes, 'cell_shapes': cell_shapes,
             'train_leg_cells_per_sec': {
                 r: shapes[f'bench_{n}'][r]['cells_per_sec']
                 for r in ('eager', 'captured')},
@@ -3661,6 +3872,7 @@ def main():
         fail(f'one K1 call issued {n_k} device kernels and {launched} '
              f'wrapper launches, expected its kernel once and 2 for its '
              f'bias corrections')
+    block_tail_phase(torch, kp)
     x_rna = torch.as_tensor(data[0], device=dev)
     x_atac = torch.as_tensor(data[1], device=dev)
     emb = [torch.randn(1047, 32, device=dev, generator=g) for _ in range(2)]
@@ -3863,7 +4075,8 @@ def main():
     workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line)
     # J. The analysis and baseline modules
     compare_phase(torch, ops, data, labels, dev, smi_line)
-    # K. The mesh path at world size 1, against the fit of step 4
+    # K. The mesh path at world size 1, against the fit of step 4 on the
+    # composed block tails
     t = time.perf_counter()
     twins = mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm,
                        fit_s, jm.phase_timings, smi_line,
@@ -3935,7 +4148,8 @@ def main():
     main_case = {'pd_grad_update': '1047x1047 M1=float32',
                  'pd_update': '1047x1047 M1=float32',
                  'pairwise_euclidean': '1047x1047x5000 self sqrt',
-                 'floyd_warshall': '3654 vertices'}
+                 'floyd_warshall': '3654 vertices',
+                 'block_tail': '512x1024 float32 dropout 0.0'}
     meta = {
         'pd_grad_update': ('fused_pd_grad_update', 'triton',
                            'jamie_tpu_torch/ops/pd_update.py',
@@ -3950,6 +4164,9 @@ def main():
                            'jamie_tpu_torch/csrc/floyd_warshall.cu',
                            'none (the host Dijkstra, jamie_tpu/ops/'
                            'distances.py:429-460)'),
+        'block_tail': ('block_tail_forward', 'triton',
+                       'jamie_tpu_torch/ops/block_tail.py',
+                       'none (jamie_tpu leaves the tail to XLA)'),
     }
     kernels = []
     for key, case in main_case.items():

@@ -63,6 +63,7 @@ from torch import nn
 
 from ..core import mesh as cm
 from ..core.dtypes import bf16_matmul
+from ..ops.block_tail import block_tail
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,13 +104,18 @@ class TorchDense(nn.Module):
     def forward(self, x):
         return self._linear(x) if self.tp is None else self._forward_tp(x)
 
-    def _linear(self, x):
+    def product(self, x):
+        """x W^T in x's dtype, without the bias."""
         if self.matmul_bf16:
-            return (bf16_matmul(x, self.weight.T).to(x.dtype)
-                    + self.bias.to(x.dtype))
+            return bf16_matmul(x, self.weight.T).to(x.dtype)
         if x.dtype == torch.float32:
+            return Fn.linear(x, self.weight)
+        return x @ self.weight.T.to(x.dtype)
+
+    def _linear(self, x):
+        if x.dtype == torch.float32 and not self.matmul_bf16:
             return Fn.linear(x, self.weight, self.bias)
-        return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
+        return self.product(x) + self.bias.to(x.dtype)
 
     def _forward_tp(self, x):
         """The layer with its kernel sharded on the model axis (or
@@ -142,10 +148,11 @@ class FlaxBatchNorm(nn.Module):
     """BatchNorm with flax.linen.BatchNorm's semantics (momentum 0.9 on the
     running value, eps 1e-5, biased batch variance E[x^2] - E[x]^2 clipped
     at 0 for both the normalization and the running update). Statistics and
-    the normalization are float32 whatever the input's dtype; the output
-    is cast back to it. With `data_group` set (a batch split over the
-    'data' axis), the statistics are the whole batch's: one all-reduce of
-    the local sums, squared sums and row count."""
+    the normalization are float32 whatever the input's dtype (float64 for
+    a float64 input); the output is cast back to it. With `data_group` set
+    (a batch split over the 'data' axis), the statistics are the whole
+    batch's: one all-reduce of the local sums, squared sums and row
+    count."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -170,7 +177,7 @@ class FlaxBatchNorm(nn.Module):
         return s[:f] / count, s[f:2 * f] / count
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean, sq = self._batch_stats(xf)
             var = torch.clamp(sq - mean * mean, min=0.0)
@@ -186,7 +193,15 @@ class FlaxBatchNorm(nn.Module):
 
 
 class _Block(nn.Module):
-    """Linear + BatchNorm + LeakyReLU + Dropout (one reference MLP block)."""
+    """Linear + BatchNorm + LeakyReLU + Dropout (one reference MLP block).
+
+    In train mode on a CUDA device, with the batch and the features whole
+    on it (no `data_group`, no model-axis layout), everything after the
+    Linear's matmul is one kernel forward and one backward
+    (`ops/block_tail.py`); elsewhere (the CPU, eval mode, a mesh) the
+    composed ops run, which are what those kernels are held to. Both draw
+    the dropout mask by the same call at the same point of the random
+    stream."""
 
     def __init__(self, in_features: int, features: int, dropout: float,
                  matmul_bf16: bool, generator=None):
@@ -195,8 +210,25 @@ class _Block(nn.Module):
         self.bn = FlaxBatchNorm(features)
         self.dropout = dropout
 
+    def takes_kernel(self, device: torch.device) -> bool:
+        """Whether a call on `device` in the module's mode takes the block
+        tail's kernels."""
+        return (self.training and device.type == 'cuda'
+                and self.bn.data_group is None and self.dense.tp is None)
+
+    def fused(self, x, generator: Optional[torch.Generator] = None):
+        """The block through `ops.block_tail` (the kernels on the card, their
+        plain versions on the CPU): the Linear's product, then the tail."""
+        z = self.dense.product(x)
+        keep = 1.0 - self.dropout
+        mask = (torch.rand(z.shape, generator=generator, device=z.device)
+                < keep) if self.dropout > 0 else None
+        return block_tail(z, self.dense.bias, self.bn, mask, keep)
+
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 rows: Optional[cm.Split] = None):
+        if rows is None and self.takes_kernel(x.device):
+            return self.fused(x, generator)
         x = Fn.leaky_relu(self.bn(self.dense(x)), negative_slope=0.01)
         if self.training and self.dropout > 0:
             # the mask of the whole batch (and of all features), then this

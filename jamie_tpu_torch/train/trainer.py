@@ -85,6 +85,7 @@ from ..core import mesh as cm
 from ..core import timing
 from ..core.dtypes import resolve_device
 from ..core.timing import device_memory_stats
+from ..ops.block_tail import block_tail_forward
 from ..ops.lowrank import LowRankF, SparseLandmarkF, _mix_rows, \
     _scatter_rows
 from ..ops.sparse import (SparseRows, as_sparse_rows, is_sparse_input,
@@ -289,7 +290,10 @@ class _EagerEpochs:
         with torch.no_grad():
             torch.logical_not(tr._stopped, out=tr._live)
         if bool(tr._live):
+            launched = block_tail_forward.launches
             tr._epoch_body()
+            tr.graph_stats['blocks_fused'] = (
+                block_tail_forward.launches - launched) // tr.len_dataloader
         tr._epoch_flags()
 
     def settle(self, epochs_ran: int) -> None:
@@ -338,7 +342,7 @@ class _CapturedEpochs:
         self.start_offset = tr.generator.get_offset()
         restore = tr._device_state()
         self.parts = []
-        with timing.span('trainer.capture'):
+        with timing.span('trainer.capture') as cap:
             for name, part, reps in (
                     ('epoch_start', tr._epoch_start, 1),
                     ('epoch_step', tr._epoch_step, tr.len_dataloader),
@@ -350,6 +354,10 @@ class _CapturedEpochs:
                     mesh=mesh)
                 g.capture()
                 self.parts.append((g, reps))
+            # the _Block calls of one step that took the block tail's
+            # kernels (its forward launches in the step's graph)
+            blocks = self.parts[1][0].launches.get(block_tail_forward, 0)
+            cap.set(blocks_fused=blocks)
         stats = [(g.stats, reps) for g, reps in self.parts]
         self.rng_step = sum(g.increments[0] * reps for g, reps in self.parts)
         tr.graph_stats = {
@@ -361,7 +369,8 @@ class _CapturedEpochs:
                                 for st, reps in stats),
             'steps_per_epoch': tr.len_dataloader,
             'launches_per_epoch': sum(reps for _, reps in stats),
-            'rng_offset_per_epoch': self.rng_step}
+            'rng_offset_per_epoch': self.rng_step,
+            'blocks_fused': blocks}
 
     def __call__(self) -> None:
         for g, reps in self.parts:
@@ -473,7 +482,8 @@ class JamieTrainer:
         self._step = torch.zeros((), dtype=torch.int64, device=dev)
         self._losses = torch.zeros(self.len_dataloader, device=dev)
         # the last fit's epoch route, with capture seconds and graph size
-        # on the captured route
+        # on the captured route, and the _Block calls of one step that took
+        # the block tail's kernels ('blocks_fused'; 0 on the CPU and a mesh)
         self.graph_stats: Dict[str, object] = {}
 
     # ------------------------------------------------------------ P/F forms
@@ -928,7 +938,7 @@ class JamieTrainer:
         self.optimizer.zero_grad()
         if eager or self.device.type != 'cuda':
             runner = _EagerEpochs(self)
-            self.graph_stats = {'route': runner.route}
+            self.graph_stats = {'route': runner.route, 'blocks_fused': 0}
             return runner
         return _CapturedEpochs(self)
 

@@ -15,7 +15,7 @@ import torch
 
 from jamie_tpu_torch import evaluation, ops, probes
 from jamie_tpu_torch.core import dtypes, residency
-from jamie_tpu_torch.ops import distances, pairwise, pd_update
+from jamie_tpu_torch.ops import block_tail, distances, pairwise, pd_update
 from jamie_tpu_torch.ops import shortest_paths as fw
 from jamie_tpu_torch.solvers import landmark
 
@@ -207,6 +207,87 @@ def test_kernel_wrappers_refuse_bad_cuda_inputs(cuda):
         pairwise.pairwise_euclidean(x)
     with pytest.raises(ValueError):
         pairwise.pairwise_euclidean(torch.zeros((8, 4), device=cuda).T)
+    v = torch.ones(4, device=cuda)
+    with pytest.raises(TypeError):
+        block_tail.block_tail_forward(x, v, v, v, v, v, None, 1.0, 0.9, 1e-5)
+    for z, w, mask in ((torch.zeros((4, 8), device=cuda).T, v, None),
+                       (torch.zeros((8, 4), device=cuda), v.cpu(), None),
+                       (torch.zeros((8, 4), device=cuda), v,
+                        torch.ones((8, 4), device=cuda))):
+        with pytest.raises(ValueError):
+            block_tail.block_tail_forward(z, w, v, v, v, v, mask, 0.5, 0.9,
+                                          1e-5)
+
+
+# The widths the cells' blocks run at batch 512 (PCA-512 arms: 1024 and
+# 512; the visual cell's 39-wide arm: 78 and 39; 32, the latent width),
+# and row counts that are no multiple of a row tile (37; 1000 takes two
+# tiles a pass at f = 1024)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dropout', [0.0, 0.6])
+@pytest.mark.parametrize('B,f', [(512, 1024), (512, 512), (512, 78),
+                                 (512, 39), (512, 32), (37, 1024),
+                                 (1000, 1024), (1000, 39)])
+def test_block_tail_kernels_match_plain(cuda, B, f, dropout, dtype):
+    """Both block tail kernels against their plain versions on the card:
+    the output, the running stats, (mean, rstd, gate) and the four
+    gradients. float32 within 1e-5 of each reference's largest entry
+    (summation orders; the Linear bias's gradient, which cancels to ~0,
+    of its column sums of |dz|); a bf16 output or dz within one bf16 ulp
+    (the f32 value before rounding differs in its last bits), the rest as
+    float32; a bf16 Linear bias's gradient, a column sum of dz, within one
+    ulp of each dz it sums and one of the sum. dy is 0 where the normalised
+    output is within 1e-4 of 0, whose sign (LeakyReLU's slope) the
+    summation order may flip. One launch each way."""
+    g = torch.Generator(device=cuda).manual_seed(B + f)
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(*shape, device=cuda, generator=g) * (hi - lo) + lo
+    z = (3 * rnd(B, f) + 0.5).to(dtype)
+    lb, scale, beta = rnd(f), rnd(f, lo=0.5, hi=1.5), rnd(f)
+    rm, rv = rnd(f), rnd(f, lo=0.5, hi=2.0)
+    keep = 1.0 - dropout
+    mask = rnd(B, f, lo=0.0) < keep if dropout else None
+    rm_p, rv_p = rm.clone(), rv.clone()
+    ops.reset_launch_counts()
+    y, stats = block_tail.block_tail_forward(z, lb, scale, beta, rm, rv, mask,
+                                             keep, 0.9, 1e-5)
+    y_p, stats_p = block_tail.block_tail_forward_plain(
+        z, lb, scale, beta, rm_p, rv_p, mask, keep, 0.9, 1e-5)
+    mean, rstd = stats_p[0], stats_p[1]
+    t = (block_tail._u_plain(z, lb) - mean) * (rstd * scale) + beta
+    dy = torch.where(t.abs() < 1e-4, 0.0, rnd(B, f)).to(dtype)
+    grads = block_tail.block_tail_backward(dy, z, lb, scale, beta, stats,
+                                           mask, keep)
+    torch.cuda.synchronize()
+    assert (block_tail.block_tail_forward.launches,
+            block_tail.block_tail_backward.launches) == (1, 1)
+    grads_p = block_tail.block_tail_backward_plain(dy, z, lb, scale, beta,
+                                                   stats_p, mask, keep)
+
+    def close(name, got, want, scale=None, ulp=False, ulps_of=0.0):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        got, want = got.float(), want.float()
+        scale = float(want.abs().max()) if scale is None else scale
+        bound = (1e-5 * scale + (2 ** -7 * want.abs() if ulp else 0.0)
+                 + 2 ** -7 * ulps_of)
+        assert bool(((got - want).abs() <= bound).all()), name
+    bf16 = dtype == torch.bfloat16
+    close('y', y, y_p, ulp=bf16)
+    if mask is not None:
+        assert bool((y[~mask] == 0).all())
+    close('running_mean', rm, rm_p)
+    close('running_var', rv, rv_p)
+    close('mean, rstd', stats[:2], stats_p[:2])
+    assert torch.equal(stats[2], stats_p[2])
+    dz, dlb, dscale, dbeta = grads
+    dz_p, dlb_p, dscale_p, dbeta_p = grads_p
+    close('dz', dz, dz_p, ulp=bf16)
+    dz_sums = dz_p.float().abs().sum(0)
+    close('dlin_bias', dlb, dlb_p, scale=float(dz_sums.max()), ulp=bf16,
+          ulps_of=dz_sums if bf16 else 0.0)
+    close('dscale', dscale, dscale_p)
+    close('dbias', dbeta, dbeta_p)
 
 
 def _geodesic_graph(n, dev, seed=0):
@@ -549,10 +630,13 @@ def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
                     if k not in ('seconds', 'memory')}
                    for line in open(path)]
         out[eager] = (state, tr.loss_history, tr.epoch_losses,
-                      tr.epochs_run, records, tr.graph_stats['route'])
-    (cs, ch, cl, cr, crec, croute), (es, eh, el, er, erec, eroute) = (
-        out[False], out[True])
+                      tr.epochs_run, records, tr.graph_stats['route'],
+                      tr.graph_stats['blocks_fused'])
+    (cs, ch, cl, cr, crec, croute, cfused), \
+        (es, eh, el, er, erec, eroute, efused) = out[False], out[True]
     assert (croute, eroute) == ('captured', 'eager')
+    # both routes run the 8 blocks of a two-arm step through the kernels
+    assert cfused == efused == 8
     assert cr == er == 9 and cs.stopped and cs.epoch == 9
     assert ch == eh and cl == el and crec == erec
     for name in ('params', 'mu', 'nu'):
@@ -597,6 +681,7 @@ def test_fit_spans_on_card(cuda):
     assert stats['kernel_nodes'] == pd_cap.counters['kernel_nodes'] > 0
     assert 0 < pd.device_s + pd_cap.seconds <= corr.seconds
     (tr,) = mapping.find('trainer.replay')
+    assert tr.child('trainer.capture').counters['blocks_fused'] == 8
     caps = tr.child('trainer.capture').find('graphs.capture')
     assert [c.counters['loop'] for c in caps] == [
         'epoch_start', 'epoch_step', 'epoch_end']

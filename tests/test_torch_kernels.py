@@ -16,7 +16,8 @@ from jamie_tpu.ops.ab_archive import (
     fused_pd_grad_update, fused_pd_update, pairwise_sq_euclidean_pallas,
 )
 from jamie_tpu_torch import ops
-from jamie_tpu_torch.ops import pairwise, pd_update, shortest_paths
+from jamie_tpu_torch.ops import (block_tail, pairwise, pd_update,
+                                 shortest_paths)
 
 M, N = 24, 136   # not tile-aligned on the TPU's sublane axis
 
@@ -138,10 +139,16 @@ def test_cpu_tensors_take_plain_path_and_count_nothing():
     pairwise.pairwise_euclidean(st['F'])
     shortest_paths.floyd_warshall(torch.zeros(
         (shortest_paths.TILE,) * 2, dtype=torch.float64))
+    z, v = st['F'], torch.ones(N)
+    y, stats = block_tail.block_tail_forward(z, v, v, v, v.clone(), v.clone(),
+                                             None, 1.0, 0.9, 1e-5)
+    block_tail.block_tail_backward(y, z, v, v, v, stats, None, 1.0)
     assert ops.launch_counts() == {'fused_pd_grad_update': 0,
                                    'fused_pd_update': 0,
                                    'pairwise_euclidean': 0,
-                                   'floyd_warshall': 0}
+                                   'floyd_warshall': 0,
+                                   'block_tail_forward': 0,
+                                   'block_tail_backward': 0}
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -150,6 +157,9 @@ def test_non_cpu_non_cuda_tensor_raises():
         pairwise.pairwise_euclidean(x)
     with pytest.raises(ValueError):
         pd_update.fused_pd_update(x, x, x, x, 1, 1e-3)
+    v = torch.zeros(3, device='meta')
+    with pytest.raises(ValueError):
+        block_tail.block_tail_forward(x, v, v, v, v, v, None, 1.0, 0.9, 1e-5)
 
 
 def test_kernel_modules_import_without_triton():
@@ -161,6 +171,7 @@ def test_kernel_modules_import_without_triton():
         '            raise ImportError("blocked " + name)\n'
         'sys.meta_path.insert(0, Block())\n'
         'import jamie_tpu_torch.ops.pd_update, jamie_tpu_torch.ops.pairwise\n'
+        'import jamie_tpu_torch.ops.block_tail\n'
         'print("ok")\n')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, timeout=120)

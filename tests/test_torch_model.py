@@ -254,3 +254,129 @@ def test_bf16_checkpoint_from_reference_serves(synthetic_pair, tmp_path):
             ref = np.asarray(ref, np.float32)
             np.testing.assert_array_less(np.abs(ours - ref),
                                          2e-2 * np.abs(ref).max())
+
+
+# ------------------------------------------ the block tail (ops/block_tail)
+BLOCK_CASES = [(case, dtype) for case in ('dropout0', 'dropout0.6',
+                                          'constant_column', 'ragged_rows')
+               for dtype in (torch.float64, torch.float32)] + [
+    (case, torch.bfloat16) for case in ('dropout0', 'dropout0.6')]
+
+
+def _tail_pair(case, dtype):
+    """A train-mode _Block with non-trivial BatchNorm parameters and
+    running stats, a deep copy, an input and an output gradient. 37 rows
+    for 'ragged_rows' (no multiple of any row tile), a column whose Linear
+    output is its bias alone for 'constant_column' (variance 0; at 0.1
+    float32 rounds E[u^2] - E[u]^2 below 0, so the clip cuts the variance
+    branch of the gradient, where float64 reads 0 and keeps it); a bf16
+    input keeps f32 parameters (compute_dtype bfloat16)."""
+    import copy
+    from jamie_tpu_torch.models.coupled_vae import _Block
+    gen = torch.Generator().manual_seed(4)
+    B = 37 if case == 'ragged_rows' else 64
+    blk = _Block(24, 40, 0.6 if case == 'dropout0.6' else 0.0, False, gen)
+    with torch.no_grad():
+        blk.bn.weight.uniform_(0.5, 1.5, generator=gen)
+        blk.bn.bias.uniform_(-0.5, 0.5, generator=gen)
+        blk.bn.running_mean.uniform_(-1, 1, generator=gen)
+        blk.bn.running_var.uniform_(0.5, 2, generator=gen)
+        if case == 'constant_column':
+            blk.dense.weight[3] = 0.0
+            blk.dense.bias[3] = 0.1
+    pdt = torch.float64 if dtype == torch.float64 else torch.float32
+    blk = blk.to(pdt).train()
+    x = torch.randn(B, 24, generator=gen, dtype=pdt).to(dtype)
+    gy = torch.randn(B, 40, generator=gen, dtype=pdt).to(dtype)
+    return blk, copy.deepcopy(blk), x, gy
+
+
+def _tail_run(blk, x, gy, fused):
+    """Output, running stats and every gradient of one train step of the
+    block (fused: through `_Block.fused`, here the autograd Function with
+    the kernels' plain versions), and the gradient at the Linear's output
+    (read by a hook)."""
+    x = x.clone().requires_grad_(True)
+    du = []
+
+    def keep_grad(module, inputs, out):
+        out.register_hook(du.append)
+    hook = blk.dense.register_forward_hook(keep_grad)
+    gen = torch.Generator().manual_seed(11)
+    y = blk.fused(x, gen) if fused else blk(x, gen)
+    hook.remove()
+    y.backward(gy)
+    out = {'y': y, 'running_mean': blk.bn.running_mean,
+           'running_var': blk.bn.running_var, 'dx': x.grad,
+           'dW': blk.dense.weight.grad, 'dlin_bias': blk.dense.bias.grad,
+           'dscale': blk.bn.weight.grad, 'dbias': blk.bn.bias.grad}
+    return {k: v.detach() for k, v in out.items()}, du
+
+
+@pytest.mark.parametrize('case,dtype', BLOCK_CASES,
+                         ids=lambda v: str(v).replace('torch.', ''))
+def test_block_tail_matches_composed_block(case, dtype):
+    """The block tail's arithmetic (`ops/block_tail.py`'s plain versions,
+    which the kernels repeat) through its autograd Function against
+    autograd of the composed _Block, at the same dropout mask: output,
+    running stats, dx, dW and the four gradients of the tail. float64
+    within 1e-12 and float32 within 1e-6 of each reference's largest entry
+    (summation orders differ); the Linear bias's gradient, a sum of the
+    Linear output's gradient that cancels to ~0, within that share of the
+    largest column sum of its magnitude. bf16 (f32 statistics, rounded
+    to bf16 where the composed ops round) within the same 1e-6."""
+    blk, twin, x, gy = _tail_pair(case, dtype)
+    rv0 = blk.bn.running_var.clone()
+    want, du = _tail_run(blk, x, gy, fused=False)
+    got, _ = _tail_run(twin, x, gy, fused=True)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        scale = (float(du[0].abs().sum(0).max()) if k == 'dlin_bias'
+                 else float(w.abs().max()))
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= tol * scale, (k, err, scale)
+    if case == 'dropout0.6':
+        dropped = want['y'] == 0
+        assert 0.4 < float(dropped.double().mean()) < 0.8
+        assert torch.equal(got['y'] == 0, dropped)
+    if case == 'constant_column':   # the batch variance is 0 there
+        for out in (want, got):
+            assert float(out['running_var'][3]) == pytest.approx(
+                0.9 * float(rv0[3]), rel=1e-6)
+        from jamie_tpu_torch.ops.block_tail import block_tail_forward_plain
+        bn = twin.bn
+        with torch.no_grad():
+            _, stats = block_tail_forward_plain(
+                twin.dense.product(x), twin.dense.bias, bn.weight, bn.bias,
+                bn.running_mean.clone(), bn.running_var.clone(), None, 1.0,
+                bn.momentum, bn.eps)
+        assert float(stats[2, 3]) == (0.0 if dtype == torch.float32 else 1.0)
+
+
+def test_block_route_rule(monkeypatch):
+    """The kernels are taken in train mode on a CUDA device with the batch
+    and the features whole there; the CPU, eval mode, a BatchNorm
+    `data_group` and a model-axis layout keep the composed ops. A CPU
+    model's train step never calls the tail."""
+    from jamie_tpu_torch.models import coupled_vae
+    blk = coupled_vae._Block(8, 16, 0.0, False).train()
+    cuda, cpu = torch.device('cuda'), torch.device('cpu')
+    assert blk.takes_kernel(cuda) and not blk.takes_kernel(cpu)
+    blk.eval()
+    assert not blk.takes_kernel(cuda)
+    blk.train()
+    blk.bn.data_group = object()
+    assert not blk.takes_kernel(cuda)
+    blk.bn.data_group = None
+    blk.dense.tp = object()
+    assert not blk.takes_kernel(cuda)
+
+    def tail(*args):
+        raise AssertionError('the CPU took the block tail')
+    monkeypatch.setattr(coupled_vae, 'block_tail', tail)
+    m = CoupledVAE(DIMS, OUT, dropout=0.6).train()
+    xs = [torch.randn(B, d) for d in DIMS]
+    out = m(xs, torch.rand(B, B), generator=torch.Generator().manual_seed(0))
+    sum(t.sum() for t in out[2]).backward()

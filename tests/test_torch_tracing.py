@@ -149,6 +149,8 @@ def test_replay_counters_equal_the_loops_counts(fitted):
     assert len(tr.find('trainer.wait')) == KW['epoch_DNN'] // KW['epoch_chunk']
     assert not root.find('trainer.capture') and not root.find(
         'graphs.capture')
+    # the CPU keeps the block tails' composed ops
+    assert jm.trainer.graph_stats['blocks_fused'] == 0
     # on the CPU: no device time, no device memory
     assert all(sp.device_s is None and sp.memory_allocated is None
                for sp in root.walk())

@@ -244,7 +244,7 @@ def test_chunk_fn_runs_epochs_from_the_live_state():
     b._load(b.init_state())
     fn = b._chunk_fn(3)
     rows = np.concatenate([fn().result(), fn().result()])
-    assert b.graph_stats == {'route': 'eager'}
+    assert b.graph_stats == {'route': 'eager', 'blocks_fused': 0}
     np.testing.assert_array_equal(rows[:, 0], np.float32(a.epoch_losses))
     _assert_states_equal(b._snapshot(), whole)
 
