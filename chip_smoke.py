@@ -55,7 +55,7 @@
    100,000-cell sparse multiome of examples/atlas_scale.py --sparse-data
    (20,000 / 40,000 features, 3% nonzero, made on the card, handed over as
    host CSR; epoch_DNN cut to 10), with the counts at 0: K1 2000 launches,
-   K3 at least 2, the routes by `residency.route_counts`, a rank-2048
+   K3 at least 2, the routes from the fit's spans, a rank-2048
    LowRankF, the identity sentinel; exact FOSCTTM and LTA on 10,000 cells;
    transform and modal_predict on CSR; the SpMM's nonzeros per second.
 11. t-SNE fit (D): JAMIE(project_mode='tsne') with every default on the
@@ -135,7 +135,7 @@
    on one device or on phase K's mesh, but those of phase K's eager twins;
    then the trainer's epochs
    replayed as CUDA graphs held bit for bit to its eager epoch body
-   (fit(eager=True)) on full-width fits of the 1047-cell data (the default
+   (the fit under `core/graphs.plain_loops()`) on full-width fits of the 1047-cell data (the default
    'diag' fit, batch_step=False, the half-mask hybrid prior, the identity
    sentinel with F 'zeros', a sparse prior with a top-32 sparse F,
    bfloat16 compute, an early stop inside a chunk under
@@ -199,6 +199,7 @@ It exits non-zero without a result when no CUDA device is visible or when
 the jamie_tpu_torch package is not next to it.
 """
 
+import collections
 import contextlib
 import csv
 import gzip
@@ -214,13 +215,10 @@ import time
 
 import numpy as np
 
-# Published dense peaks (NVIDIA data sheet) of each card this script has run
-# on, by torch.cuda.get_device_name: bytes/s of device memory, float32
-# FLOP/s outside the tensor cores, and dense TF32 and bf16 FLOP/s on the
-# tensor cores.
-PEAKS = {
-    'NVIDIA H100 80GB HBM3': (3.35e12, 67e12, 495e12, 989e12),   # H100 SXM
-}
+# The published dense peaks (NVIDIA data sheet) of each card, by
+# torch.cuda.get_device_name: the benchmark's table
+PEAKS_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'benchmark', 'roofline', 'peaks.json')
 
 
 # The atlas fit's embeddings come from the PCA sketch's scores (Q Ub s);
@@ -275,9 +273,16 @@ def fail(msg):
 
 
 def peaks_for(name):
-    if name not in PEAKS:
-        fail(f'no published peaks for {name!r}; add them to PEAKS')
-    return PEAKS[name]
+    """(bytes/s of device memory, float32 FLOP/s outside the tensor cores,
+    dense TF32 and bf16 FLOP/s on the tensor cores) of card `name`, from
+    PEAKS_JSON."""
+    with open(PEAKS_JSON) as f:
+        cards = json.load(f)['cards']
+    if name not in cards:
+        fail(f'no published peaks for {name!r} in {PEAKS_JSON}')
+    c = cards[name]
+    return (c['hbm_bytes_per_s'], c['fp32_flops'], c['tf32_flops'],
+            c['bf16_flops'])
 
 
 def time_ms(torch, fn):
@@ -553,12 +558,65 @@ def device_kernels(torch, fn):
     captured as a CUDA graph by core/graphs.StepGraph after its eager
     warm-up call: every kernel the call enqueues is a node of the graph, so
     the count does not depend on a profiler trace delivering its events."""
-    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.core import graphs, timing
     sg = graphs.StepGraph('device_kernels', fn, torch.cuda.current_device())
-    sg.run(1)
-    graphs.last_stats.pop('device_kernels', None)
-    graphs.loop_steps.pop('device_kernels/captured', None)
-    return sg.stats['kernel_nodes'], sg.stats['launches_per_step']
+    with timing.span('device_kernels') as sp:
+        sg.run(1)
+    (cap,) = sp.find('graphs.capture')
+    return (cap.counters['kernel_nodes'],
+            {f.__name__: c for f, c in sg.launches.items()})
+
+
+@contextlib.contextmanager
+def recorded(plain=False):
+    """A span around the enclosed work, which runs every device loop and
+    the trainer's epochs op by op (`core/graphs.plain_loops()`) where
+    `plain`: the record that `taken` reads."""
+    from jamie_tpu_torch.core import graphs, timing
+    with (graphs.plain_loops() if plain else contextlib.nullcontext()), \
+            timing.span('chip_smoke') as sp:
+        yield sp
+
+
+# The routes that the size thresholds choose, by the names their call
+# sites write on the spans: distances, PCA fit and transform, landmark
+# selection and weights
+THRESHOLD_ROUTES = frozenset((
+    'distance_resident_bf16', 'distance_feature_chunked', 'pca_randomized',
+    'pca_direct', 'pca_resident_bf16', 'pca_streamed', 'pca_row_streamed',
+    'pca_transform_spmm', 'pca_transform_uploader', 'fps_dense',
+    'fps_jl_sketch', 'weights_spmm', 'weights_uploader', 'weights_dense'))
+
+
+def taken(sp, loops=False):
+    """The routes taken under span `sp` (`core/timing.routes`): those of
+    THRESHOLD_ROUTES, or with `loops` the device loops' steps by
+    '{loop}/{route}', the trainer's epochs that ran as 'epochs/{route}'."""
+    from jamie_tpu_torch.core import timing
+    return {k: v for k, v in timing.routes(sp).items()
+            if (('/' in k) if loops else k in THRESHOLD_ROUTES)}
+
+
+def captures_under(sp, reps=None):
+    """The CUDA graph captures under span `sp` (their `graphs.capture`
+    spans): warm-up and record seconds, nodes and kernel nodes, each
+    capture's nodes weighted by reps[loop] (1 where not given)."""
+    caps = sp.find('graphs.capture')
+    w = [(reps or {}).get(c.counters['loop'], 1) for c in caps]
+    return {
+        'warmup_s': sum(c.child('graphs.warmup').seconds for c in caps),
+        'capture_s': sum(c.child('graphs.record').seconds for c in caps),
+        'nodes': sum(k * c.counters['nodes'] for k, c in zip(w, caps)),
+        'kernel_nodes': sum(k * c.counters['kernel_nodes']
+                            for k, c in zip(w, caps)),
+        'graph_launches': sum(w)}
+
+
+def blocks_fused(sp):
+    """The _Block calls of one training step under span `sp` that took the
+    block tail's kernels (the trainer's `blocks_fused` counter)."""
+    return next((s.counters['blocks_fused'] for s in sp.walk()
+                 if 'blocks_fused' in s.counters), None)
 
 
 def block_tail_phase(torch, kp, widths=(1024, 512, 78, 39, 32), B=512):
@@ -949,10 +1007,12 @@ def wide_phase(torch, kp, dev, **shape):
           f'{rna.shape} dense, {time.perf_counter() - t:.2f} s', flush=True)
     for name, x in (('ATAC', atac), ('RNA', rna)):
         n, f = x.shape
-        R.route_counts.clear()
+        spans = []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        d = D.dataset_distance_matrix(x, 'euclidean', device=dev)
+        with recorded() as sp:
+            d = D.dataset_distance_matrix(x, 'euclidean', device=dev)
+        spans.append(sp)
         torch.cuda.synchronize()
         resident_s = time.perf_counter() - t
         xdev = R.device_bf16(x, device=dev)           # the cached build
@@ -975,14 +1035,18 @@ def wide_phase(torch, kp, dev, **shape):
         with mock.patch.multiple(R, DEFAULT_BUDGET_BYTES=0):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            dc = D.dataset_distance_matrix(xs, 'euclidean', device=dev)
+            with recorded() as sp:
+                dc = D.dataset_distance_matrix(xs, 'euclidean', device=dev)
+            spans.append(sp)
             torch.cuda.synchronize()
             chunked_s = time.perf_counter() - t
         err_c = float((dc.double() ** 2 - d2).abs().max())
         del dc, d2, d
         # PCA: the resident residency is still cached
         t = time.perf_counter()
-        pre_r = PP.Preprocessor.fit(x, pca_dim=512, device=dev)
+        with recorded() as sp:
+            pre_r = PP.Preprocessor.fit(x, pca_dim=512, device=dev)
+        spans.append(sp)
         torch.cuda.synchronize()
         pca_r_s = time.perf_counter() - t
         R.clear_residency_cache()
@@ -990,13 +1054,16 @@ def wide_phase(torch, kp, dev, **shape):
         torch.cuda.empty_cache()
         with mock.patch.multiple(R, DEFAULT_BUDGET_BYTES=0):
             t = time.perf_counter()
-            pre_s = PP.Preprocessor.fit(xs, pca_dim=512, device=dev)
+            with recorded() as sp:
+                pre_s = PP.Preprocessor.fit(xs, pca_dim=512, device=dev)
+            spans.append(sp)
             torch.cuda.synchronize()
             pca_s_s = time.perf_counter() - t
         qa = torch.linalg.qr(pre_r.pca.components_[:8].double().T)[0]
         qb = torch.linalg.qr(pre_s.pca.components_[:8].double().T)[0]
         cos = torch.linalg.svdvals(qa.T @ qb).cpu().numpy()
-        routes = dict(R.route_counts)
+        routes = dict(sum((collections.Counter(taken(sp)) for sp in spans),
+                          collections.Counter()))
         print(f'wide {name} {n}x{f}: distances resident {resident_s:.3f} s '
               f'(build + Gram), feature-chunked {chunked_s:.3f} s, max '
               f'|d2 chunked - d2 resident| {err_c}, 256 rows vs float64 '
@@ -1047,11 +1114,10 @@ def atlas_phase(torch, JAMIE, ops, kp, dev, n=100_000, dims=(20000, 40000),
                **fit_kw)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    R.route_counts.clear()
     t = time.perf_counter()
     out = jm.fit_transform(dataset=[rna, atac])
     fit_s = time.perf_counter() - t
-    counts, routes = ops.launch_counts(), dict(R.route_counts)
+    counts, routes = ops.launch_counts(), taken(jm.trace)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(f'atlas fit: {n} cells, {fit_s:.3f} s; phases {jm.phase_timings}; '
@@ -1090,10 +1156,10 @@ def atlas_phase(torch, JAMIE, ops, kp, dev, n=100_000, dims=(20000, 40000),
         fail(f'atlas fit: FOSCTTM {foscttm} (limit < 0.25), LTA {lta} '
              '(limit > 0.5)')
     # Serve on the CSR inputs
-    R.route_counts.clear()
     t = time.perf_counter()
-    again = jm.transform([rna, atac])
-    serve_routes = dict(R.route_counts)
+    with recorded() as sp:
+        again = jm.transform([rna, atac])
+    serve_routes = taken(sp)
     block = min(4096, n)
     imputed = jm.modal_predict(rna[:block], 0)
     serve_s = time.perf_counter() - t
@@ -1665,22 +1731,6 @@ def workflow_phase(torch, JAMIE, ops, data, labels, dev, smi_line, epochs=20,
           flush=True)
 
 
-@contextlib.contextmanager
-def eager_loops():
-    """A context in which every device loop runs its plain version, op by
-    op: the steps that `core/graphs.steps_runner` would capture and the
-    trainer's epochs (what `_eager=True` and fit(eager=True) select)."""
-    from jamie_tpu_torch.core import graphs
-    from jamie_tpu_torch.train.trainer import JamieTrainer
-    runner, epochs = graphs.steps_runner, JamieTrainer._epoch_runner
-    graphs.steps_runner = lambda *a, **k: runner(*a, **{**k, 'eager': True})
-    JamieTrainer._epoch_runner = lambda tr, eager=False: epochs(tr, True)
-    try:
-        yield
-    finally:
-        graphs.steps_runner, JamieTrainer._epoch_runner = runner, epochs
-
-
 def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                phases, smi_line, kw, n_pd=2048, epoch_pd=2000,
                timing_cells=9190, timing_dim=512,
@@ -1695,10 +1745,10 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
     unsharded fit's and the embeddings within MESH_EMBED_RTOL /
     MESH_EMBED_ATOL of them, that fit run again with the block tails on
     their composed ops, as a mesh runs them (its FOSCTTM within
-    MESH_FOSCTTM_TOL of step 4's); then each fit once more with every loop op by
-    op (`eager_loops`), which must give the same embeddings bit for bit.
-    Then an n_pd^2 prime-dual solve on the mesh, captured and with
-    `_eager=True` (bit-equal), against the unsharded solve. Then the mesh
+    MESH_FOSCTTM_TOL of step 4's); then each fit once more with every loop
+    op by op (`core/graphs.plain_loops()`), which must give the same
+    embeddings bit for bit. Then an n_pd^2 prime-dual solve on the mesh,
+    captured and op by op (bit-equal), against the unsharded solve. Then the mesh
     trainer's ms per step, captured and eager, at phase P's bench shape
     (the fit's 1047 PCA-512 cells, batch 512, 2 steps an epoch) and its
     scGLUE shape (timing_cells random PCA-512 cells, 17 steps). One
@@ -1707,12 +1757,10 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
     epochs and prime-dual steps that the eager twins ran on the 'mesh'
     route."""
     from jamie_tpu_torch.config import JamieConfig
-    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.core import mesh as cm
     from jamie_tpu_torch.models import CoupledVAE
     from jamie_tpu_torch.ops.distances import pairwise_distance
     from jamie_tpu_torch.solvers.prime_dual import prime_dual
-    from jamie_tpu_torch.train import trainer as T
     from jamie_tpu_torch.train.trainer import JamieTrainer
     t_phase = time.perf_counter()
     line = {'unsharded': {'seconds': round(fit_s, 3), 'phases': phases,
@@ -1737,14 +1785,13 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                    f'tails vs {foscttm} on their kernels')
     del jc
 
-    def routes():
-        return (dict(T.epoch_routes),
-                {k: v for k, v in graphs.loop_steps.items()
+    def routes(sp):
+        """(the epochs by route, the prime-dual steps by route) under sp"""
+        loops = taken(sp, loops=True)
+        return ({k.split('/')[1]: v for k, v in loops.items()
+                 if k.startswith('epochs/')},
+                {k: v for k, v in loops.items()
                  if k.startswith('prime_dual/')})
-
-    def delta(before, after):
-        return [{k: v - b.get(k, 0) for k, v in a.items()
-                 if v != b.get(k, 0)} for b, a in zip(before, after)]
     meshes = {}
     try:
         for name, shape, axes in (('data', (1,), ('data',)),
@@ -1753,18 +1800,14 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
             runs = {}
             for route in ('captured', 'eager'):
                 jm = JAMIE(mesh=mesh, **kw)
-                before = routes()
                 ops.reset_launch_counts()
                 t = time.perf_counter()
-                if route == 'captured':
+                with recorded(plain=route == 'eager'):
                     emb = jm.fit_transform(dataset=data)
-                else:
-                    with eager_loops():
-                        emb = jm.fit_transform(dataset=data)
                 secs = time.perf_counter() - t
                 runs[route] = dict(emb=emb, jm=jm, seconds=secs,
                                    counts=ops.launch_counts(),
-                                   routes=delta(before, routes()))
+                                   routes=routes(jm.trace))
             cap, eag = runs['captured'], runs['eager']
             jm, emb, counts = cap['jm'], cap['emb'], cap['counts']
             f = jm.test_closer(emb)
@@ -1791,7 +1834,9 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
                           'max_abs_eager_twin_diff': twin,
                           'routes': cap['routes'],
                           'eager_routes': eag['routes'],
-                          'graphs': jm.trainer.graph_stats}
+                          'graphs': captures_under(jm.trace.find(
+                              'trainer.capture')[0], {
+                              'epoch_step': jm.trainer.len_dataloader})}
             if counts['fused_pd_grad_update'] != jm.config.epoch_pd:
                 bad.append(f'{name}: K1 launched '
                            f'{counts["fused_pd_grad_update"]} times')
@@ -1826,17 +1871,15 @@ def mesh_phase(torch, JAMIE, ops, data, dev, integrated, foscttm, fit_s,
         plain_s = time.perf_counter() - t
         solves = {}
         for route in ('captured', 'eager'):
-            before = routes()
             ops.reset_launch_counts()
             t = time.perf_counter()
-            F_mesh = prime_dual(Kx, Ky, mesh=mesh, _eager=route == 'eager',
-                                **pd_kw)
+            with recorded(plain=route == 'eager') as sp:
+                F_mesh = prime_dual(Kx, Ky, mesh=mesh, **pd_kw)
             torch.cuda.synchronize()
             solves[route] = dict(
                 F=F_mesh, s=time.perf_counter() - t,
                 K1=ops.launch_counts()['fused_pd_grad_update'],
-                steps=delta(before, routes())[1],
-                stats=dict(graphs.last_stats['prime_dual']))
+                steps=routes(sp)[1], stats=captures_under(sp))
         F_mesh = solves['captured']['F']
         d_f = float((F_mesh - F_plain).abs().max())
         d_twin = float((F_mesh - solves['eager']['F']).abs().max())
@@ -1918,7 +1961,6 @@ def thresholds_phase(torch, JAMIE, ops, dev, smi_line, n=24_000,
     from unittest import mock
 
     from jamie_tpu_torch import estimator as E
-    from jamie_tpu_torch.core import residency as R
     from jamie_tpu_torch.ops import distances as D
     from jamie_tpu_torch.ops.lowrank import LowRankF
     from jamie_tpu_torch.probes import route_thresholds, snare_like
@@ -1949,13 +1991,12 @@ def thresholds_phase(torch, JAMIE, ops, dev, smi_line, n=24_000,
         return F
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    R.route_counts.clear()
     ops.reset_launch_counts()
     t = time.perf_counter()
     with mock.patch.object(E, 'prime_dual', timed_pd):
         out = jm.fit_transform(dataset=data)
     fit_s = time.perf_counter() - t
-    counts, routes = ops.launch_counts(), dict(R.route_counts)
+    counts, routes = ops.launch_counts(), taken(jm.trace)
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.mem_get_info()[1]
     F = jm.match_result[0]
@@ -2147,14 +2188,13 @@ def bench_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, train_chunk=20,
     the train leg with one warm-up and one timed chunk of train_chunk
     epochs, then the pipeline leg once at the scGLUE shapes (generated in
     memory), every option at bench's values but epoch_DNN, with the counts
-    and route_counts at 0 just before the fit. Fails unless the record has
-    bench.py's keys, K1 ran 2000 times, both modalities took the
+    at 0 just before the fit and its routes from its spans. Fails unless
+    the record has bench.py's keys, K1 ran 2000 times, both modalities took the
     bf16-resident distance and PCA, P took the 'identity' sentinel, the
     solver kept f32 state, F is a dense (n, n) tensor on the card, FOSCTTM
     is under HARNESS_FOSCTTM_LIMIT and the residency shipped 2 bytes per
     dense element. One `bench:` line. Returns the fit's launch counts."""
     from jamie_tpu_torch import bench
-    from jamie_tpu_torch.core import residency as R
     from jamie_tpu_torch.ops import distances as D
     from jamie_tpu_torch import preprocess as PP
     shapes = shapes or bench.SCGLUE_SHAPES
@@ -2179,11 +2219,10 @@ def bench_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, train_chunk=20,
     seen = {}
 
     def on_fit(jm, integrated):
-        seen.update(counts=ops.launch_counts(), routes=dict(R.route_counts),
+        seen.update(counts=ops.launch_counts(), routes=taken(jm.trace),
                     peak=torch.cuda.max_memory_allocated(), jm=jm,
                     integrated=integrated)
     patch, states = solver_states()
-    R.route_counts.clear()
     ops.reset_launch_counts()
     with patch:
         extra = bench.scglue_pipeline_noise_controlled(
@@ -2245,13 +2284,13 @@ def harness_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, min_epochs=0,
                   keys=None, shape_of=None):
     """N. The time-and-memory twin (jamie_tpu_torch.time_and_memory): its
     run_config for each config but scGLUE (phase M's), at full width,
-    epoch_dnn and min_epochs cut, data in memory, with the counts and
-    route_counts at 0 just before each. Each fit holds the checks of
-    harness_fit_checks and returns the JAX harness's record keys. One
+    epoch_dnn and min_epochs cut, data in memory, with the counts at 0
+    just before each and its routes from its spans. Each fit holds the
+    checks of harness_fit_checks and returns the JAX harness's record keys.
+    One
     `time_and_memory:` line. Returns the summed launch counts.
     shape_of(key) may shrink a config (CPU rehearsal)."""
     from jamie_tpu_torch import time_and_memory as TM
-    from jamie_tpu_torch.core import residency as R
     keys = keys or [k for k in TM.CONFIGS if k != 'scglue']
     print(f'phase N: configs {keys}; cuts: epoch_dnn={epoch_dnn} (default '
           f'10000), min_epochs={min_epochs} (default 2500), data in memory',
@@ -2267,13 +2306,12 @@ def harness_phase(torch, ops, kp, dev, smi_line, epoch_dnn=20, min_epochs=0,
 
         def on_fit(jm, integrated, _dataset):
             seen.update(counts=ops.launch_counts(),
-                        routes=dict(R.route_counts),
+                        routes=taken(jm.trace),
                         peak=torch.cuda.max_memory_allocated(), jm=jm,
                         integrated=integrated)
         patch, states = solver_states()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        R.route_counts.clear()
         ops.reset_launch_counts()
         with patch:
             res = TM.run_config(name, s0, s1, ref, epoch_dnn=epoch_dnn,
@@ -2501,8 +2539,9 @@ def state_diff(torch, a, b):
 
 
 def capture_pair(torch, make, tmp, tag):
-    """One fit captured and the same fit with eager=True (the plain
-    version), each from a new trainer (make()): whether they are bit-equal
+    """One fit captured and the same fit under `core/graphs.plain_loops()`
+    (the plain version), each from a new trainer (make()): whether they
+    are bit-equal
     and took their routes, and their numbers. Every P and F form is held
     bit-equal, the atomic scatter of SparseLandmarkF's batch gather
     included: it adds each of a row's distinct landmark weights once into
@@ -2513,12 +2552,18 @@ def capture_pair(torch, make, tmp, tag):
         path = os.path.join(tmp, f'{tag}_{route}.jsonl')
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state = tr.fit(metrics_path=path, eager=route == 'eager')
+        with recorded(plain=route == 'eager') as sp:
+            state = tr.fit(metrics_path=path)
         torch.cuda.synchronize()
+        epochs = [k.split('/')[1] for k in taken(sp, loops=True)
+                  if k.startswith('epochs/')]
         runs[route] = dict(
             state=state, seconds=time.perf_counter() - t,
             history=tr.loss_history, losses=tr.epoch_losses,
-            run=tr.epochs_run, stats=dict(tr.graph_stats),
+            run=tr.epochs_run,
+            stats={'route': epochs[0] if len(epochs) == 1 else epochs,
+                   'steps_per_epoch': tr.len_dataloader,
+                   **captures_under(sp, {'epoch_step': tr.len_dataloader})},
             records=[{k: v for k, v in json.loads(ln).items()
                       if k not in ('seconds', 'memory')}
                      for ln in open(path)])
@@ -2574,25 +2619,29 @@ def step_timing(torch, tr, epochs):
     out = {}
     for route, n_ep in zip(('eager', 'captured'), epochs):
         tr._load(tr.init_state())
-        t = time.perf_counter()
-        runner = tr._epoch_runner(eager=route == 'eager')
-        build_s = time.perf_counter() - t
-        tr._dispatch(runner, 1).result()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        tr._dispatch(runner, n_ep).result()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        idle, ops_n = device_idle(torch, lambda: tr._dispatch(runner, 1))
-        runner.close()
+        with recorded(plain=route == 'eager') as sp:
+            t = time.perf_counter()
+            runner = tr._epoch_runner()
+            build_s = time.perf_counter() - t
+            tr._dispatch(runner, 1).result()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr._dispatch(runner, n_ep).result()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            idle, ops_n = device_idle(torch,
+                                      lambda: tr._dispatch(runner, 1))
+            runner.close()
         out[route] = {'ms_per_step': 1e3 * dt / (n_ep * L),
                       'cells_per_sec': n_ep * L * B / dt,
                       'idle_share': idle, 'device_ops_per_step': ops_n / L,
-                      'epochs_timed': n_ep, 'build_s': build_s}
-        st = tr.graph_stats
-        if st['route'] in ('captured', 'mesh_captured'):
+                      'epochs_timed': n_ep, 'build_s': build_s,
+                      'runner_route': runner.route,
+                      'blocks_fused': blocks_fused(sp)}
+        if runner.route in ('captured', 'mesh_captured'):
+            st = captures_under(sp, {'epoch_step': L})
             out[route].update(
-                graph_launches_per_step=st['launches_per_epoch'] / L,
+                graph_launches_per_step=st['graph_launches'] / L,
                 graph_nodes_per_step=st['nodes'] / L,
                 kernel_nodes_per_step=st['kernel_nodes'] / L,
                 capture_s=st['capture_s'], warmup_s=st['warmup_s'],
@@ -2651,7 +2700,8 @@ def cell_step_routes(torch, dev, epochs=((1, 10), (1, 20), (1, 2)),
             with (composed_block_tails() if route == 'composed'
                   else contextlib.nullcontext()):
                 res[route] = step_timing(torch, tr, ep)
-            res[route]['blocks_fused'] = tr.graph_stats.get('blocks_fused')
+            res[route]['blocks_fused'] = res[route]['captured'][
+                'blocks_fused']
             del tr
         drop = (res['composed']['captured']['kernel_nodes_per_step']
                 - res['kernels']['captured']['kernel_nodes_per_step'])
@@ -2677,7 +2727,7 @@ def train_capture_phase(torch, dev, smi_line, fit_inputs, landmark_inputs,
                         cell_kw=None):
     """P. The trainer's captured epochs against its eager epoch body: at
     full width on the 1047-cell SNARE-shaped data (PCA-512, F the first
-    fit's dense F), each fit captured and with eager=True, from new
+    fit's dense F), each fit captured and under plain_loops(), from new
     trainers: the default 'diag' fit; batch_step=False; the half-mask
     hybrid prior (a 1-D mask); the 'identity' sentinel with F 'zeros'; a
     sparse prior (SparseRows, half the diagonal) with a top-32 SparseRows
@@ -2833,7 +2883,6 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
     from scipy.sparse.csgraph import connected_components
 
     from jamie_tpu_torch import compare, figures, nn_funcs, utils
-    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.models.baselines import predict_nn
     from jamie_tpu_torch.ops.pairwise import pairwise_euclidean_plain
     from jamie_tpu_torch.preprocess import Preprocessor
@@ -2857,11 +2906,12 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
     runs = (('NLMA', data, {}), ('MMD-MA', data, {'n_iters': mmdma_iters}),
             ('UnionCom', data, unioncom_kw), ('LMA', views, {}),
             ('CCA', views, {}))
-    results, counts = {}, {}
+    results, counts, spans = {}, {}, {}
     for name, inputs, kw in runs:
         ops.reset_launch_counts()
-        results[name] = clock(name, lambda: compare.compare_methods(
-            inputs, lab2, methods=(name,), method_kwargs={name: kw})[name])
+        with recorded() as spans[name]:
+            results[name] = clock(name, lambda: compare.compare_methods(
+                inputs, lab2, methods=(name,), method_kwargs={name: kw})[name])
         counts[name] = ops.launch_counts()
     for name, r in results.items():
         if not all(e.shape == (n, 32) and np.isfinite(e).all()
@@ -2883,13 +2933,13 @@ def compare_phase(torch, ops, data, labels, dev, smi_line, pca_dim=512,
                           launches=counts[name])
                for name, r in results.items()}
     print(f'compare: {smi_line} | ' + json.dumps(summary), flush=True)
-    mm = graphs.last_stats.get('mmdma', {})
+    mm = captures_under(spans['MMD-MA'])
     print(f'compare: MMD-MA {mmdma_iters} iterations, '
           f'{secs["MMD-MA"] / mmdma_iters * 1e3:.4f} ms per iteration '
           f'(36 runs batched, setup, scoring, warm-up and capture included; '
-          f'route {mm.get("route")}, warm-up {mm.get("warmup_s")} s, capture '
-          f'{mm.get("capture_s")} s, {mm.get("kernel_nodes")} kernel nodes '
-          f'an iteration); FOSCTTM off '
+          f'steps {taken(spans["MMD-MA"], loops=True)}, warm-up '
+          f'{mm["warmup_s"]} s, capture {mm["capture_s"]} s, '
+          f'{mm["kernel_nodes"]} kernel nodes an iteration); FOSCTTM off '
           f'jamie_tpu\'s {off} (limit {COMPARE_FOSCTTM_TOL}); UnionCom K1 '
           f'{uc["fused_pd_grad_update"]} (expected {epoch_pd}), K3 '
           f'{uc["pairwise_euclidean"]} (at least {k3_min}); raw LMA raised: '
@@ -3212,49 +3262,46 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     records, bad, captured_counts = [], [], {}
 
     def run(case, loops, steps, fn, eager, want=None):
-        """fn() on one route, timed, with the counts at 0; the output and
-        the run's record (ms per step over the replays when captured)."""
+        """fn() on one route (op by op under `core/graphs.plain_loops()`
+        where `eager`), timed, with the counts at 0, in a span; the output
+        and the run's record (ms per step over the replays when
+        captured)."""
         ops.reset_launch_counts()
-        graphs.loop_steps.clear()
-        for loop in loops:
-            graphs.last_stats.pop(loop, None)
         buf = io.StringIO()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), recorded(plain=eager) as sp:
             out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         counts = ops.launch_counts()
-        stats = [dict(graphs.last_stats.get(loop, {})) for loop in loops]
+        ran, st = taken(sp, loops=True), captures_under(sp)
+        caps = sp.find('graphs.capture')
         route = 'eager' if eager else 'captured'
-        extra = sum(st.get('warmup_s', 0) + st.get('capture_s', 0)
-                    for st in stats)
         timed = steps - (0 if eager else len(loops))
         rec = {'case': case, 'route': route, 'steps': steps,
                'seconds': round(sec, 6),
-               'ms_per_step': (sec - extra) / max(timed, 1) * 1e3,
+               'ms_per_step': ((sec - st['warmup_s'] - st['capture_s'])
+                               / max(timed, 1) * 1e3),
                'launches': {k: v for k, v in counts.items() if v},
-               'loop_steps': dict(graphs.loop_steps),
-               'peak_gib': peak / 2 ** 30}
+               'steps_by_route': ran, 'peak_gib': peak / 2 ** 30}
         if not eager:
+            # each capture's warm-up is one of the loop's steps
+            replays = steps - len(caps)
             rec.update(
-                warmup_s=sum(st.get('warmup_s', 0) for st in stats),
-                capture_s=sum(st.get('capture_s', 0) for st in stats),
-                kernel_nodes_per_step=[st.get('kernel_nodes')
-                                       for st in stats],
-                nodes_per_step=[st.get('nodes') for st in stats],
-                graph_launches_per_step=(sum(st.get('replays', 0)
-                                             for st in stats) / steps),
-                replays=sum(st.get('replays', 0) for st in stats))
+                warmup_s=st['warmup_s'], capture_s=st['capture_s'],
+                kernel_nodes_per_step=[c.counters['kernel_nodes']
+                                       for c in caps],
+                nodes_per_step=[c.counters['nodes'] for c in caps],
+                graph_launches_per_step=replays / steps, replays=replays)
             for k, v in counts.items():
                 captured_counts[k] = captured_counts.get(k, 0) + v
         want_steps = {f'{loop}/{route}': s for loop, s in loops.items()}
-        if dict(graphs.loop_steps) != want_steps:
-            bad.append(f'{case} {route}: loop steps {dict(graphs.loop_steps)},'
-                       f' expected {want_steps}')
+        if ran != want_steps:
+            bad.append(f'{case} {route}: loop steps {ran}, expected '
+                       f'{want_steps}')
         for k, v in (want or {}).items():
             if counts[k] != v:
                 bad.append(f'{case} {route}: {k} launched {counts[k]} times, '
@@ -3266,8 +3313,7 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
         sequence of them) bit for bit and records both."""
         outs = []
         for eager in (False, True):
-            out, lines, rec = run(case, loops, steps,
-                                  lambda: fn(eager), eager, want)
+            out, lines, rec = run(case, loops, steps, fn, eager, want)
             outs.append((out, lines))
             records.append(rec)
         (a, la), (b, lb) = outs
@@ -3290,10 +3336,9 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
             pair(f'prime_dual {n}x{n} state={state_dtype} delay={delay} '
                  f'{pd_iters} iterations log_pd={log_pd}',
                  {'prime_dual': pd_iters}, pd_iters,
-                 lambda eager: pdm.prime_dual(
+                 lambda: pdm.prime_dual(
                      Kx, Ky, 32, 32, epoch_pd=pd_iters, log_pd=log_pd,
-                     delay=delay, state_dtype=state_dtype, device=dev,
-                     _eager=eager),
+                     delay=delay, state_dtype=state_dtype, device=dev),
                  {'fused_pd_grad_update': pd_iters})
         del Kx, Ky
         torch.cuda.empty_cache()
@@ -3301,8 +3346,7 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     m = int(fps_x.shape[0])
     pair(f'fps {m}x{int(fps_x.shape[1])} L={fps_landmarks}',
          {'fps': fps_landmarks - 1}, fps_landmarks - 1,
-         lambda eager: LM._fps_indices_device(fps_x, 0, fps_landmarks,
-                                              eager=eager))
+         lambda: LM._fps_indices_device(fps_x, 0, fps_landmarks))
 
     for n, iters in zip(tsne_cells, tsne_iters):
         P = scglue_cells_probabilities(torch, dev, n=n)
@@ -3310,18 +3354,17 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
         x = torch.randn(n, 50, generator=g, device=dev)
         D = ops.pairwise_euclidean(x, None, squared=True)
         pair(f'tsne_beta {n} cells, 50 bisection steps', {'tsne_beta': 50},
-             50, lambda eager: TS._calibrate_beta(D, 30.0, eager=eager))
+             50, lambda: TS._calibrate_beta(D, 30.0))
         Y = [1e-4 * torch.randn(n, 32, generator=g, device=dev)
              for _ in range(2)]
         pairs = np.arange(n)
         pair(f'tsne {n} cells x 32, {iters} iterations', {'tsne': iters},
-             iters, lambda eager: TS._tsne_optimize(
-                 P[0], P[1], Y[0], Y[1], pairs, pairs, 10.0, iters,
-                 eager=eager),
+             iters, lambda: TS._tsne_optimize(
+                 P[0], P[1], Y[0], Y[1], pairs, pairs, 10.0, iters),
              {'pairwise_euclidean': 2 * iters})
         pair(f'tsne_single {n} cells x 32, {iters} iterations',
              {'tsne_single': iters}, iters,
-             lambda eager: TS._tsne_single(P[0], Y[0], iters, eager=eager),
+             lambda: TS._tsne_single(P[0], Y[0], iters),
              {'pairwise_euclidean': iters})
         del P, D, x, Y
         torch.cuda.empty_cache()
@@ -3330,15 +3373,14 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     Ky = distance_operand(lowrank_cells, 1, dev).cpu().numpy()
     real_optimize = LR._optimize
 
-    def lowrank(eager):
+    def lowrank():
         factors = []
 
         def optimize(name, loss_fn, params, *a, **k):
             real_optimize(name, loss_fn, params, *a, **k)
             factors.extend(p.detach().clone() for p in params)
         with mock.patch.object(LR, '_optimize', optimize):
-            out = LR.lowrank_corr(Kx, Ky, epochs=lowrank_epochs, device=dev,
-                                  _eager=eager)
+            out = LR.lowrank_corr(Kx, Ky, epochs=lowrank_epochs, device=dev)
         return [out] + factors
     pair(f'lowrank {lowrank_cells} cells, 2 x {lowrank_epochs} steps',
          {'lowrank_cluster': lowrank_epochs, 'lowrank_cast': lowrank_epochs},
@@ -3355,7 +3397,7 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
     W0, knn = fuzzy(x0)
     pair(f'umap_sigma {n0} cells k={umap_k}, 64 bisection steps',
          {'umap_sigma': 64}, 64,
-         lambda eager: U._smooth_knn(knn, 64, eager=eager))
+         lambda: U._smooth_knn(knn, 64))
     a, b = U.fit_ab()
     for n, epochs in layout_cells:
         g = torch.Generator(device=dev).manual_seed(n)
@@ -3365,24 +3407,23 @@ def solver_capture_phase(torch, ops, dev, smi_line, fps_x, data,
         Y0 *= 10.0 / Y0.abs().max()
         pair(f'umap_layout {n} x {layout_dim}, {epochs} epochs, neg_rate 5',
              {'umap_layout': epochs}, epochs,
-             lambda eager: U._optimize_layout(
+             lambda: U._optimize_layout(
                  W, Y0, torch.Generator(device=dev).manual_seed(0), epochs,
-                 a, b, neg_rate=5, eager=eager))
+                 a, b, neg_rate=5))
         del W, Y0
     del W0, knn, x0
     torch.cuda.empty_cache()
 
     real_mmdma = compare._mmdma_opt
 
-    def mmdma(eager):
+    def mmdma():
         runs = []
 
         def opt(*a, **k):
             runs.extend(real_mmdma(*a, **k))
             return runs[-3:]
         with mock.patch.object(compare, '_mmdma_opt', opt):
-            emb = compare.mmdma_embed(data, n_iters=mmdma_iters, device=dev,
-                                      _eager=eager)
+            emb = compare.mmdma_embed(data, n_iters=mmdma_iters, device=dev)
         return [torch.as_tensor(e) for e in emb] + runs
     pair(f'mmdma {n0} cells, 36 runs x 32, {mmdma_iters} iterations',
          {'mmdma': mmdma_iters}, mmdma_iters, mmdma)
@@ -3672,7 +3713,8 @@ def shortest_paths_phase(torch, kp, dev, smi_line,
     the n^2 float64 matrix. Returns the rows by n."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import shortest_path
-    from jamie_tpu_torch.ops import _build, distances
+    from jamie_tpu_torch.core import _build
+    from jamie_tpu_torch.ops import distances
     from jamie_tpu_torch.ops import shortest_paths as K
     t = time.perf_counter()
     K.library()
@@ -3768,12 +3810,10 @@ def main():
         fail('torch.cuda.is_available() is false: this run needs a CUDA card')
     try:
         from jamie_tpu_torch import JAMIE, ops
-        from jamie_tpu_torch.core import graphs
+        from jamie_tpu_torch.core import _build, timing
         from jamie_tpu_torch.core.dtypes import MM_OUT_DTYPE_ON_CUDA
-        from jamie_tpu_torch.ops import _build
         from jamie_tpu_torch.probes import snare_like
         from jamie_tpu_torch.solvers.prime_dual import prime_dual
-        from jamie_tpu_torch.train import trainer as T
     except ImportError as e:
         fail(f'jamie_tpu_torch is not importable next to this script: {e}')
     t_start = time.perf_counter()
@@ -3965,19 +4005,24 @@ def main():
     kw = dict(epoch_DNN=20, min_epochs=10, use_early_stop=False)
     jm = JAMIE(**kw)
     ops.reset_launch_counts()
-    T.epoch_routes.clear()
-    graphs.loop_steps.clear()
+    # every fit and device loop from here on is recorded under this span,
+    # which stays open to the end
+    since = timing.span('chip_smoke: since step 4').__enter__()
     t = time.perf_counter()
     integrated = jm.fit_transform(dataset=data)
     fit_s = time.perf_counter() - t
     fit_counts = ops.launch_counts()
+    epochs = {k: v for k, v in taken(jm.trace, loops=True).items()
+              if k.startswith('epochs/')}
+    graphs_line = captures_under(jm.trace.find('trainer.capture')[0], {
+        'epoch_step': jm.trainer.len_dataloader})
     print(f'fit: {fit_s:.3f} s; phases {jm.phase_timings}; mapping '
           f'{ {k: round(v, 3) for k, v in jm._mapping_timings.items()} }; '
-          f'launches {fit_counts}; epochs {dict(T.epoch_routes)}; graphs '
-          f'{jm.trainer.graph_stats}', flush=True)
-    if dict(T.epoch_routes) != {'captured': jm.epochs_run}:
-        fail(f'the fit trained {dict(T.epoch_routes)} epochs by route, '
-             f'expected all {jm.epochs_run} captured')
+          f'launches {fit_counts}; epochs {epochs}; graphs {graphs_line}',
+          flush=True)
+    if epochs != {'epochs/captured': jm.epochs_run}:
+        fail(f'the fit trained {epochs} epochs by route, expected all '
+             f'{jm.epochs_run} captured')
     if fit_counts['fused_pd_grad_update'] != jm.config.epoch_pd:
         fail(f'K1 launched {fit_counts["fused_pd_grad_update"]} times in the '
              f'fit, expected epoch_pd={jm.config.epoch_pd}')
@@ -4096,7 +4141,9 @@ def main():
     print(f'phase O: {time.perf_counter() - t:.1f} s', flush=True)
     # Every epoch since step 4 trained captured, on one device or on the
     # mesh, but those of phase K's eager twins
-    routes = dict(T.epoch_routes)
+    routes = {k.split('/')[1]: v
+              for k, v in taken(since, loops=True).items()
+              if k.startswith('epochs/')}
     print(f'epochs by route since step 4: {routes}', flush=True)
     if (routes.get('eager') or not routes.get('captured')
             or not routes.get('mesh_captured')
@@ -4115,7 +4162,8 @@ def main():
     # loop on the card since step 4 ran captured, phase K's mesh solves
     # with their collectives, but the iterations of phase K's eager twins;
     # the CPU references run on the 'cpu' route
-    steps = dict(graphs.loop_steps)
+    steps = {k: v for k, v in taken(since, loops=True).items()
+             if not k.startswith('epochs/')}
     print(f'solver loop steps by route since step 4: {steps}', flush=True)
     eager = {k: v for k, v in steps.items() if k.endswith('/eager')}
     ran = {k.split('/')[0] for k in steps if k.endswith('/captured')}
@@ -4179,6 +4227,7 @@ def main():
             bound_by=row['bound_by'], library_ms=row['library_ms'],
             launches_by_path={p: c.get(fn, 0)
                               for p, c in path_counts.items()}))
+    since.__exit__(None, None, None)
     print(f'total: {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi_line)

@@ -183,7 +183,7 @@ def _rbf_mmd2(X: torch.Tensor, Y: torch.Tensor,
 
 
 def _mmdma_opt(K1, K2, a1, a2, sigma, lambda1, lambda2, output_dim: int,
-               n_iters: int, lr: float = 1e-4, _eager: bool = False):
+               n_iters: int, lr: float = 1e-4):
     """MMD-MA (Liu & Noble 2019): learn alpha_i so that K_i alpha_i match in
     MMD, with orthogonality and distortion penalties, for a batch of runs
     at once: a1 (B, n1, p), a2 (B, n2, p), and sigma, lambda1, lambda2 (B,)
@@ -196,8 +196,7 @@ def _mmdma_opt(K1, K2, a1, a2, sigma, lambda1, lambda2, output_dim: int,
     params, leaves that require grad, and their moments): the gradient by
     autograd, then Adam with its bias corrections from an int32 step
     counter on the device. On the card it is captured once as a CUDA graph
-    and replayed (`core/graphs.StepGraph`); on the CPU and with `_eager`
-    it runs op by op."""
+    and replayed (`core/graphs.StepGraph`); elsewhere it runs op by op."""
     n1, n2 = K1.shape[0], K2.shape[0]
     I_p = torch.eye(output_dim, device=K1.device)
 
@@ -222,8 +221,7 @@ def _mmdma_opt(K1, K2, a1, a2, sigma, lambda1, lambda2, output_dim: int,
         with torch.no_grad():
             for a, g, (mu, nu) in zip(params, grads, moments):
                 adam_update(a, g, mu, nu, count, lr)
-    graphs.steps_runner('mmdma', step, K1.device, eager=_eager).run(
-        int(n_iters))
+    graphs.steps_runner('mmdma', step, K1.device).run(int(n_iters))
     with torch.no_grad():
         E1, E2 = K1 @ params[0], K2 @ params[1]
         return E1, E2, _rbf_mmd2(E1, E2, sigma)
@@ -235,8 +233,7 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
                 sigma_scales: Sequence[float] = (0.25, 1.0, 4.0),
                 lambda1_grid: Sequence[float] = (1e-2, 1e-3),
                 lambda2_grid: Sequence[float] = (1e-3, 1e-4),
-                init=None, device=None,
-                _eager: bool = False) -> List[np.ndarray]:
+                init=None, device=None) -> List[np.ndarray]:
     """MMD-MA on row-normalized linear kernels, matching the notebooks'
     preparation (scGEM.ipynb cell 17: d /= ||d||_row; K = d d^T;
     max_iterations=10001).
@@ -251,8 +248,7 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
     the CPU start alike), or from `init` = (a1, a2), host arrays or CPU
     tensors. The host work (the kernels, the draws, the median heuristic,
     the selection) stays outside the optimization, as in jamie_tpu; the
-    optimization runs captured on the card, and `_eager` runs it op by op
-    there, the plain version chip_smoke.py holds the captured route to."""
+    optimization runs captured on the card."""
     device = resolve_device(device)
     Ks = []
     for d in dataset:
@@ -284,7 +280,7 @@ def mmdma_embed(dataset: Sequence[np.ndarray], output_dim: int = 32,
     sigmas, l1s, l2s = (torch.tensor(col, dtype=torch.float32, device=device)
                         for col in zip(*grid))
     E1, E2, _ = _mmdma_opt(Ks[0], Ks[1], a1, a2, sigmas, l1s, l2s, p,
-                           int(n_iters), _eager=_eager)
+                           int(n_iters))
     # Selection must use a COMMON bandwidth: each run's own final MMD is
     # not comparable across sigmas (as sigma grows every kernel value
     # tends to 1 and MMD to 0 regardless of alignment), so every run's

@@ -6,11 +6,14 @@ once as a CUDA graph on static buffers and replayed from the host:
 
 - `StepGraph` captures a step callable (after one eager warm-up step on
   the capture stream) and replays it `k` times, with the `torch.Generator`s
-  the step draws from registered; `steps_runner` picks it on the card and
-  the same step called eagerly elsewhere, so both routes run one function.
-  The solver loops, UMAP's, MMD-MA's and the trainer's epochs all capture
+  the step draws from registered; `steps_runner` picks it where
+  `captures(device)`: on a CUDA device, outside `plain_loops()` (the one,
+  thread-local switch to the plain route the graphs are held to), and the
+  same step op by op elsewhere, so both routes run one function. The
+  solver loops, UMAP's, MMD-MA's and the trainer's epochs all capture
   through it, on one device and on a device mesh, where the step's NCCL
-  collectives are captured with it (`core/mesh.py`).
+  collectives are captured with it (`core/mesh.py`). A loop's steps are
+  recorded by route on the span open around it (`timing.count_steps`).
 - `count_launch` counts a kernel wrapper's launches, once per replay for a
   launch inside a captured step.
 - `add_conditional` puts an IF conditional node into a capture, as the
@@ -24,18 +27,20 @@ once as a CUDA graph on static buffers and replayed from the host:
 - `end_failed_capture` ends the generators' capture that a failed capture
   leaves open.
 
-The library is built with nvcc on first use (`ops/_build.py`); nothing
+The library is built with nvcc on first use (`core/_build.py`); nothing
 here runs on the CPU but `count_launch` and the eager route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from collections import Counter
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from . import _build
 from . import mesh as cm
 from . import timing
 
@@ -45,7 +50,6 @@ _lib = None
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from ..ops import _build
         lib = _build.load('graph_cond')
         lib.cond_add.argtypes = [ctypes.c_void_p] * 4
         lib.cond_add.restype = ctypes.c_int
@@ -90,19 +94,26 @@ def node_counts(graph: torch.cuda.CUDAGraph) -> Tuple[int, int]:
 # (None while nothing is captured).
 _capturing: Optional[Dict[Callable, int]] = None
 
-# Steps run by each device loop since the process started (or the caller
-# cleared it), by '{loop}/{route}': 'captured' (replayed graphs, the eager
-# warm-up step included), 'mesh_captured' (the same on a device mesh, its
-# collectives in the graph), 'eager' (the step op by op on the card, which
-# only the loops' private `_eager` argument asks for), 'mesh' (op by op on
-# a device mesh: on the CPU, or on the card with `_eager`) and 'cpu'.
-loop_steps: Counter = Counter()
+_plain = threading.local()       # .depth: this thread's open plain_loops()
 
-# The last runner of each loop's statistics, by loop name: its route and,
-# for a captured loop, the warm-up and capture seconds (its `graphs.warmup`
-# and `graphs.record` spans), the graph's nodes and kernel nodes, the
-# replays and the kernel launches per step.
-last_stats: Dict[str, dict] = {}
+
+@contextlib.contextmanager
+def plain_loops() -> Iterator[None]:
+    """Within it, in this thread, every device loop and the trainer's
+    epochs run op by op, on the card too: the plain version that the
+    captured route is held to."""
+    _plain.depth = getattr(_plain, 'depth', 0) + 1
+    try:
+        yield
+    finally:
+        _plain.depth -= 1
+
+
+def captures(device) -> bool:
+    """Whether a device loop on `device` runs as a captured CUDA graph: on
+    a CUDA device, outside `plain_loops()`."""
+    return (torch.device(device).type == 'cuda'
+            and not getattr(_plain, 'depth', 0))
 
 
 def count_launch(fn: Callable) -> None:
@@ -139,8 +150,8 @@ class StepGraph:
     outer graph, which draws one number from each generator (so that its
     replay writes their seed and offset where the body's kernels read
     them), runs the body only while not stopped, and then runs `tail`,
-    whether the body ran or not. Its replays are not counted in
-    `loop_steps`: the device decides whether the step ran.
+    whether the body ran or not. Its replays record no steps: the device
+    decides whether the step ran.
 
     With `mesh`, the step's collectives on a device mesh (NCCL, which
     captures its kernels from 2.9.6 on: `core/mesh.require_graph_nccl`) are
@@ -153,8 +164,10 @@ class StepGraph:
     collectives (the warm-up's) at any time. A host read in the capturing
     thread still raises, as on one device, whose captures keep 'global'.
 
-    Kernel wrappers that launch inside the step are counted once per
-    replay (`count_launch`). Nothing falls back: a failed capture or replay
+    The warm-up step (where it is one of the loop's) and the replays are
+    recorded on the span open around them (`timing.count_steps`). Kernel
+    wrappers that launch inside the step are counted once per replay
+    (`count_launch`). Nothing falls back: a failed capture or replay
     raises, and a failed capture first leaves the current stream and the
     generators as it found them (`end_failed_capture`), so the process
     draws and captures again.
@@ -177,8 +190,7 @@ class StepGraph:
         self.graph = self.body = None
         self.launches: Dict[Callable, int] = {}
         self.increments = [0] * len(self.generators)
-        self.stats: dict = {'route': self.route}
-        last_stats[name] = self.stats
+        self.replays = 0
 
     def run(self, k: int) -> None:
         """k more steps of the loop; inside a span that takes device time
@@ -211,7 +223,7 @@ class StepGraph:
         self.increments = [g.get_offset() - o for g, o in zip(gens, offsets)]
         if saved is None:
             if self.cond is None:
-                loop_steps[f'{self.name}/{self.route}'] += 1
+                timing.count_steps(self.name, self.route, 1)
             return
         with torch.no_grad():
             for t, v in zip(self.restore, saved):
@@ -227,11 +239,11 @@ class StepGraph:
         dev, gens = self.device, self.generators
         stream = torch.cuda.Stream(dev)
         with timing.span('graphs.capture', loop=self.name) as cap:
-            with timing.span('graphs.warmup') as warmup:
+            with timing.span('graphs.warmup'):
                 self._warmup(stream)
                 offsets = [g.get_offset() for g in gens]
                 torch.cuda.empty_cache()
-            with timing.span('graphs.record') as record:
+            with timing.span('graphs.record'):
                 body = torch.cuda.CUDAGraph(keep_graph=True)
                 for g in gens:
                     body.register_generator_state(g)
@@ -261,11 +273,6 @@ class StepGraph:
                     g.set_offset(o)
                 torch.cuda.synchronize(dev)
             cap.set(nodes=nodes, kernel_nodes=kernels)
-        self.stats.update(
-            warmup_s=warmup.seconds, capture_s=record.seconds,
-            nodes=nodes, kernel_nodes=kernels, graph_launches_per_step=1,
-            replays=0, launches_per_step={fn.__name__: c for fn, c
-                                          in self.launches.items()})
 
     def _capture_into(self, graph: torch.cuda.CUDAGraph,
                       stream: torch.cuda.Stream, fn: Callable[[], None]):
@@ -300,9 +307,9 @@ class StepGraph:
                 g.set_offset(o + inc)
         for fn, c in self.launches.items():
             fn.launches += c * k
-        self.stats['replays'] += k
+        self.replays += k
         if self.cond is None:
-            loop_steps[f'{self.name}/{self.route}'] += k
+            timing.count_steps(self.name, self.route, k)
 
 
 def end_failed_capture(device, generators: Sequence[torch.Generator] = (),
@@ -329,25 +336,25 @@ def end_failed_capture(device, generators: Sequence[torch.Generator] = (),
 class EagerSteps:
     """The plain version of a `StepGraph`: the same step, called op by op."""
 
+    replays = 0
+
     def __init__(self, name: str, step: Callable[[], None], route: str):
         self.name, self.step, self.route = name, step, route
-        self.stats = {'route': route}
-        last_stats[name] = self.stats
 
     def run(self, k: int) -> None:
-        for _ in range(max(k, 0)):
+        for _ in range(k):
             self.step()
-        loop_steps[f'{self.name}/{self.route}'] += max(k, 0)
+        timing.count_steps(self.name, self.route, k)
 
 
 def steps_runner(name: str, step: Callable[[], None], device,
                  generators: Sequence[torch.Generator] = (),
-                 eager: bool = False, mesh: bool = False):
-    """What runs a loop's `step`: a `StepGraph` on the card, on one device
-    or (`mesh`, its collectives captured too) on a device mesh; else (on
-    the CPU, or with `eager`) the step called op by op."""
+                 mesh: bool = False):
+    """What runs a loop's `step`: where `captures(device)`, a `StepGraph`,
+    on one device or (`mesh`, its collectives captured too) on a device
+    mesh; else the step called op by op."""
     device = torch.device(device)
-    if device.type == 'cuda' and not eager:
+    if captures(device):
         return StepGraph(name, step, device, generators, mesh=mesh)
     route = ('mesh' if mesh else 'eager' if device.type == 'cuda'
              else 'cpu')

@@ -57,13 +57,14 @@ designed around the TPU's serialized scatter; here the layout is torch's
 CSR and the product is a library SpMM, as the ELL einsum was XLA code
 outside any Pallas kernel.
 
-`route_counts` counts which route each call site took (distances, PCA,
-FPS, landmark weights, PCA transform), for the checks of a run.
+Which route each call site took (distances, PCA, FPS, landmark weights,
+PCA transform) is a `route` counter on the span open around it
+(`core/timing.routes` tallies them); this module records only what its
+builds and uploads moved (`transfer_stats`).
 """
 
 from __future__ import annotations
 
-import collections
 import hashlib
 import time
 import warnings
@@ -104,9 +105,6 @@ BF16_LINK_ELEMS = 100_000_000
 # where the fit's peak is 11.1 GB without it (H100 80GB HBM3, 700.00 W);
 # a block's conversion is bounded by its rows. Read at call time.
 TWIN_ROWS = 8192
-
-# route name -> calls since the last clear()
-route_counts: collections.Counter = collections.Counter()
 
 # Host->device transfer accounting (see the module docstring)
 _transfer = {'bytes': 0, 'bf16_equiv_bytes': 0, 'read_s': 0.0,

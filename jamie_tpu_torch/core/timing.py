@@ -16,7 +16,11 @@ the solver's set-up, captures and replays, the preprocessing and the
 trainer's capture, replays and waits). A span carries:
 
 - its name, parent, children, and the id of the fit it belongs to;
-- counters the code attaches to it (`Span.set`, `Span.add`, `note`);
+- counters the code attaches to it (`Span.set`, `Span.add`, `note`),
+  among them the route a call site took (`route`: a name, or a list of
+  them, one a modality) and the steps the device loops inside it ran
+  (`loops`: steps by '{loop}/{route}', `count_steps`; the trainer's epochs
+  that ran are the loop 'epochs'), which `routes` tallies over a tree;
 - for a phase (`sync=True`) and a fit's root, on the card,
   `torch.cuda.memory_allocated()` at its close, a host-side read (~22 us
   on the H100's host; a read at every span's close would take most of the
@@ -339,6 +343,29 @@ def note(**counters) -> None:
     sp = current()
     if sp is not None:
         sp.counters.update(counters)
+
+
+def count_steps(loop: str, route: str, n: int) -> None:
+    """n steps of the device loop `loop` on `route`, added to the `loops`
+    counter of the innermost open span, if any."""
+    sp = current()
+    if sp is not None and n > 0:
+        loops = sp.counters.setdefault('loops', {})
+        key = f'{loop}/{route}'
+        loops[key] = loops.get(key, 0) + n
+
+
+def routes(root: Span) -> collections.Counter:
+    """The routes taken under `root`: each `route` counter once (each entry
+    of a list of them), and the steps of each device loop by
+    '{loop}/{route}' (the `loops` counters)."""
+    tally: collections.Counter = collections.Counter()
+    for sp in root.walk():
+        route = sp.counters.get('route')
+        if route is not None:
+            tally.update([route] if isinstance(route, str) else route)
+        tally.update(sp.counters.get('loops', {}))
+    return tally
 
 
 def device_begin() -> Optional[Span]:

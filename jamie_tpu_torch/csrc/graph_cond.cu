@@ -17,7 +17,7 @@
 // Nothing here is bound by bytes or operations: set_live is one thread
 // reading one byte, once per replay of an outer graph (the epoch's start,
 // each of its steps and its end: len_dataloader + 2 launches an epoch, the
-// trainer's graph_stats['launches_per_epoch']). It ports no TPU kernel.
+// trainer's `_CapturedEpochs` parts). It ports no TPU kernel.
 
 #include <cuda_runtime.h>
 

@@ -444,7 +444,7 @@ class JAMIE:
         with timing.span('Preprocessing', sync=True) as preprocessing:
             pres, transformed = [], []
             for dim, data in zip(pca_dims, self.dataset):
-                with timing.span('preprocess.fit', route=(
+                with timing.span('preprocess.fit', method=(
                         cfg.model_pca if dim is not None else 'standardize')):
                     pres.append(Preprocessor.fit(
                         data, pca_dim=dim, method=cfg.model_pca,

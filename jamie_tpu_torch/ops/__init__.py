@@ -10,7 +10,6 @@
   points are exported here, as in jamie_tpu.ops).
 - `sparse`: `SparseRows` (padded-ELL priors / top-k F) and its batch gather.
 - `lowrank`: `LowRankF` / `SparseLandmarkF`, the landmark F layouts.
-- `_build`: nvcc + ctypes loader for `csrc/*.cu`.
 """
 
 from .distances import (

@@ -187,13 +187,11 @@ def _pairwise_euclidean_impl(x, y=None, squared: bool = False,
                 x if isinstance(x, np.ndarray) or is_scipy_sparse(x)
                 else np.asarray(x), device=device)
             if xdev is not None:
-                residency.route_counts['distance_resident_bf16'] += 1
                 timing.note(route='distance_resident_bf16')
                 return _euclidean_resident_bf16(xdev, squared, True)
         xs = x if isinstance(x, torch.Tensor) else ensure_col_major(x)
         ys = (xs if y is None else y if isinstance(y, torch.Tensor)
               else ensure_col_major(y))
-        residency.route_counts['distance_feature_chunked'] += 1
         timing.note(route='distance_feature_chunked')
         return _pairwise_euclidean_feature_chunked(xs, ys, squared,
                                                    self_dist, device)
@@ -480,7 +478,9 @@ def dataset_distance_matrix(data, distance_mode: str = 'euclidean',
         data = as_f32_ndarray(data)   # keeps the identity the caches key on
     if distance_mode == 'geodesic':
         return geodesic_distances(data, kmax=kmax, device=device, mesh=mesh)
-    with timing.span('distances.base', route=distance_mode):
+    # `route`: the mode until a call site names the route it takes
+    with timing.span('distances.base', mode=distance_mode,
+                     route=distance_mode):
         if distance_mode in ('spearman', 'pearson'):
             if data.shape[0] == 1:
                 return np.zeros((1, 1), np.float32)

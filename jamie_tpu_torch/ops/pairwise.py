@@ -6,7 +6,7 @@ Replaces `jamie_tpu/ops/ab_archive.py::pairwise_sq_euclidean_pallas`
 as the production jnp Gram route `jamie_tpu/ops/distances.py:43-56`.
 
 The kernel is `csrc/pairwise_sq_euclidean.cu`, built with nvcc for sm_90a
-and bound with ctypes (`ops/_build.py`): TMA loads into a 3-stage ring,
+and bound with ctypes (`core/_build.py`): TMA loads into a 3-stage ring,
 wgmma TF32 products with a 3xTF32 split (float32-accurate, not bit-exact),
 and the norms, clamp, sqrt and zero diagonal fused into the store. What
 bounds it on an H100: 3 * 2*m*n*f TF32 operations at 495 TFLOP/s against
@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from ..core import _build
 from ..core.graphs import count_launch
 
 TILE = 128           # output rows and columns per block (BM, BN in the source)

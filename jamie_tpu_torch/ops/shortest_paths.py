@@ -1,6 +1,6 @@
 """K4: all-pairs shortest paths on the card, a blocked Floyd-Warshall in
 CUDA C++ (`csrc/floyd_warshall.cu`, built with nvcc and bound with ctypes
-by `ops/_build.py`).
+by `core/_build.py`).
 
 Replaces no TPU kernel: `jamie_tpu` closes the geodesic kNN graph on the
 host with scipy's all-pairs Dijkstra (`jamie_tpu/ops/distances.py:
@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from . import _build
+from ..core import _build
 from ..core.graphs import count_launch
 
 TILE = 64            # pivot block: TILE in the source

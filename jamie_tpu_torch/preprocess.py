@@ -149,11 +149,9 @@ def _pca_fit(X: torch.Tensor, n_components: int):
     n, f = X.shape
     if (min(n, f) > _RANDOMIZED_THRESHOLD
             and n_components <= min(n, f) // 4):
-        residency.route_counts['pca_randomized'] += 1
         timing.note(route='pca_randomized')
         mean, comps = _pca_fit_randomized(X, n_components)
     else:
-        residency.route_counts['pca_direct'] += 1
         timing.note(route='pca_direct')
         mean, comps = _pca_fit_direct(X, n_components)
     return mean, comps * _component_signs(comps)[:, None]
@@ -300,17 +298,14 @@ def _pca_fit_host(X, n_components: int, power_iters: int = 1, device=None):
     if n * f > _STREAM_THRESHOLD:
         xdev = residency.device_bf16(X, device=device)
         if xdev is not None:
-            residency.route_counts['pca_resident_bf16'] += 1
             timing.note(route='pca_resident_bf16')
             mean, comps, scores = _pca_fit_resident_bf16(
                 xdev, n_components, power_iters=power_iters)
         elif f > n and residency.device_csr(X, device=device) is None:
-            residency.route_counts['pca_streamed'] += 1
             timing.note(route='pca_streamed')
             mean, comps, scores = _pca_fit_streamed(
                 ensure_col_major(X), n_components, device=device)
         else:
-            residency.route_counts['pca_row_streamed'] += 1
             timing.note(route='pca_row_streamed')
             mean, comps, scores = _pca_fit_row_streamed(
                 X, n_components, power_iters=power_iters, device=device)
@@ -348,7 +343,8 @@ class PCA:
         """(X - mean) @ components^T. Small dense inputs go whole and
         exact; larger ones in row blocks, through `residency.ChunkUploader`
         from `_STREAM_THRESHOLD` elements on (compared with `>=`), and a
-        resident CSR by SpMM (jamie_tpu/preprocess.py:396-429)."""
+        resident CSR by SpMM (jamie_tpu/preprocess.py:396-429). Past the
+        whole route a `pca.transform` span names the route taken."""
         sparse_in = is_scipy_sparse(X)
         if not sparse_in:
             X = as_f32_ndarray(X)
@@ -360,22 +356,23 @@ class PCA:
         rows = max(int(row_chunk_bytes / (f * 4)), 64)
         up = (residency.ChunkUploader(X, self.device)
               if n * f >= _STREAM_THRESHOLD else None)
-        if up is not None and up.dcsr is not None:
-            residency.route_counts['pca_transform_spmm'] += 1
-            mproj = (self.mean_ @ comps_t)[None, :]
-            return np.concatenate([
-                (up.dcsr.matmul(comps_t, s, s + rows) - mproj).cpu().numpy()
-                for s in range(0, n, rows)])
-        if up is not None:
-            residency.route_counts['pca_transform_uploader'] += 1
+        spmm = up is not None and up.dcsr is not None
+        with timing.span('pca.transform', route=(
+                'pca_transform_spmm' if spmm else
+                'pca_transform_uploader' if up is not None else None)):
+            if spmm:
+                mproj = (self.mean_ @ comps_t)[None, :]
+                return np.concatenate([
+                    (up.dcsr.matmul(comps_t, s, s + rows) - mproj)
+                    .cpu().numpy() for s in range(0, n, rows)])
 
-        def block(s):
-            if up is not None:
-                return up.rows(s, s + rows)
-            return torch.as_tensor(dense_rows(X, s, s + rows),
-                                   device=self.device)
-        return np.concatenate([((block(s) - self.mean_) @ comps_t)
-                               .cpu().numpy() for s in range(0, n, rows)])
+            def block(s):
+                if up is not None:
+                    return up.rows(s, s + rows)
+                return torch.as_tensor(dense_rows(X, s, s + rows),
+                                       device=self.device)
+            return np.concatenate([((block(s) - self.mean_) @ comps_t)
+                                   .cpu().numpy() for s in range(0, n, rows)])
 
     def fit_transform(self, X):
         """The fit's scores where the route computed them (a device

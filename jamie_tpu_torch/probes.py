@@ -56,7 +56,7 @@ import torch
 from . import estimator as est
 from . import evaluation
 from . import preprocess
-from .core import residency
+from .core import residency, timing
 from .core.dtypes import resolve_device
 from .ops import distances
 from .ops.lowrank import LowRankF
@@ -151,6 +151,11 @@ def _release(device) -> None:
     gc.collect()
     if device.type == 'cuda':
         torch.cuda.empty_cache()
+
+
+def _routes(span) -> dict:
+    """The routes taken under `span`, without the device loops' steps."""
+    return {k: v for k, v in timing.routes(span).items() if '/' not in k}
 
 
 class _Rung:
@@ -402,9 +407,9 @@ def probe_fit(sizes: Sequence, state_dtype: str = 'auto',
                           est.dense_entries(n0, n1, 'float32')),
                       landmark_at_defaults=jm._takes_landmarks(
                           est.dense_entries(n0, n1, 'bfloat16')))
-        residency.route_counts.clear()
         with _Rung('fit', device, smi) as rung, \
-                patched(DEFAULT_BUDGET_BYTES=budget):
+                patched(DEFAULT_BUDGET_BYTES=budget), \
+                timing.span('probes.fit') as taken:
             try:
                 with mock.patch.object(est, 'LANDMARK_AUTO_ENTRIES', _NEVER):
                     t = time.perf_counter()
@@ -418,12 +423,12 @@ def probe_fit(sizes: Sequence, state_dtype: str = 'auto',
                              and bool(np.isfinite(e).all())
                              for e, d in zip(emb, data))
                 rec = rung.record(**fields, **_fit_fields(jm, fit_s),
-                                  routes=dict(residency.route_counts),
+                                  routes=_routes(taken),
                                   dense=dense, finite=finite,
                                   ok=dense and finite)
             except torch.cuda.OutOfMemoryError as e:
                 rec = rung.record(**fields, ok=False, error=repr(e)[:300],
-                                  routes=dict(residency.route_counts),
+                                  routes=_routes(taken),
                                   meminfo=host_meminfo())
         residency.clear_residency_cache()
         jm = data = emb = F = None
@@ -450,19 +455,19 @@ def probe_atlas(n: int, dims: Sequence[int] = (20000, 40000),
     fields = dict(n=n, dims=list(dims), density=density,
                   nnz=[int(x0.nnz), int(x1.nnz)], n_landmarks=n_landmarks,
                   epoch_pd=epoch_pd, epoch_DNN=epoch_DNN)
-    residency.route_counts.clear()
-    with _Rung('atlas', device, smi) as rung:
+    with _Rung('atlas', device, smi) as rung, \
+            timing.span('probes.atlas') as taken:
         try:
             t = time.perf_counter()
             emb = jm.fit_transform(dataset=[x0, x1])
             fit_s = time.perf_counter() - t
             finite = all(bool(np.isfinite(e).all()) for e in emb)
             rec = rung.record(**fields, **_fit_fields(jm, fit_s),
-                              routes=dict(residency.route_counts),
+                              routes=_routes(taken),
                               finite=finite, ok=finite)
         except torch.cuda.OutOfMemoryError as e:
             rec = rung.record(**fields, ok=False, error=repr(e)[:300],
-                              routes=dict(residency.route_counts))
+                              routes=_routes(taken))
     residency.clear_residency_cache()
     _emit(records, rec, out)
     return records
@@ -499,14 +504,14 @@ def patched(**values):
 
 def _stage(rung_name, device, smi, fields, fn):
     """One timed call in its own window, with the routes it took."""
-    residency.route_counts.clear()
-    with _Rung(rung_name, device, smi) as rung:
+    with _Rung(rung_name, device, smi) as rung, \
+            timing.span(f'probes.{rung_name}') as taken:
         try:
             fn()
-            rec = rung.record(**fields, routes=dict(residency.route_counts))
+            rec = rung.record(**fields, routes=_routes(taken))
         except torch.cuda.OutOfMemoryError as e:
             rec = rung.record(**fields, ok=False, error=repr(e)[:300],
-                              routes=dict(residency.route_counts))
+                              routes=_routes(taken))
     residency.clear_residency_cache()
     return rec
 
@@ -540,8 +545,8 @@ def probe_residency(dense_shapes: Sequence = ((9190, 28930),),
                 x, 'euclidean', device=device)),
             ('pca', lambda: preprocess.Preprocessor.fit(
                 x, pca_dim=min(pca_dim, n, f), device=device)),
-            ('fps', lambda: landmark._pick_landmarks(
-                x, L, 'fps', np.random.RandomState(0), device=device)),
+            ('fps', lambda: timing.note(route=landmark._pick_landmarks(
+                x, L, 'fps', np.random.RandomState(0), device=device)[1])),
             ('weights', lambda: landmark._cell_to_landmark_weights(
                 x, lms, 8, device=device)))
         for arm, values in _ARMS.items():

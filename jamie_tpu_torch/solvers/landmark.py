@@ -28,7 +28,7 @@ distances' `mode` and `L`, the solve's `shape`, `state_dtype` and
 and `blocks`.
 
 Sources may be dense host arrays, scipy CSR matrices or tensors, routed as
-jamie_tpu routes them (`residency.route_counts` records which):
+jamie_tpu routes them (the spans' `route` counters record which):
 
 - FPS runs on a 256-dimensional JL sketch past `_FPS_BYTES_BUDGET` bytes of
   f32 (`_project_for_fps`: an SpMM on the source's DeviceCSR, or row
@@ -112,8 +112,8 @@ def _interp_weights(d2: torch.Tensor, k: int, n_landmarks: int):
     return a.scatter_(1, idx, w)
 
 
-def _fps_indices_device(x: torch.Tensor, first: int, n_landmarks: int,
-                        eager: bool = False) -> torch.Tensor:
+def _fps_indices_device(x: torch.Tensor, first: int,
+                        n_landmarks: int) -> torch.Tensor:
     """Farthest-point sampling (greedy 2-approx k-center cover): repeatedly
     add the cell farthest from the chosen set, by the Gram formula
     sq + sq[nxt] - 2 x.x[nxt] and argmax's first index on ties. As
@@ -122,7 +122,7 @@ def _fps_indices_device(x: torch.Tensor, first: int, n_landmarks: int,
     (L,) index buffer at the device counter, one mat-vec over x for the
     min-distance update. On the card the pick is captured once as a CUDA
     graph and replayed for the L - 2 picks after the first (the warm-up);
-    on the CPU, and with `eager` on the card, it runs op by op."""
+    elsewhere (`core/graphs.captures`) it runs op by op."""
     sq = (x * x).sum(1)
 
     def dist_to(j: torch.Tensor) -> torch.Tensor:
@@ -140,8 +140,7 @@ def _fps_indices_device(x: torch.Tensor, first: int, n_landmarks: int,
         idx.index_copy_(0, at, nxt)
         torch.minimum(d, dist_to(nxt), out=d)
         at.add_(1)
-    graphs.steps_runner('fps', pick, x.device, eager=eager).run(
-        int(n_landmarks) - 1)
+    graphs.steps_runner('fps', pick, x.device).run(int(n_landmarks) - 1)
     return idx
 
 
@@ -186,7 +185,6 @@ def _pick_landmarks(x, n_landmarks: int, method: str, rng, device=None):
         else:
             route = 'fps_dense'
             xd = _as_device_f32(x, device)
-        residency.route_counts[route] += 1
         return (_fps_indices_device(xd, first, int(n_landmarks)).cpu()
                 .numpy(), route)
     raise ValueError(f'unknown landmark selection method {method!r}')
@@ -213,7 +211,6 @@ def _cell_to_landmark_weights(x, landmarks, k: int, block: int = 8192,
           else None)
     route = ('weights_spmm' if dcsr is not None else
              'weights_uploader' if up is not None else 'weights_dense')
-    residency.route_counts[route] += 1
     # the enclosing span's counters, one entry a modality
     sp = timing.current()
     if sp is not None:

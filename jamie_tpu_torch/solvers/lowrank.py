@@ -46,30 +46,30 @@ def _rmsprop(params, grads, nus, lr: float) -> None:
 
 
 def _optimize(name: str, loss_fn, params, epochs: int, lr: float, device,
-              generator=None, eager: bool = False) -> None:
+              generator=None) -> None:
     """`epochs` steps of loss_fn's gradient and RMSprop on `params`, in
     place: one step is jamie_tpu's `fori_loop` body (`torch.autograd.grad`
     and the update). On the card the step is captured once as a CUDA graph
     (its eager warm-up on the capture stream) and replayed, with
     `generator`, which loss_fn draws its masks from, registered so each
-    replay draws new ones; on the CPU and with `eager` it runs op by op."""
+    replay draws new ones; elsewhere (`core/graphs.captures`) it runs op
+    by op."""
     nus = [torch.zeros_like(p) for p in params]
 
     def step():
         loss = loss_fn(*params)
         _rmsprop(params, torch.autograd.grad(loss, params), nus, lr)
-    graphs.steps_runner(name, step, device, eager=eager,
+    graphs.steps_runner(name, step, device,
                         generators=() if generator is None else (generator,)
                         ).run(int(epochs))
 
 
 def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
                  epochs: int = 10001, topk: int = 5, seed: int = 0,
-                 device=None, _eager: bool = False) -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """The (n, m) binarized correspondence on `device`: 1 at the `topk`
     largest entries of each row of Tx^T F Ty (lowrank.py:75-93). Both
-    phases run captured on the card; `_eager` runs them op by op there,
-    the plain version chip_smoke.py holds the captured route to."""
+    phases run captured on the card (`_optimize`)."""
     device = resolve_device(device)
     Kx = torch.as_tensor(Kx, dtype=torch.float32, device=device)
     Ky = torch.as_tensor(Ky, dtype=torch.float32, device=device)
@@ -88,7 +88,7 @@ def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
         my = (uniform(m) > (1 - keep_prob)).float()
         return _cluster_loss(Tx, Ty, Kx, Ky, mx, my)
     _optimize('lowrank_cluster', cluster, [Tx, Ty], epochs, 0.01, device,
-              gen, _eager)
+              gen)
     Tx, Ty = Tx.detach(), Ty.detach()
 
     print('Casting')
@@ -96,7 +96,7 @@ def lowrank_corr(Kx, Ky, dim: int = 20, keep_prob: float = 0.35,
     F = uniform(dim, dim).requires_grad_()
     _optimize('lowrank_cast',
               lambda a, F: _cast_loss(a, F, Tx, Ty, Kx, Ky), [a, F],
-              epochs, 0.1, device, eager=_eager)
+              epochs, 0.1, device)
     with torch.no_grad():
         corr = Tx.T @ F @ Ty
         idx = torch.topk(corr, min(topk, m), dim=1).indices

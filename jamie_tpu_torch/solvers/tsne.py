@@ -11,9 +11,8 @@ jamie_tpu compiles each loop (the perplexity bisection, the paired and
 the single optimizer) into one `lax.fori_loop`; here each loop's step
 updates static buffers with its counter on the device, and on the card it
 is captured once as a CUDA graph and replayed (`core/graphs.StepGraph`);
-on the CPU, and on the card with the private `eager=True` of
-`_calibrate_beta`, `_tsne_optimize` and `_tsne_single`, the same step runs
-op by op. The squared
+on the CPU, and on the card inside `core/graphs.plain_loops()`, the same
+step runs op by op. The squared
 distances of the embedding come from K3 (`ops/pairwise.pairwise_euclidean`
 with squared=True): on the card the CUDA kernel (3xTF32, float32-accurate,
 zero diagonal), on the CPU its plain version. jamie_tpu writes them as an
@@ -45,14 +44,13 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def _calibrate_beta(D: torch.Tensor, perplexity: float,
-                    tol_iters: int = 50, eager: bool = False) -> torch.Tensor:
+                    tol_iters: int = 50) -> torch.Tensor:
     """Per-row precision (beta) bisection hitting the target entropy, in
     tol_iters fixed steps; returns the row-normalized conditional P
     (tsne.py:23-55). beta_min == 0 is the "unset" lower bound. One
     bisection step updates (beta, beta_min, beta_max) in place, jamie_tpu's
     `fori_loop` body; on the card it is captured as a CUDA graph and
-    replayed (`core/graphs.StepGraph`), on the CPU and with `eager` it runs
-    op by op."""
+    replayed (`core/graphs.StepGraph`), elsewhere it runs op by op."""
     n = D.shape[0]
     log_perp = torch.log(torch.tensor(float(perplexity), dtype=torch.float32,
                                       device=D.device))
@@ -78,8 +76,7 @@ def _calibrate_beta(D: torch.Tensor, perplexity: float,
             torch.where(torch.isinf(beta_max), beta * 2, (beta + beta_max) / 2),
             torch.where(torch.isneginf(beta_min) | (beta_min == 0),
                         beta / 2, (beta + beta_min) / 2)))
-    graphs.steps_runner('tsne_beta', bisect, D.device, eager=eager).run(
-        int(tol_iters))
+    graphs.steps_runner('tsne_beta', bisect, D.device).run(int(tol_iters))
     return entropy_and_p(beta)[1]
 
 
@@ -122,8 +119,7 @@ NN_PASSES_PER_KL_GRAD = 18
 
 def _tsne_optimize(P1, P2, Y1, Y2, pairs_x, pairs_y, align_weight: float,
                    n_iters: int, exaggeration_iters: int = 250,
-                   lr: float = 0.5, exaggeration: float = 12.0,
-                   eager: bool = False):
+                   lr: float = 0.5, exaggeration: float = 12.0):
     """Paired t-SNE, KL(P1||Q1) + KL(P2||Q2) + the pair alignment, with
     Adam (tsne.py:69-112). The early exaggeration anneals linearly from
     `exaggeration` to 1 over exaggeration_iters; both embeddings are
@@ -133,7 +129,7 @@ def _tsne_optimize(P1, P2, Y1, Y2, pairs_x, pairs_y, align_weight: float,
     step counter lives on the device, the exaggeration and Adam's bias
     corrections are computed from it there, and nothing is read back. On
     the card it is captured once as a CUDA graph (K3's launches with it)
-    and replayed; on the CPU and with `eager` it runs op by op."""
+    and replayed; elsewhere it runs op by op."""
     n1, d = Y1.shape
     flat = torch.cat([Y1.reshape(-1), Y2.reshape(-1)]).float()
     Y1 = flat[:n1 * d].view(n1, d)
@@ -160,13 +156,12 @@ def _tsne_optimize(P1, P2, Y1, Y2, pairs_x, pairs_y, align_weight: float,
                     nu, i, lr)
         Y1.sub_(Y1.mean(0))
         Y2.sub_(Y2.mean(0))
-    graphs.steps_runner('tsne', iteration, flat.device, eager=eager).run(
-        int(n_iters))
+    graphs.steps_runner('tsne', iteration, flat.device).run(int(n_iters))
     return Y1, Y2
 
 
 def _tsne_single(P, Y, n_iters: int, exaggeration_iters: int = 250,
-                 lr: float = 0.5, eager: bool = False):
+                 lr: float = 0.5):
     """Single-dataset t-SNE with Adam and a hard 12x early exaggeration
     for the first exaggeration_iters steps (tsne.py:115-141), its switch a
     `where` on the device step counter; captured on the card as
@@ -181,8 +176,8 @@ def _tsne_single(P, Y, n_iters: int, exaggeration_iters: int = 250,
         i.add_(1)
         adam_update(Y, g, mu, nu, i, lr)
         Y.sub_(Y.mean(0))
-    graphs.steps_runner('tsne_single', iteration, Y.device,
-                        eager=eager).run(int(n_iters))
+    graphs.steps_runner('tsne_single', iteration, Y.device).run(
+        int(n_iters))
     return Y
 
 

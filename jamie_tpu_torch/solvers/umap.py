@@ -56,15 +56,15 @@ def _weight_sum(shifted: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     return torch.exp(-shifted / sigma[:, None]).sum(1)
 
 
-def _smooth_knn(knn_d: torch.Tensor, iters: int = 64, eager: bool = False):
+def _smooth_knn(knn_d: torch.Tensor, iters: int = 64):
     """Per-point (rho, sigma): rho the nearest-neighbour distance, sigma
     solving sum_j exp(-max(0, d_j - rho) / sigma) = log2(k) by `iters`
     bisection steps, floored at 1e-3 x the mean kNN distance
     (umap.py:59-91). One bisection step updates (sigma, lo, hi) in place,
     jamie_tpu's `fori_loop` body: hi and lo from the old sigma, the new
     sigma from the new lo and hi and the old sigma. On the card it is
-    captured as a CUDA graph and replayed (`core/graphs.StepGraph`), on
-    the CPU and with `eager` it runs op by op."""
+    captured as a CUDA graph and replayed (`core/graphs.StepGraph`),
+    elsewhere it runs op by op."""
     k = knn_d.shape[1]
     rho = knn_d[:, 0]
     target = torch.log2(torch.tensor(float(k), device=knn_d.device))
@@ -80,13 +80,11 @@ def _smooth_knn(knn_d: torch.Tensor, iters: int = 64, eager: bool = False):
         sigma.copy_(torch.where(
             too_big, (lo + sigma) / 2.0,
             torch.where(torch.isinf(hi), sigma * 2.0, (sigma + hi) / 2.0)))
-    graphs.steps_runner('umap_sigma', bisect, knn_d.device,
-                        eager=eager).run(int(iters))
+    graphs.steps_runner('umap_sigma', bisect, knn_d.device).run(int(iters))
     return rho, torch.maximum(sigma, 1e-3 * knn_d.mean())
 
 
-def _fuzzy_graph(dist: torch.Tensor, k: int,
-                 eager: bool = False) -> torch.Tensor:
+def _fuzzy_graph(dist: torch.Tensor, k: int) -> torch.Tensor:
     """Dense symmetrized fuzzy simplicial set from a full distance matrix:
     membership exp(-(d - rho) / sigma) on each row's k nearest neighbours,
     then the probabilistic t-conorm A + A^T - A o A^T (umap.py:94-107)."""
@@ -94,7 +92,7 @@ def _fuzzy_graph(dist: torch.Tensor, k: int,
     d.fill_diagonal_(float('inf'))
     neg, idx = torch.topk(-d, k, dim=1)
     knn_d = -neg
-    rho, sigma = _smooth_knn(knn_d, eager=eager)
+    rho, sigma = _smooth_knn(knn_d)
     w = torch.exp(-torch.clamp(knn_d - rho[:, None], min=0.0)
                   / sigma[:, None])
     A = torch.zeros_like(d).scatter_(1, idx, w)
@@ -124,7 +122,7 @@ def _alpha(i: torch.Tensor, rcp: torch.Tensor, lr0: float) -> torch.Tensor:
 
 def _optimize_layout(W: torch.Tensor, Y: torch.Tensor, gen, n_epochs: int,
                      a: float, b: float, neg_rate: int = 5, lr0: float = 1.0,
-                     gamma: float = 1.0, eager: bool = False) -> torch.Tensor:
+                     gamma: float = 1.0) -> torch.Tensor:
     """UMAP layout SGD (umap.py:110-150): dense expected attraction in
     Gram form, d^2 from Y Y^T and the force (diag(C 1) - C) Y with the pair
     coefficient C clipped to +-4/d; `neg_rate` uniform negative partners
@@ -135,7 +133,7 @@ def _optimize_layout(W: torch.Tensor, Y: torch.Tensor, gen, n_epochs: int,
     forces from the old Y, then Y updated in place, the learning rate from
     an int32 epoch counter on the device. On the card it is captured once
     as a CUDA graph and replayed, with `gen` registered so that each replay
-    draws new partners; on the CPU and with `eager` it runs op by op."""
+    draws new partners; elsewhere it runs op by op."""
     n = Y.shape[0]
     Y = Y.float().clone()
     i = torch.zeros((), dtype=torch.int32, device=Y.device)
@@ -155,7 +153,7 @@ def _optimize_layout(W: torch.Tensor, Y: torch.Tensor, gen, n_epochs: int,
                             device=Y.device)
         Y.add_(alpha * (g + _repulsion(Y, idx, a, b, gamma)))
         i.add_(1)
-    graphs.steps_runner('umap_layout', epoch, Y.device, eager=eager,
+    graphs.steps_runner('umap_layout', epoch, Y.device,
                         generators=(gen,) if neg_rate > 0 else ()
                         ).run(int(n_epochs))
     return Y
@@ -164,12 +162,10 @@ def _optimize_layout(W: torch.Tensor, Y: torch.Tensor, gen, n_epochs: int,
 def umap_embed(data, n_components: int = 2, n_neighbors: int = 15,
                min_dist: float = 0.1, spread: float = 1.0,
                n_epochs: Optional[int] = None, neg_rate: int = 5,
-               seed: int = 0, device=None, _eager: bool = False) -> np.ndarray:
+               seed: int = 0, device=None) -> np.ndarray:
     """Embed one dataset with UMAP on `device` (umap.py:153-190), with
     umap-learn's defaults for every exposed knob; returns a host array.
-    The bisection and the layout run captured on the card; `_eager` runs
-    them op by op there, the plain version chip_smoke.py holds the
-    captured route to."""
+    The bisection and the layout run captured on the card."""
     from ..ops.distances import pairwise_distance
     from ..preprocess import PCA
 
@@ -183,8 +179,7 @@ def umap_embed(data, n_components: int = 2, n_neighbors: int = 15,
     if n_epochs is None:
         n_epochs = 500 if n <= 10_000 else 200   # umap-learn's size rule
 
-    W = _fuzzy_graph(pairwise_distance(X, 'euclidean', device=device), k,
-                     _eager)
+    W = _fuzzy_graph(pairwise_distance(X, 'euclidean', device=device), k)
     a, b = fit_ab(float(min_dist), float(spread))
 
     # PCA init scaled into the [-10, 10] box, plus tie-breaking noise
@@ -196,5 +191,4 @@ def umap_embed(data, n_components: int = 2, n_neighbors: int = 15,
     gen = torch.Generator(device=device).manual_seed(int(seed))
     Y0 += 1e-4 * torch.randn((n, n_components), generator=gen, device=device)
     return _optimize_layout(W, Y0, gen, int(n_epochs), float(a), float(b),
-                            neg_rate=int(neg_rate), eager=_eager
-                            ).cpu().numpy()
+                            neg_rate=int(neg_rate)).cpu().numpy()

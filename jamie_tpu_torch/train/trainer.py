@@ -74,13 +74,14 @@ import json
 import os
 import time
 import warnings
-from collections import Counter, deque
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import JamieConfig
+from ..core import graphs
 from ..core import mesh as cm
 from ..core import timing
 from ..core.dtypes import resolve_device
@@ -245,14 +246,6 @@ def early_stop_update(epoch: torch.Tensor, active: torch.Tensor,
     return best, streak, stop
 
 
-# Epochs that fits trained since the process started (or the caller cleared
-# it), by route: 'captured' (CUDA graphs), 'mesh_captured' (CUDA graphs on a
-# mesh, collectives inside), 'eager' (the eager body on one device) and
-# 'mesh' (the eager body on a mesh). A post-stop epoch, a no-op, is not
-# counted.
-epoch_routes: Counter = Counter()
-
-
 class _Chunk:
     """A dispatched chunk's per-epoch outputs, (epochs, 7) float32 rows of
     [epoch loss, the last batch's 4 weighted losses, stopped, ran]: on the
@@ -278,8 +271,8 @@ class _Chunk:
 class _EagerEpochs:
     """The plain version of the captured epoch: the epoch body run op by
     op, its `not stopped` condition read on the host before each epoch. The
-    route on the CPU (one device or a gloo mesh), and on the card with
-    fit(eager=True)."""
+    route on the CPU (one device or a gloo mesh), and on the card inside
+    `core/graphs.plain_loops()`."""
 
     def __init__(self, trainer: 'JamieTrainer'):
         self.trainer = trainer
@@ -292,8 +285,10 @@ class _EagerEpochs:
         if bool(tr._live):
             launched = block_tail_forward.launches
             tr._epoch_body()
-            tr.graph_stats['blocks_fused'] = (
-                block_tail_forward.launches - launched) // tr.len_dataloader
+            # the _Block calls of one step that took the block tail's
+            # kernels, on the span open around the epochs
+            timing.note(blocks_fused=(block_tail_forward.launches - launched)
+                        // tr.len_dataloader)
         tr._epoch_flags()
 
     def settle(self, epochs_ran: int) -> None:
@@ -335,7 +330,6 @@ class _CapturedEpochs:
     """
 
     def __init__(self, trainer: 'JamieTrainer'):
-        from ..core import graphs
         tr = self.trainer = trainer
         mesh = tr.mesh is not None
         self.route = 'mesh_captured' if mesh else 'captured'
@@ -358,19 +352,7 @@ class _CapturedEpochs:
             # kernels (its forward launches in the step's graph)
             blocks = self.parts[1][0].launches.get(block_tail_forward, 0)
             cap.set(blocks_fused=blocks)
-        stats = [(g.stats, reps) for g, reps in self.parts]
         self.rng_step = sum(g.increments[0] * reps for g, reps in self.parts)
-        tr.graph_stats = {
-            'route': self.route,
-            'warmup_s': sum(st['warmup_s'] for st, _ in stats),
-            'capture_s': sum(st['capture_s'] for st, _ in stats),
-            'nodes': sum(reps * st['nodes'] for st, reps in stats),
-            'kernel_nodes': sum(reps * st['kernel_nodes']
-                                for st, reps in stats),
-            'steps_per_epoch': tr.len_dataloader,
-            'launches_per_epoch': sum(reps for _, reps in stats),
-            'rng_offset_per_epoch': self.rng_step,
-            'blocks_fused': blocks}
 
     def __call__(self) -> None:
         for g, reps in self.parts:
@@ -481,10 +463,6 @@ class JamieTrainer:
                                 dtype=torch.int64, device=dev)
         self._step = torch.zeros((), dtype=torch.int64, device=dev)
         self._losses = torch.zeros(self.len_dataloader, device=dev)
-        # the last fit's epoch route, with capture seconds and graph size
-        # on the captured route, and the _Block calls of one step that took
-        # the block tail's kernels ('blocks_fused'; 0 on the CPU and a mesh)
-        self.graph_stats: Dict[str, object] = {}
 
     # ------------------------------------------------------------ P/F forms
     def _init_p(self, P) -> None:
@@ -931,16 +909,15 @@ class JamieTrainer:
         self._out[5] = self._stopped
         self._out[6] = self._live
 
-    def _epoch_runner(self, eager: bool = False):
-        """What runs one epoch from the live state: captured CUDA graphs on
-        the card, on a mesh too, else (and with `eager`) the eager body."""
+    def _epoch_runner(self):
+        """What runs one epoch from the live state: captured CUDA graphs
+        where `core/graphs.captures` says so (on a mesh too), else the
+        eager body."""
         self.model.train()
         self.optimizer.zero_grad()
-        if eager or self.device.type != 'cuda':
-            runner = _EagerEpochs(self)
-            self.graph_stats = {'route': runner.route, 'blocks_fused': 0}
-            return runner
-        return _CapturedEpochs(self)
+        if graphs.captures(self.device):
+            return _CapturedEpochs(self)
+        return _EagerEpochs(self)
 
     def _dispatch(self, runner, chunk: int) -> _Chunk:
         """Enqueue `chunk` epochs and their outputs' copy to the host."""
@@ -959,8 +936,7 @@ class JamieTrainer:
 
     def fit(self, state: Optional[FitState] = None, seed: Optional[int] = None,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-            metrics_path: Optional[str] = None, eager: bool = False
-            ) -> FitState:
+            metrics_path: Optional[str] = None) -> FitState:
         """Run the training loop from `state` (a fresh `init_state(seed)`
         when None) up to `config.epoch_DNN` epochs; returns the final
         state, which the model also holds. `state` itself is copied in and
@@ -985,16 +961,18 @@ class JamieTrainer:
         On the card the epochs run as captured CUDA graphs
         (`_CapturedEpochs`), captured once per fit, on a mesh with their
         collectives inside; a failed capture or replay raises. On the CPU
-        and with `eager=True` (the plain version the captured route is held
-        to) the same epoch body runs op by op. A mesh dispatches as one
-        device does: every rank reads the same rows (from all-reduced
-        losses), so every rank dispatches the same chunks."""
+        and inside `core/graphs.plain_loops()` (the plain version the
+        captured route is held to) the same epoch body runs op by op. The
+        epochs that ran are recorded on the `trainer.replay` span as the
+        loop 'epochs' on the runner's route (`timing.count_steps`). A mesh
+        dispatches as one device does: every rank reads the same rows (from
+        all-reduced losses), so every rank dispatches the same chunks."""
         with cm.rank0_stdout():
             return self._fit(state, seed, checkpoint_dir, checkpoint_every,
-                             metrics_path, eager)
+                             metrics_path)
 
     def _fit(self, state, seed, checkpoint_dir, checkpoint_every,
-             metrics_path, eager) -> FitState:
+             metrics_path) -> FitState:
         cfg = self.config
         self.loss_history: Dict[str, List[float]] = {n: [] for n in LOSS_NAMES}
         self.epoch_losses: List[float] = []
@@ -1020,7 +998,7 @@ class JamieTrainer:
                     while (dispatched < cfg.epoch_DNN and not stop_seen
                            and len(inflight) <= lookahead):
                         if runner is None:
-                            runner = self._epoch_runner(eager)
+                            runner = self._epoch_runner()
                         chunk = min(cfg.epoch_chunk,
                                     cfg.epoch_DNN - dispatched)
                         timed = timing.device_begin()
@@ -1040,7 +1018,8 @@ class JamieTrainer:
                     for k in np.flatnonzero(ran):
                         self._log_epoch(int(start + k), rows[k, 0],
                                         rows[k, 1:5])
-                    epoch_routes[runner.route] += int(ran.sum())
+                    timing.count_steps('epochs', runner.route,
+                                       int(ran.sum()))
                     end = start + chunk
                     if metrics_f is not None:
                         now = time.perf_counter()

@@ -205,22 +205,21 @@ def test_mmdma_opt_device_counter_matches_reference(mmd_case, n_iters):
     bias corrections computed from it), n_iters times on the 'cpu' route,
     against jamie_tpu's fori_loop from the same injected a1, a2: within
     1e-5 of the largest entry, the final MMD^2 within 1e-5 absolute."""
-    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.core import timing
     data, a1, a2 = mmd_case
     Ks = []
     for d in data:
         d = d / np.linalg.norm(d, axis=1, keepdims=True)
         Ks.append(d @ d.T)
     runs = [(1, 0.1, 1e-2, 1e-4), (7, 0.6, 1e-3, 1e-3)]
-    graphs.loop_steps.clear()
-    E1, E2, mmd = port._mmdma_opt(
-        torch.tensor(Ks[0]), torch.tensor(Ks[1]),
-        torch.tensor(a1[[r[0] for r in runs]]),
-        torch.tensor(a2[[r[0] for r in runs]]),
-        *(torch.tensor([r[i] for r in runs], dtype=torch.float32)
-          for i in (1, 2, 3)), 8, n_iters)
-    assert {k: v for k, v in graphs.loop_steps.items()
-            if k.startswith('mmdma/')} == {'mmdma/cpu': n_iters}
+    with timing.span('mmdma') as sp:
+        E1, E2, mmd = port._mmdma_opt(
+            torch.tensor(Ks[0]), torch.tensor(Ks[1]),
+            torch.tensor(a1[[r[0] for r in runs]]),
+            torch.tensor(a2[[r[0] for r in runs]]),
+            *(torch.tensor([r[i] for r in runs], dtype=torch.float32)
+              for i in (1, 2, 3)), 8, n_iters)
+    assert timing.routes(sp) == {'mmdma/cpu': n_iters}
     for b, (i, s, l1, l2) in enumerate(runs):
         R1, R2, rm = ref._mmdma_opt(jnp.asarray(Ks[0]), jnp.asarray(Ks[1]),
                                     jnp.asarray(a1[i]), jnp.asarray(a2[i]),

@@ -6,6 +6,7 @@ jax nor jamie_tpu, so on the card it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import importlib
 
 import numpy as np
@@ -14,7 +15,7 @@ import scipy.sparse as sp
 import torch
 
 from jamie_tpu_torch import evaluation, ops, probes
-from jamie_tpu_torch.core import dtypes, residency
+from jamie_tpu_torch.core import dtypes, graphs, residency, timing
 from jamie_tpu_torch.ops import block_tail, distances, pairwise, pd_update
 from jamie_tpu_torch.ops import shortest_paths as fw
 from jamie_tpu_torch.solvers import landmark
@@ -103,9 +104,10 @@ def test_dense_solve_past_520m_entries_matches_plain(cuda, monkeypatch,
         return got
     monkeypatch.setattr(pdm, 'fused_pd_grad_update', k1)
     ops.reset_launch_counts()
-    # the eager route: the checks read the host inside each iteration
-    F = pdm.prime_dual(Kx, Ky, dx=32, dy=32, epoch_pd=3, log_pd=3,
-                       state_dtype=state_dtype, device=cuda, _eager=True)
+    # the plain route: the checks read the host inside each iteration
+    with graphs.plain_loops():
+        F = pdm.prime_dual(Kx, Ky, dx=32, dy=32, epoch_pd=3, log_pd=3,
+                           state_dtype=state_dtype, device=cuda)
     assert checked == [1, 2, 3]
     assert pd_update.fused_pd_grad_update.launches == 3
     assert F.shape == (n, n) and bool(torch.isfinite(F).all())
@@ -595,7 +597,8 @@ def test_resume_is_bit_exact_on_card(cuda, tmp_path):
 @pytest.mark.parametrize('case', ['diag', 'accumulate', 'hybrid_bf16'])
 def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
     """On the card a fit trains through the captured epoch graphs, and
-    fit(eager=True) runs the same epoch body op by op: the two agree bit
+    under `graphs.plain_loops()` runs the same epoch body op by op: the
+    two agree bit
     for bit in epochs_run, loss_history, epoch_losses, the metrics records
     (seconds and memory aside) and the final FitState, on a fit whose
     early stop lands inside a chunk (epoch 8 of 5-9) with
@@ -625,16 +628,18 @@ def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
                 torch.bfloat16 if bf16 else torch.float32)), x, P, F,
             device=cuda)
         path = tmp_path / f'{eager}.jsonl'
-        state = tr.fit(metrics_path=str(path), eager=eager)
+        with _route(eager) as sp:
+            state = tr.fit(metrics_path=str(path))
         records = [{k: v for k, v in json.loads(line).items()
                     if k not in ('seconds', 'memory')}
                    for line in open(path)]
+        (fused,) = [s.counters['blocks_fused'] for s in sp.walk()
+                    if 'blocks_fused' in s.counters]
         out[eager] = (state, tr.loss_history, tr.epoch_losses,
-                      tr.epochs_run, records, tr.graph_stats['route'],
-                      tr.graph_stats['blocks_fused'])
+                      tr.epochs_run, records, _steps('epochs', sp), fused)
     (cs, ch, cl, cr, crec, croute, cfused), \
         (es, eh, el, er, erec, eroute, efused) = out[False], out[True]
-    assert (croute, eroute) == ('captured', 'eager')
+    assert (croute, eroute) == ({'captured': 9}, {'eager': 9})
     # both routes run the 8 blocks of a two-arm step through the kernels
     assert cfused == efused == 8
     assert cr == er == 9 and cs.stopped and cs.epoch == 9
@@ -650,11 +655,11 @@ def test_captured_fit_equals_eager_on_card(cuda, tmp_path, case):
 
 def test_fit_spans_on_card(cuda):
     """A captured fit's spans on the card: one capture for the solve and
-    three for the trainer, each with its warm-up and record, whose seconds
-    are the loops' warmup_s and capture_s; the replays timed on the device
-    inside their phases; the device memory at each phase's close."""
+    three for the trainer, each with its warm-up and record; the solve's
+    steps (its warm-up one and the replays) and the epochs that ran on the
+    captured route; the replays timed on the device inside their phases;
+    the device memory at each phase's close."""
     from jamie_tpu_torch import JAMIE
-    from jamie_tpu_torch.core import graphs
     rng = np.random.RandomState(5)
     z = rng.randn(300, 6)
     data = [(z @ rng.randn(6, d) + 0.1 * rng.randn(300, d)).astype(
@@ -674,19 +679,21 @@ def test_fit_spans_on_card(cuda):
     (pd,) = corr.find('prime_dual.replay')
     (pd_cap,) = pd.find('graphs.capture')
     assert pd_cap.counters['loop'] == 'prime_dual'
-    assert pd.counters == {'steps': 30, 'replays': 29}
-    stats = graphs.last_stats['prime_dual']
-    assert stats['warmup_s'] == pd_cap.child('graphs.warmup').seconds
-    assert stats['capture_s'] == pd_cap.child('graphs.record').seconds
-    assert stats['kernel_nodes'] == pd_cap.counters['kernel_nodes'] > 0
+    assert pd.counters == {'steps': 30, 'replays': 29,
+                           'loops': {'prime_dual/captured': 29}}
+    warmup = pd_cap.child('graphs.warmup')
+    assert warmup.counters == {'loops': {'prime_dual/captured': 1}}
+    assert timing.routes(pd) == {'prime_dual/captured': 30}
+    assert pd_cap.child('graphs.record').seconds > 0
+    assert pd_cap.counters['kernel_nodes'] > 0
     assert 0 < pd.device_s + pd_cap.seconds <= corr.seconds
     (tr,) = mapping.find('trainer.replay')
     assert tr.child('trainer.capture').counters['blocks_fused'] == 8
     caps = tr.child('trainer.capture').find('graphs.capture')
     assert [c.counters['loop'] for c in caps] == [
         'epoch_start', 'epoch_step', 'epoch_end']
-    assert jm.trainer.graph_stats['capture_s'] == pytest.approx(sum(
-        c.child('graphs.record').seconds for c in caps))
+    assert all(c.child('graphs.record').seconds > 0 for c in caps)
+    assert tr.counters['loops'] == {'epochs/captured': 12}
     assert tr.counters['steps'] == 12 * jm.trainer.len_dataloader
     assert 0 < tr.device_s <= mapping.child('Training').seconds
     for sp in root.walk():
@@ -859,10 +866,10 @@ def test_mesh_shards_run_k1_and_k3(nccl_mesh):
 def test_mesh_prime_dual_captured_matches_eager(nccl_mesh, capsys,
                                                 precision, state_dtype):
     """The mesh iteration captured with its NCCL collectives against the
-    same iteration op by op (`_eager=True`) on a one-rank NCCL mesh: F bit
+    same iteration op by op (`graphs.plain_loops()`) on a one-rank NCCL
+    mesh: F bit
     for bit, the printed lines identical, K1 counted once per replay (45
     launches on each route), every step on its route."""
-    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.probes import distance_operand
     pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
     dev = torch.device('cuda')
@@ -871,13 +878,13 @@ def test_mesh_prime_dual_captured_matches_eager(nccl_mesh, capsys,
               state_dtype=state_dtype, mesh=nccl_mesh)
     outs = []
     for eager in (False, True):
-        graphs.loop_steps.clear()
         ops.reset_launch_counts()
-        F = pdm.prime_dual(Kx, Ky, 32, 32, _eager=eager, **kw)
+        with _route(eager) as sp:
+            F = pdm.prime_dual(Kx, Ky, 32, 32, **kw)
         torch.cuda.synchronize()
         assert pd_update.fused_pd_grad_update.launches == 45
-        assert _steps('prime_dual') == {'mesh' if eager
-                                        else 'mesh_captured': 45}
+        assert _steps('prime_dual', sp) == {'mesh' if eager
+                                            else 'mesh_captured': 45}
         outs.append((F, capsys.readouterr().out.splitlines()))
     assert outs[0][1] == outs[1][1] and len(outs[0][1]) == 4
     assert torch.equal(outs[0][0], outs[1][0])
@@ -887,13 +894,12 @@ def test_landmark_mesh_solve_runs_captured(nccl_mesh):
     """The landmark solve on a one-rank NCCL mesh goes through the captured
     mesh iteration (prime_dual(mesh=...)) and gives the unsharded
     factors bit for bit."""
-    from jamie_tpu_torch.core import graphs
     x, y = _pair(600, 50, 30, seed=0)
     kw = dict(n_landmarks=128, k_interp=8, epoch_pd=100, verbose=False,
               seed=5, factor_layout='dense', device='cuda')
-    graphs.loop_steps.clear()
-    F_mesh = landmark.landmark_correspondence(x, y, mesh=nccl_mesh, **kw)
-    assert _steps('prime_dual') == {'mesh_captured': 100}
+    with timing.span('landmark') as sp:
+        F_mesh = landmark.landmark_correspondence(x, y, mesh=nccl_mesh, **kw)
+    assert _steps('prime_dual', sp) == {'mesh_captured': 100}
     F = landmark.landmark_correspondence(x, y, **kw)
     assert torch.equal(F_mesh.u, F.u) and torch.equal(F_mesh.v, F.v)
 
@@ -902,8 +908,9 @@ def test_landmark_mesh_solve_runs_captured(nccl_mesh):
 def test_mesh_fit_captured_equals_eager_on_card(cuda, tmp_path, shape):
     """A fit on a one-rank NCCL mesh, ('data',) and (1, 1) ('data',
     'model'), trains through the captured epoch graphs with the
-    collectives inside them (under the IF node too) and equals
-    fit(eager=True) bit for bit: epochs_run, history, metrics records and
+    collectives inside them (under the IF node too) and equals the fit
+    under `graphs.plain_loops()` bit for bit: epochs_run, history, metrics
+    records and
     the final FitState, over an early stop inside a chunk with
     dispatch_lookahead 3 and dropout on."""
     import json
@@ -928,17 +935,18 @@ def test_mesh_fit_captured_equals_eager_on_card(cuda, tmp_path, shape):
                               np.eye(n, dtype=np.float32), F, device=cuda,
                               mesh=mesh)
             path = tmp_path / f'{eager}.jsonl'
-            state = tr.fit(metrics_path=str(path), eager=eager)
+            with _route(eager) as sp:
+                state = tr.fit(metrics_path=str(path))
             records = [{k: v for k, v in json.loads(line).items()
                         if k not in ('seconds', 'memory')}
                        for line in open(path)]
             out[eager] = (state, tr.loss_history, tr.epoch_losses,
-                          tr.epochs_run, records, tr.graph_stats['route'])
+                          tr.epochs_run, records, list(_steps('epochs', sp)))
     finally:
         cm.destroy_group()
     (cs, ch, cl, cr, crec, croute), (es, eh, el, er, erec, eroute) = (
         out[False], out[True])
-    assert (croute, eroute) == ('mesh_captured', 'mesh')
+    assert (croute, eroute) == (['mesh_captured'], ['mesh'])
     assert cr == er and cs.stopped and cr % 5 != 0
     assert ch == eh and cl == el and crec == erec
     for name in ('params', 'mu', 'nu'):
@@ -951,9 +959,18 @@ def test_mesh_fit_captured_equals_eager_on_card(cuda, tmp_path, shape):
 
 
 # ----------------------------------------------- captured solver loops
-def _steps(name):
-    from jamie_tpu_torch.core import graphs
-    return {k.split('/')[1]: v for k, v in graphs.loop_steps.items()
+@contextlib.contextmanager
+def _route(plain: bool):
+    """A span around the enclosed calls, which run their plain route
+    (`graphs.plain_loops()`) where `plain`."""
+    with (graphs.plain_loops() if plain else contextlib.nullcontext()), \
+            timing.span('route') as sp:
+        yield sp
+
+
+def _steps(name, sp):
+    """The steps of loop `name` under span `sp`, by route."""
+    return {k.split('/')[1]: v for k, v in timing.routes(sp).items()
             if k.startswith(name + '/')}
 
 
@@ -965,7 +982,6 @@ def test_prime_dual_captured_matches_eager(cuda, capsys, precision,
     by op on the card: F bit for bit, the printed lines identical, K1
     launched once per iteration on both routes (the replays counted), with
     delay 7 and 45 iterations in chunks of 10 (the last one 5)."""
-    from jamie_tpu_torch.core import graphs
     from jamie_tpu_torch.probes import distance_operand
     pdm = importlib.import_module('jamie_tpu_torch.solvers.prime_dual')
     Kx, Ky = distance_operand(300, 0, cuda), distance_operand(300, 1, cuda)
@@ -973,15 +989,14 @@ def test_prime_dual_captured_matches_eager(cuda, capsys, precision,
               state_dtype=state_dtype, device=cuda)
     outs = []
     for eager in (False, True):
-        graphs.loop_steps.clear()
         ops.reset_launch_counts()
-        F = pdm.prime_dual(Kx, Ky, 32, 32, _eager=eager, **kw)
+        with _route(eager) as sp:
+            F = pdm.prime_dual(Kx, Ky, 32, 32, **kw)
         torch.cuda.synchronize()
         assert pd_update.fused_pd_grad_update.launches == 45
-        assert _steps('prime_dual') == {'eager' if eager else 'captured': 45}
+        assert _steps('prime_dual', sp) == {
+            'eager' if eager else 'captured': 45}
         outs.append((F, capsys.readouterr().out.splitlines()))
-    stats = graphs.last_stats['prime_dual']
-    assert stats['route'] == 'eager'
     assert outs[0][1] == outs[1][1] and len(outs[0][1]) == 4
     assert torch.equal(outs[0][0], outs[1][0])
 
@@ -990,9 +1005,12 @@ def test_fps_captured_matches_eager_and_cpu(cuda):
     """One pick per replay: the same indices as the eager picks on the
     card and as the CPU's."""
     x = torch.randn(3000, 64, generator=torch.Generator().manual_seed(4))
-    got = landmark._fps_indices_device(x.to(cuda), 17, 256)
-    assert _steps('fps').get('captured', 0) >= 255
-    eager = landmark._fps_indices_device(x.to(cuda), 17, 256, eager=True)
+    with _route(False) as sp:
+        got = landmark._fps_indices_device(x.to(cuda), 17, 256)
+    assert _steps('fps', sp) == {'captured': 255}
+    with _route(True) as sp:
+        eager = landmark._fps_indices_device(x.to(cuda), 17, 256)
+    assert _steps('fps', sp) == {'eager': 255}
     cpu = landmark._fps_indices_device(x, 17, 256)
     assert torch.equal(got.cpu(), eager.cpu())
     assert torch.equal(got.cpu(), cpu)
@@ -1005,7 +1023,10 @@ def test_tsne_loops_captured_match_eager(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(300, 8, generator=g, device=cuda)
     D = pairwise.pairwise_euclidean(x, None, squared=True)
-    betas = [tsne._calibrate_beta(D, 20.0, eager=e) for e in (False, True)]
+    betas = []
+    for e in (False, True):
+        with _route(e):
+            betas.append(tsne._calibrate_beta(D, 20.0))
     assert torch.equal(*betas)
     P = tsne.joint_probabilities(D.sqrt(), 20.0, device=cuda)
     Y0 = [1e-4 * torch.randn(300, 2, generator=g, device=cuda)
@@ -1014,13 +1035,18 @@ def test_tsne_loops_captured_match_eager(cuda):
     runs = []
     for eager in (False, True):
         ops.reset_launch_counts()
-        runs.append(tsne._tsne_optimize(P, P, *Y0, pairs, pairs, 10.0, 30,
-                                        exaggeration_iters=12, eager=eager))
+        with _route(eager) as sp:
+            runs.append(tsne._tsne_optimize(P, P, *Y0, pairs, pairs, 10.0,
+                                            30, exaggeration_iters=12))
         assert pairwise.pairwise_euclidean.launches == 60
+        assert _steps('tsne', sp) == {'eager' if eager else 'captured': 30}
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    singles = [tsne._tsne_single(P, Y0[0], 30, exaggeration_iters=12,
-                                 eager=e) for e in (False, True)]
+    singles = []
+    for e in (False, True):
+        with _route(e):
+            singles.append(tsne._tsne_single(P, Y0[0], 30,
+                                             exaggeration_iters=12))
     assert torch.equal(*singles)
 
 
@@ -1033,30 +1059,34 @@ def test_lowrank_captured_matches_eager(cuda):
     rng = np.random.RandomState(2)
     xs = rng.randn(80, 4)
     K = ((xs[:, None] - xs[None]) ** 2).sum(-1)
-    outs = [lr.lowrank_corr(K, K[::-1, ::-1].copy(), dim=6, epochs=60,
-                            device=cuda, _eager=e) for e in (False, True)]
+    outs = []
+    for e in (False, True):
+        with _route(e) as sp:
+            outs.append(lr.lowrank_corr(K, K[::-1, ::-1].copy(), dim=6,
+                                        epochs=60, device=cuda))
+        route = 'eager' if e else 'captured'
+        assert _steps('lowrank_cluster', sp) == {route: 60}
+        assert _steps('lowrank_cast', sp) == {route: 60}
     assert torch.equal(*outs)
-    assert _steps('lowrank_cluster').get('captured', 0) >= 60
 
 
 def test_umap_captured_matches_eager(cuda):
     """umap_embed with its bisection and its layout epochs captured (the
     negative partners drawn in the graph from the registered generator)
-    against `_eager=True`: the embedding bit for bit, every step on its
-    route."""
-    from jamie_tpu_torch.core import graphs
+    against `graphs.plain_loops()`: the embedding bit for bit, every step
+    on its route."""
     from jamie_tpu_torch.solvers import umap
     rng = np.random.RandomState(1)
     X = np.vstack([rng.randn(150, 12), rng.randn(150, 12) + 6.0]).astype(
         np.float32)
     outs = []
     for eager in (False, True):
-        graphs.loop_steps.clear()
-        outs.append(umap.umap_embed(X, 8, n_epochs=60, seed=3, device=cuda,
-                                    _eager=eager))
+        with _route(eager) as sp:
+            outs.append(umap.umap_embed(X, 8, n_epochs=60, seed=3,
+                                        device=cuda))
         route = 'eager' if eager else 'captured'
-        assert _steps('umap_sigma') == {route: 64}
-        assert _steps('umap_layout') == {route: 60}
+        assert _steps('umap_sigma', sp) == {route: 64}
+        assert _steps('umap_layout', sp) == {route: 60}
     assert np.isfinite(outs[0]).all()
     np.testing.assert_array_equal(*outs)
 
@@ -1075,9 +1105,12 @@ def test_mmdma_captured_matches_eager(cuda):
     hyper = [torch.tensor(v, device=cuda) for v in (
         [0.1, 0.3, 0.6, 1.2], [1e-2, 1e-3, 1e-2, 1e-3],
         [1e-3, 1e-4, 1e-4, 1e-3])]
-    outs = [compare._mmdma_opt(*Ks, *a, *hyper, 6, 40, _eager=e)
-            for e in (False, True)]
-    assert _steps('mmdma') == {'captured': 40, 'eager': 40}
+    outs = []
+    with timing.span('both') as sp:
+        for e in (False, True):
+            with _route(e):
+                outs.append(compare._mmdma_opt(*Ks, *a, *hyper, 6, 40))
+    assert _steps('mmdma', sp) == {'captured': 40, 'eager': 40}
     for got, want in zip(*outs):
         assert torch.equal(got, want)
 
@@ -1126,23 +1159,24 @@ def test_failed_capture_raises(cuda, monkeypatch):
             float(args[1].sum())
             return out
         return wrapped
-    graphs.loop_steps.clear()
-    with monkeypatch.context() as m:
-        m.setattr(umap, '_weight_sum', reads_host(umap._weight_sum))
-        with pytest.raises(RuntimeError):
-            umap._smooth_knn(knn, 10)
-    with monkeypatch.context() as m:
-        m.setattr(umap, '_repulsion', reads_host(umap._repulsion))
-        with pytest.raises(RuntimeError):
-            umap._optimize_layout(W, Y, torch.Generator(device=cuda), 10,
-                                  1.5, 0.9)
-    with monkeypatch.context() as m:
-        m.setattr(compare, 'adam_update', reads_host(compare.adam_update))
-        with pytest.raises(RuntimeError):
-            compare._mmdma_opt(K, K, a, a, s, s, s, 3, 10)
+    with timing.span('failed') as sp:
+        with monkeypatch.context() as m:
+            m.setattr(umap, '_weight_sum', reads_host(umap._weight_sum))
+            with pytest.raises(RuntimeError):
+                umap._smooth_knn(knn, 10)
+        with monkeypatch.context() as m:
+            m.setattr(umap, '_repulsion', reads_host(umap._repulsion))
+            with pytest.raises(RuntimeError):
+                umap._optimize_layout(W, Y, torch.Generator(device=cuda),
+                                      10, 1.5, 0.9)
+        with monkeypatch.context() as m:
+            m.setattr(compare, 'adam_update',
+                      reads_host(compare.adam_update))
+            with pytest.raises(RuntimeError):
+                compare._mmdma_opt(K, K, a, a, s, s, s, 3, 10)
     # each ran its eager warm-up step, then the capture raised
     for loop in ('umap_sigma', 'umap_layout', 'mmdma'):
-        assert _steps(loop) == {'captured': 1}
+        assert _steps(loop, sp) == {'captured': 1}
     _draw_and_capture(cuda)
 
     # the mesh loops: a host read put in front of the first collective of
@@ -1161,7 +1195,7 @@ def test_failed_capture_raises(cuda, monkeypatch):
     xs = [torch.randn(64, d, generator=g) for d in (12, 9)]
     mesh = cm.create_mesh((1,), ('data',), device_type='cuda')
     try:
-        with monkeypatch.context() as m:
+        with monkeypatch.context() as m, timing.span('mesh') as sp:
             m.setattr(cm, 'all_reduce_plain',
                       reads_host_first(cm.all_reduce_plain))
             with pytest.raises(RuntimeError):
@@ -1177,5 +1211,5 @@ def test_failed_capture_raises(cuda, monkeypatch):
                 tr.fit()
     finally:
         cm.destroy_group()
-    assert _steps('prime_dual') == {'mesh_captured': 1}
+    assert _steps('prime_dual', sp) == {'mesh_captured': 1}
     _draw_and_capture(cuda)

@@ -19,6 +19,7 @@ import scipy.sparse as ss
 import torch
 
 from jamie_tpu.solvers import landmark as jl
+from jamie_tpu_torch.core import graphs
 from jamie_tpu_torch.ops.lowrank import LowRankF, SparseLandmarkF
 from jamie_tpu_torch.solvers import landmark as tl
 
@@ -130,26 +131,29 @@ def test_item_11_routes_raise(monkeypatch):
     them. Each now runs and takes jamie_tpu's route (a CSR source the SpMM
     weights, a source at the patched upload limit the uploader, FPS past
     its budget the JL sketch, with jamie_tpu's picks)."""
-    from jamie_tpu_torch.core import residency
+    from jamie_tpu_torch.core import timing
     x, y = _paired(n=60)
     kw = dict(n_landmarks=16, epoch_pd=5, verbose=False, device='cpu')
-    residency.route_counts.clear()
-    F = tl.landmark_correspondence(ss.csr_matrix(x), y, **kw)
+    with timing.span('spmm') as sp:
+        F = tl.landmark_correspondence(ss.csr_matrix(x), y, **kw)
     assert F.shape == (60, 60)
-    assert residency.route_counts['weights_spmm'] == 1
-    assert residency.route_counts['weights_dense'] == 1
+    routes = timing.routes(sp)
+    assert routes['weights_spmm'] == 1
+    assert routes['weights_dense'] == 1
     monkeypatch.setattr(tl, '_UPLOAD_ELEMS', 60 * 20)      # x: 60 x 20
-    residency.route_counts.clear()
-    tl.landmark_correspondence(x, y, **kw)
-    assert residency.route_counts['weights_uploader'] == 1
-    assert residency.route_counts['weights_dense'] == 1      # y: 60 x 14
+    with timing.span('uploader') as sp:
+        tl.landmark_correspondence(x, y, **kw)
+    routes = timing.routes(sp)
+    assert routes['weights_uploader'] == 1
+    assert routes['weights_dense'] == 1      # y: 60 x 14
     monkeypatch.setattr(tl, '_FPS_BYTES_BUDGET', 1024)
     monkeypatch.setattr(jl, '_FPS_BYTES_BUDGET', 1024)
-    ours = np.sort(tl._pick_landmarks(x, 8, 'fps', np.random.RandomState(0),
-                                      device='cpu')[0])
+    picks, route = tl._pick_landmarks(x, 8, 'fps', np.random.RandomState(0),
+                                      device='cpu')
     np.testing.assert_array_equal(
-        ours, jl._select_landmarks(x, 8, 'fps', np.random.RandomState(0)))
-    assert residency.route_counts['fps_jl_sketch'] == 1
+        np.sort(picks),
+        jl._select_landmarks(x, 8, 'fps', np.random.RandomState(0)))
+    assert route == 'fps_jl_sketch'
 
 
 @pytest.mark.parametrize('n_landmarks', [2, 17, 55])
@@ -169,8 +173,9 @@ def test_fps_pick_step_matches_reference(n_landmarks):
         ref = jl._fps_indices_device(jnp.asarray(x), first, n_landmarks)
         assert ours.dtype == torch.long and ours.shape == (n_landmarks,)
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
-        again = tl._fps_indices_device(torch.as_tensor(x), first,
-                                       n_landmarks, eager=True)
+        with graphs.plain_loops():
+            again = tl._fps_indices_device(torch.as_tensor(x), first,
+                                           n_landmarks)
         np.testing.assert_array_equal(again.numpy(), ours.numpy())
 
 

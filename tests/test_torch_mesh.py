@@ -254,8 +254,7 @@ def _guarded_prime_dual(mesh, Kx, Ky, dx, dy, **kw):
     """prime_dual on the mesh with every iteration under _NoHostRead (the
     host reads of the log lines stay outside), and the same solve
     unguarded."""
-    def runner(name, step, device, generators=(), eager=False,
-               mesh=False):
+    def runner(name, step, device, generators=(), mesh=False):
         def guarded():
             with _NoHostRead():
                 step()

@@ -21,6 +21,7 @@ from jamie_tpu.solvers import landmark as jl
 from jamie_tpu_torch import preprocess as tp
 from jamie_tpu_torch.core import hostmat
 from jamie_tpu_torch.core import residency as tr
+from jamie_tpu_torch.core import timing
 from jamie_tpu_torch.ops import distances as td
 from jamie_tpu_torch.solvers import landmark as tl
 
@@ -40,10 +41,16 @@ def _np(d):
 def _fresh():
     for m in (tr, jr):
         m.clear_residency_cache()
-    tr.route_counts.clear()
     yield
     for m in (tr, jr):
         m.clear_residency_cache()
+
+
+def _routes(fn, *a, **k):
+    """fn(*a, **k) inside a span: its output and the routes it took."""
+    with timing.span('call') as call:
+        out = fn(*a, **k)
+    return out, timing.routes(call)
 
 
 def _patched(monkeypatch, **values):
@@ -111,13 +118,17 @@ def test_large_distance_routes(monkeypatch, route, squared):
         monkeypatch.setattr(
             td, '_pairwise_euclidean_feature_chunked',
             lambda *a: orig(*a, chunk_bytes=chunk))
-    d_dense = _np(td.pairwise_distance(dense, metric, device='cpu'))
+    d_dense, first = _routes(td.pairwise_distance, dense, metric,
+                             device='cpu')
+    d_dense = _np(d_dense)
     tr.clear_residency_cache()
-    d_sparse = _np(td.pairwise_distance(csr, metric, device='cpu'))
+    d_sparse, second = _routes(td.pairwise_distance, csr, metric,
+                               device='cpu')
+    d_sparse = _np(d_sparse)
     ref = np.asarray(jd.pairwise_distance(csr, metric))
     name = ('distance_resident_bf16' if route == 'resident'
             else 'distance_feature_chunked')
-    assert tr.route_counts[name] == 2
+    assert (first + second)[name] == 2
     np.testing.assert_array_equal(d_sparse, d_dense)
     assert (np.diag(d_sparse) == 0).all()
     scale = 2 * float((dense.astype(np.float64) ** 2).sum(1).max())
@@ -139,10 +150,11 @@ def test_cross_distance_takes_the_chunked_route(monkeypatch):
     xh = rng.randn(40, 30).astype(np.float32)
     yh = rng.randn(25, 30).astype(np.float32)
     _patched(monkeypatch, _FEATURE_CHUNK_THRESHOLD=100)
-    d = td._pairwise_euclidean_impl(torch.as_tensor(xh), yh,
-                                    squared=True, device='cpu').numpy()
+    d, routes = _routes(td._pairwise_euclidean_impl, torch.as_tensor(xh),
+                        yh, squared=True, device='cpu')
+    d = d.numpy()
     ref = np.asarray(jd.pairwise_sq_euclidean(xh, yh))
-    assert tr.route_counts['distance_feature_chunked'] == 1
+    assert routes['distance_feature_chunked'] == 1
     np.testing.assert_allclose(d, ref, rtol=0, atol=1e-5 * 2 * float(
         (xh ** 2).sum(1).max() + (yh ** 2).sum(1).max()))
 
@@ -191,11 +203,11 @@ def test_pca_tall_routes(monkeypatch, route, source):
     exact = tp.PCA(5, device='cpu').fit_transform(X)
     _patched(monkeypatch, **kw)
     pca = tp.PCA(5, device='cpu')
-    out = pca.fit_transform(src)
+    out, routes = _routes(pca.fit_transform, src)
     ref = jp.PCA(5)
     ref_out = np.asarray(ref.fit_transform(src))
     name = 'pca_resident_bf16' if route == 'resident' else 'pca_row_streamed'
-    assert tr.route_counts[name] == 1
+    assert routes[name] == 1
     assert isinstance(out, torch.Tensor) and out.shape == (400, 5)
     out = out.numpy()
     comps = pca.components_.numpy()
@@ -223,8 +235,9 @@ def test_pca_resident_route_takes_power_iters(monkeypatch, power_iters):
     product = tp.bf16_matmul
     monkeypatch.setattr(tp, 'bf16_matmul',
                         lambda a, b: calls.append(1) or product(a, b))
-    ours = tp.PCA(5, device='cpu', power_iters=power_iters).fit(X)
-    assert tr.route_counts['pca_resident_bf16'] == 1
+    ours, routes = _routes(
+        tp.PCA(5, device='cpu', power_iters=power_iters).fit, X)
+    assert routes['pca_resident_bf16'] == 1
     assert len(calls) == power_iters + 1
     sine = np.sqrt(1 - _subspace_cosines(
         ours.components_.numpy(), exact.components_.numpy()).min() ** 2)
@@ -245,10 +258,10 @@ def test_pca_wide_streamed_route(monkeypatch, source):
     exact = tp.PCA(5, device='cpu').fit(X)
     _patched(monkeypatch, _STREAM_THRESHOLD=100, DEFAULT_BUDGET_BYTES=0)
     ours = tp.PCA(5, device='cpu')
-    out = ours.fit_transform(src)
+    out, routes = _routes(ours.fit_transform, src)
     ref = jp.PCA(5)
     ref.fit(src)
-    assert tr.route_counts['pca_streamed'] == 1
+    assert routes['pca_streamed'] == 1
     assert out.shape == (60, 5)
     c = ours.components_.numpy()[:3]
     assert _subspace_cosines(c, np.asarray(ref.components_)[:3]).min() > 0.999
@@ -271,9 +284,9 @@ def test_pca_wide_resident_csr_takes_the_spmm_route(monkeypatch):
     _patched(monkeypatch, _STREAM_THRESHOLD=100,
              DEFAULT_BUDGET_BYTES=(csr + dense_bf16) // 2)
     ours = tp.PCA(5, device='cpu')
-    out = ours.fit_transform(src)
-    assert tr.route_counts['pca_row_streamed'] == 1
-    assert tr.route_counts['pca_streamed'] == 0
+    out, routes = _routes(ours.fit_transform, src)
+    assert routes['pca_row_streamed'] == 1
+    assert routes['pca_streamed'] == 0
     assert isinstance(out, torch.Tensor) and out.shape == (60, 5)
     c = ours.components_.numpy()[:3]
     assert _subspace_cosines(c, exact.components_.numpy()[:3]).min() > 0.999
@@ -297,9 +310,9 @@ def test_pca_transform_spmm_route(monkeypatch):
     dense_out = ours.transform(base)
     csr = sparse.csr_matrix(base)
     _patched(monkeypatch, _STREAM_THRESHOLD=n * f, BF16_LINK_ELEMS=100)
-    out = ours.transform(csr, row_chunk_bytes=f * 4 * 64)
+    out, routes = _routes(ours.transform, csr, row_chunk_bytes=f * 4 * 64)
     ref_out = ref.transform(csr, row_chunk_bytes=f * 4 * 64)
-    assert tr.route_counts['pca_transform_spmm'] == 1
+    assert routes['pca_transform_spmm'] == 1
     np.testing.assert_allclose(out, dense_out, rtol=5e-2, atol=2e-2)
     np.testing.assert_allclose(out, ref_out, rtol=5e-2, atol=2e-2)
 
@@ -371,13 +384,13 @@ def test_landmark_correspondence_on_csr(monkeypatch, rounded):
                 lambda A, r: jl._select_landmarks(A, 32, 'fps', r)):
         r = np.random.RandomState(1)       # landmark_correspondence's
         picks.append([sel(A, r) for A in (X, Y)])          # order
-    tr.route_counts.clear()
-    ours = tl.landmark_correspondence(X, Y, device='cpu', **kw)
+    ours, routes = _routes(tl.landmark_correspondence, X, Y, device='cpu',
+                           **kw)
     ref = jl.landmark_correspondence(X, Y, **kw)
     for a, b in zip(*picks):
         np.testing.assert_array_equal(a, b)
-    assert tr.route_counts['fps_jl_sketch'] == 2
-    assert tr.route_counts['weights_spmm'] == 2
+    assert routes['fps_jl_sketch'] == 2
+    assert routes['weights_spmm'] == 2
     for a, src, lx in (('x', xd, picks[0][0]), ('y', yd, picks[0][1])):
         ok = _resolved_rows(src, src[lx], 8)
         assert ok.mean() > 0.9
@@ -458,12 +471,11 @@ def test_estimator_atlas_routes(monkeypatch):
              DEFAULT_BUDGET_BYTES=40_000, _FPS_BYTES_BUDGET=1000)
     tj = JAMIE(device='cpu', **kw)
     out = tj.fit_transform(dataset=data)
-    routes = dict(tr.route_counts)
+    routes = timing.routes(tj.trace)
     jj = JaxJAMIE(use_mesh=False, epoch_chunk=20, **kw)
     jout = jj.fit_transform(dataset=data)
-    tr.route_counts.clear()
-    re = tj.transform(data)
-    assert tr.route_counts['pca_transform_spmm'] == 2
+    re, served = _routes(tj.transform, data)
+    assert served['pca_transform_spmm'] == 2
     imputed = tj.modal_predict(data[0][:50], 0)
     assert routes['fps_jl_sketch'] == 2 and routes['weights_spmm'] == 2
     assert routes['pca_resident_bf16'] == 1

@@ -29,6 +29,7 @@ import jamie_tpu.ops.distances as jd
 import jamie_tpu.preprocess as jp
 import jamie_tpu.solvers.landmark as jl
 import jamie_tpu_torch.core.residency as tr
+import jamie_tpu_torch.core.timing as timing
 import jamie_tpu_torch.estimator as te
 import jamie_tpu_torch.ops.distances as td
 import jamie_tpu_torch.preprocess as tp
@@ -45,7 +46,6 @@ DELTAS = [-1, 0, 1]
 def _fresh():
     tr.clear_residency_cache()
     jr.clear_residency_cache()
-    tr.route_counts.clear()
     yield
     tr.clear_residency_cache()
     jr.clear_residency_cache()
@@ -53,6 +53,13 @@ def _fresh():
 
 def _data(n=24, f=10, seed=0):
     return np.random.RandomState(seed).rand(n, f).astype(np.float32)
+
+
+def _routes(fn, *a, **k):
+    """fn(*a, **k) inside a span: its output and the routes it took."""
+    with timing.span('call') as call:
+        out = fn(*a, **k)
+    return out, timing.routes(call)
 
 
 def _spy(monkeypatch, module, name, calls):
@@ -71,9 +78,10 @@ def test_distance_threshold_is_strict(monkeypatch, delta):
         monkeypatch.setattr(m, '_FEATURE_CHUNK_THRESHOLD', x.size + delta)
     calls = []
     _spy(monkeypatch, jr, 'device_bf16', calls)
-    td.dataset_distance_matrix(x, 'euclidean', device='cpu')
+    _, routes = _routes(td.dataset_distance_matrix, x, 'euclidean',
+                        device='cpu')
     jd.dataset_distance_matrix(x, 'euclidean')
-    ours = tr.route_counts['distance_resident_bf16'] == 1
+    ours = routes['distance_resident_bf16'] == 1
     assert ours == bool(calls) == (x.size > x.size + delta)
 
 
@@ -84,9 +92,9 @@ def test_pca_fit_threshold_is_strict(monkeypatch, delta):
         monkeypatch.setattr(m, '_STREAM_THRESHOLD', x.size + delta)
     calls = []
     _spy(monkeypatch, jr, 'device_bf16', calls)
-    tp.PCA(3, device='cpu').fit(x)
+    _, routes = _routes(tp.PCA(3, device='cpu').fit, x)
     jp.PCA(3).fit(x)
-    ours = tr.route_counts['pca_resident_bf16'] == 1
+    ours = routes['pca_resident_bf16'] == 1
     assert ours == bool(calls) == (x.size > x.size + delta)
 
 
@@ -97,10 +105,11 @@ def test_fps_budget_is_strict(monkeypatch, delta):
         monkeypatch.setattr(m, '_FPS_BYTES_BUDGET', 4 * x.size + delta)
     calls = []
     _spy(monkeypatch, jl, '_project_for_fps', calls)
-    ours = np.sort(tl._pick_landmarks(x, 5, 'fps', np.random.RandomState(0),
-                                      device='cpu')[0])
+    picks, route = tl._pick_landmarks(x, 5, 'fps', np.random.RandomState(0),
+                                      device='cpu')
+    ours = np.sort(picks)
     ref = jl._select_landmarks(x, 5, 'fps', np.random.RandomState(0))
-    assert (tr.route_counts['fps_jl_sketch'] == 1) == bool(calls) == (
+    assert (route == 'fps_jl_sketch') == bool(calls) == (
         4 * x.size > 4 * x.size + delta)
     if not calls:
         np.testing.assert_array_equal(ours, ref)
@@ -114,9 +123,9 @@ def test_pca_transform_threshold_is_inclusive(monkeypatch, delta):
         monkeypatch.setattr(m, '_STREAM_THRESHOLD', x.size + delta)
     calls = []
     _spy(monkeypatch, jr, 'ChunkUploader', calls)
-    out = ours.transform(x, row_chunk_bytes=64)
+    out, routes = _routes(ours.transform, x, row_chunk_bytes=64)
     ref_out = ref.transform(x, row_chunk_bytes=64)
-    assert (tr.route_counts['pca_transform_uploader'] == 1) == bool(calls) \
+    assert (routes['pca_transform_uploader'] == 1) == bool(calls) \
         == (x.size >= x.size + delta)
     np.testing.assert_allclose(out, ref_out, rtol=1e-4, atol=1e-4)
 

@@ -12,8 +12,7 @@ import pytest
 import torch
 
 from jamie_tpu_torch import JAMIE
-from jamie_tpu_torch.core import graphs, timing
-from jamie_tpu_torch.train import trainer as trainer_mod
+from jamie_tpu_torch.core import timing
 
 KW = dict(epoch_DNN=6, min_epochs=2, epoch_chunk=2, batch_size=32,
           pca_dim=(8, 6), epoch_pd=20, log_pd=10, log_DNN=10_000,
@@ -46,16 +45,17 @@ class _CountingRange:
 
 def _fit(mode, **kw):
     """A tiny fit; its estimator, its stdout, the loops' step counts and
-    the trainer's epochs by route during it."""
-    graphs.loop_steps.clear()
-    routes = dict(trainer_mod.epoch_routes)
+    the trainer's epochs by route, from its span tree."""
     jm = JAMIE(device='cpu', distance_mode=mode, **{**KW, **kw})
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         jm.fit_transform(dataset=_data())
-    epochs = {k: v - routes.get(k, 0)
-              for k, v in trainer_mod.epoch_routes.items()}
-    return jm, out.getvalue(), dict(graphs.loop_steps), epochs
+    routes = timing.routes(jm.trace)
+    steps = {k: v for k, v in routes.items()
+             if '/' in k and not k.startswith('epochs/')}
+    epochs = {k.split('/')[1]: v for k, v in routes.items()
+              if k.startswith('epochs/')}
+    return jm, out.getvalue(), steps, epochs
 
 
 @pytest.fixture(scope='module', params=['euclidean', 'geodesic'])
@@ -138,9 +138,11 @@ def test_replay_counters_equal_the_loops_counts(fitted):
     jm, _, steps, epochs = fitted['plain']
     root = jm.trace
     (pd,) = root.find('prime_dual.replay')
-    assert pd.counters == {'steps': KW['epoch_pd'], 'replays': 0}
+    assert pd.counters == {'steps': KW['epoch_pd'], 'replays': 0,
+                           'loops': {'prime_dual/cpu': KW['epoch_pd']}}
     assert steps == {'prime_dual/cpu': pd.counters['steps']}
     (tr,) = root.find('trainer.replay')
+    assert tr.counters['loops'] == {'epochs/eager': KW['epoch_DNN']}
     assert epochs == {'eager': tr.counters['epochs']}
     assert tr.counters['epochs'] == KW['epoch_DNN']
     assert tr.counters['steps'] == \
@@ -150,7 +152,7 @@ def test_replay_counters_equal_the_loops_counts(fitted):
     assert not root.find('trainer.capture') and not root.find(
         'graphs.capture')
     # the CPU keeps the block tails' composed ops
-    assert jm.trainer.graph_stats['blocks_fused'] == 0
+    assert tr.counters['blocks_fused'] == 0
     # on the CPU: no device time, no device memory
     assert all(sp.device_s is None and sp.memory_allocated is None
                for sp in root.walk())

@@ -19,6 +19,7 @@ from jamie_tpu.models.coupled_vae import CoupledVAE as FlaxVAE
 from jamie_tpu.train import losses as jl
 from jamie_tpu.train.trainer import JamieTrainer as JTrainer
 from jamie_tpu_torch.config import JamieConfig
+from jamie_tpu_torch.core import timing
 from jamie_tpu_torch.models.coupled_vae import CoupledVAE
 from jamie_tpu_torch.train import losses as tl
 from jamie_tpu_torch.train import trainer as T
@@ -242,21 +243,26 @@ def test_chunk_fn_runs_epochs_from_the_live_state():
     whole = a.fit()
     b = _trainer(use_early_stop=False, epoch_DNN=6)
     b._load(b.init_state())
-    fn = b._chunk_fn(3)
-    rows = np.concatenate([fn().result(), fn().result()])
-    assert b.graph_stats == {'route': 'eager', 'blocks_fused': 0}
+    with timing.span('chunks') as sp:
+        fn = b._chunk_fn(3)
+        rows = np.concatenate([fn().result(), fn().result()])
+    # the eager body, with the block tails' composed ops
+    assert sp.counters == {'blocks_fused': 0} and not sp.children
     np.testing.assert_array_equal(rows[:, 0], np.float32(a.epoch_losses))
     _assert_states_equal(b._snapshot(), whole)
 
 
-def test_epoch_routes_count_the_epochs_that_ran():
-    """`epoch_routes` counts the epochs a fit trained: under lookahead 3
-    the no-op epochs of the chunks dispatched past the stop add nothing."""
+def test_replay_span_counts_the_epochs_that_ran():
+    """The `trainer.replay` span counts the epochs a fit trained, as the
+    loop 'epochs' on its route: under lookahead 3 the no-op epochs of the
+    chunks dispatched past the stop add nothing."""
     tr = _trainer(dispatch_lookahead=3)
-    before = T.epoch_routes['eager']
-    tr.fit()
+    with timing.span('fit') as sp:
+        tr.fit()
     assert tr.epochs_run == 9
-    assert T.epoch_routes['eager'] - before == 9
+    (replay,) = sp.find('trainer.replay')
+    assert replay.counters['loops'] == {'epochs/eager': 9}
+    assert timing.routes(sp) == {'epochs/eager': 9}
 
 
 @pytest.mark.parametrize('batch_step', [True, False])

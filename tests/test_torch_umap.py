@@ -124,9 +124,10 @@ def test_estimator_umap_preclass_end_to_end():
 
 
 # ------------------------------------------ the loops' shared steps (CPU)
-def _steps(name):
-    from jamie_tpu_torch.core import graphs
-    return {k.split('/')[1]: v for k, v in graphs.loop_steps.items()
+def _steps(name, sp):
+    """The steps of loop `name` under span `sp`, by route."""
+    from jamie_tpu_torch.core import timing
+    return {k.split('/')[1]: v for k, v in timing.routes(sp).items()
             if k.startswith(name + '/')}
 
 
@@ -135,15 +136,15 @@ def test_smooth_knn_steps_match_reference(iters):
     """The bisection's shared step `iters` times on the 'cpu' route: rho
     exactly, sigma within 1e-5 relative of jamie_tpu's after as many
     fori_loop steps."""
-    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.core import timing
     rng = np.random.RandomState(5)
     knn_d = np.sort(np.abs(rng.randn(40, 15)), axis=1).astype(np.float32)
     rho_r, sigma_r = (np.asarray(a) for a in ju._smooth_knn(
         jnp.asarray(knn_d), iters=iters))
-    graphs.loop_steps.clear()
-    rho, sigma = (a.numpy() for a in tu._smooth_knn(torch.as_tensor(knn_d),
-                                                     iters=iters))
-    assert _steps('umap_sigma') == {'cpu': iters}
+    with timing.span('umap_sigma') as sp:
+        rho, sigma = (a.numpy() for a in tu._smooth_knn(
+            torch.as_tensor(knn_d), iters=iters))
+    assert _steps('umap_sigma', sp) == {'cpu': iters}
     np.testing.assert_array_equal(rho, rho_r)
     np.testing.assert_allclose(sigma, sigma_r, rtol=1e-5)
 
@@ -192,16 +193,16 @@ def test_optimize_layout_negatives_are_seeded_and_match_float64():
     the partners the generator drew matches a float64 transcription of
     jamie_tpu's body (umap.py:126-147) within 1e-5 of the largest
     coordinate."""
-    from jamie_tpu_torch.core import graphs
+    from jamie_tpu_torch.core import timing
     W, Y0 = _layout_case()
     a, b = tu.fit_ab()
 
     def run(seed, epochs):
         return tu._optimize_layout(W, Y0, torch.Generator().manual_seed(seed),
                                    epochs, a, b, neg_rate=5)
-    graphs.loop_steps.clear()
-    e1 = run(3, 20)
-    assert _steps('umap_layout') == {'cpu': 20}
+    with timing.span('umap_layout') as sp:
+        e1 = run(3, 20)
+    assert _steps('umap_layout', sp) == {'cpu': 20}
     np.testing.assert_array_equal(e1.numpy(), run(3, 20).numpy())
     assert not np.allclose(e1.numpy(), run(4, 20).numpy(), atol=1e-5)
     assert torch.equal(Y0, _layout_case()[1])     # the input is not written
